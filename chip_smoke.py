@@ -2,32 +2,50 @@
 """Drive the PyTorch port (`vist3a_tpu_torch`) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase, as the check runs it
-    python3 chip_smoke.py --phases device,build,kernels
+    python3 chip_smoke.py --phases device,build,kernels,raster
 
 Phases, each of which passes or raises (any failure exits non-zero):
   1. device  — the card's name and power limit; fails without CUDA.
-  2. build   — builds `vist3a_tpu_torch/csrc/flash_attention_fwd.cu` for
-               sm_90a and prints ptxas's registers / shared memory / spills.
+  2. build   — builds `vist3a_tpu_torch/csrc/flash_attention_fwd.cu` and
+               `csrc/rasterize_fwd.cu` for sm_90a, one nvcc each, at once,
+               and prints ptxas's registers / shared memory / spills.
   3. kernels — holds the flash-attention kernel against its plain PyTorch
                version at the three shapes of the decode (ViT blocks,
                frame attention, global attention), plus a fully masked and
                a strided case, and times it beside the plain version and
                `F.scaled_dot_product_attention` (a yardstick the port never
                calls).
-  4. slice   — builds the stitched decoder at full width (VGGT-1B /
+  4. raster  — one full-width scene: the Gaussians of one stitched-decoder
+               request and its 13 context cameras interpolated to the
+               133-view orbit.  Holds the composite kernel against its
+               plain version on two orbit views at 448², prints each view's
+               pair count and what the budget cut, times both, and states
+               the kernel's bound.  No PyTorch call computes the same
+               function, so its library time is null.
+  5. slice   — builds the stitched decoder at full width (VGGT-1B /
                DINOv2-L, random weights from a seed, trunk bf16, heads bf16)
                and serves 3 decode requests through `forward_with_latent`:
                Wan latent (1, 16, 4, 64, 64) + images (1, 3, 13, 448, 448)
                → 2,609,152 Gaussians.  Checks shapes, finiteness and that
                each request launched the kernel 8 times unmasked and 48
                times masked.
-  5. profile — one more request under torch.profiler: device time by
-               kernel and group, the device's busy share of the request,
-               the host ops, and synchronised per-stage times.  Runs after
-               the slice has read its launch counts.
-  6. reference — a narrow decoder at the full spatial shape, run on the card
+  6. profile — one more slice request and one more decode request under
+               torch.profiler: device time by kernel and group, the
+               device's busy share, the host ops, and stage times (the
+               slice's synchronised; the decode's from the port's
+               `decode.*`, `export.*` and `render.*` profiler ranges).
+               Runs after the counts have been read.
+  7. reference — a narrow decoder at the full spatial shape, run on the card
                (kernel path) and on the host CPU (plain path) with the same
                weights and inputs; the outputs must agree.
+  8. decode  — the decode half of text→3DGS at full width: the Wan 2.1 VAE
+               decoder (bf16) and the stitched decoder from seeds, a
+               normalised latent (1, 16, 4, 64, 64) through
+               `decode_and_reconstruct` (video (1, 3, 13, 512, 512),
+               feed-forward (1, 3, 13, 448, 448), 2,609,152 Gaussians) and
+               `export_artifacts` (133 orbit views at 448², one composite
+               launch each, gs.mp4 and depth.mp4 written, the PLY read
+               back).  Two requests.
 The line before the last lists the kernels as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -37,26 +55,62 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
-PHASES = ("device", "build", "kernels", "slice", "profile", "reference")
+PHASES = ("device", "build", "kernels", "raster", "slice", "profile",
+          "reference", "decode")
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 (data sheet)
+PEAK_FP32_FLOPS = 67e12       # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
 KERNEL_SOURCE = "vist3a_tpu_torch/csrc/flash_attention_fwd.cu"
+RASTER_SOURCE = "vist3a_tpu_torch/csrc/rasterize_fwd.cu"
 O_ATOL = 2e-2     # bf16 output, P rounded to bf16 before the PV product
 LSE_ATOL = 1e-3   # fp32 statistics; only the summation order differs
+# Composite kernel vs its plain version, both fp32: each plane within
+# 1e-4 of its own scale (1 for colour, alpha, T; the largest depth for
+# depth), on all but 0.1 % of the pixels — the 1e-4 stop can fire one pair
+# apart under another order of fp32 rounding (the plain version's cumprod
+# is a parallel scan on the card), and such a pixel differs by up to the
+# weight of that pair.
+RASTER_ATOL = 1e-4
+RASTER_MAX_OFF_SHARE = 1e-3
+# fp32 operations the composite does per (pixel, evaluated pair): dx, dy,
+# σ (9), −σ, exp, o·exp; and per composited pair: min, 1−α, T·(1−α), α·T,
+# four multiply-adds (8) and the alpha sum.
+OPS_PER_EVAL = 14
+OPS_PER_COMPOSITE = 13
+IMAGE = 448
+ORBIT_T = 10
+ORBIT_VIEWS = (13 - 1) * (ORBIT_T + 1) + 1       # 133
+RASTER_VIEWS = (5, 71)     # in-between orbit views: frames 0-1 and 6-7
+DECODE_REQUESTS = 2
 
 REQUESTS = 3
 GAUSSIANS = 13 * 448 * 448
 LAUNCHES_PER_REQUEST = {"unmasked": 8, "masked": 48}
-# A pose-branch bias that puts the narrow decoder's random-weight cameras at
-# a real pose (unit-ish quaternion, FoV ≈ 0.8 rad after 4 refinements):
-# near-zero quaternions and ReLU-clipped FoVs would make the camera outputs
-# ill-conditioned and the comparison meaningless.
+# A pose-branch bias that puts a random-weight decoder's cameras at a real
+# pose (unit-ish quaternion, FoV ≈ 0.8 rad after 4 refinements): near-zero
+# quaternions and ReLU-clipped FoVs make the camera outputs ill-conditioned,
+# the narrow comparison meaningless and the orbit views empty.
 CAMERA_BIAS = (0.05, -0.05, 0.5, 0.02, 0.03, 0.01, 0.25, 0.2, 0.2)
+# The full-width model's pose-branch weight is scaled by this, so the 13
+# frames keep distinct cameras near the bias pose (see `build_stitched`).
+CAMERA_WEIGHT_SCALE = 0.05
+# The decode request's profiler ranges (the port's `record_function`
+# names): the top-level stages in request order, then the per-view stages
+# of the render, which lie inside `export.render`.
+DECODE_STAGES = ("decode.vae", "decode.resize", "decode.stitched",
+                 "export.cameras", "export.render", "export.frames_to_host",
+                 "export.colour_uint8", "export.turbo_uint8",
+                 "export.mp4_write", "export.ply")
+RENDER_STAGES = ("render.project_sh_table", "render.pairs",
+                 "render.composite", "render.background")
 
 
 def log(msg: str) -> None:
@@ -101,14 +155,19 @@ def phase_device() -> str:
 def phase_build() -> None:
     from vist3a_tpu_torch.kernels import build
     from vist3a_tpu_torch.kernels import flash_attention as fa
+    from vist3a_tpu_torch.kernels import rasterizer as tr
 
     t0 = time.perf_counter()
+    build.build_all([fa.SOURCE, tr.SOURCE])
     fa._lib()
-    log(f"build: {fa.SOURCE} loaded in {time.perf_counter() - t0:.1f} s")
-    text = build.build_logs.get(fa.SOURCE, "(library already built)")
-    for line in text.splitlines():
-        if "ptxas" in line or "error" in line.lower():
-            log(f"  {line.strip()}")
+    tr._lib()
+    log(f"build: {fa.SOURCE} and {tr.SOURCE} built and loaded in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for source in (fa.SOURCE, tr.SOURCE):
+        text = build.build_logs.get(source, "(library already built)")
+        for line in text.splitlines():
+            if "ptxas" in line or "error" in line.lower():
+                log(f"  {source}: {line.strip()}")
 
 
 @dataclasses.dataclass
@@ -250,20 +309,39 @@ def _check_output(out, n_gauss: int) -> None:
         check(bool(torch.isfinite(t).all()), f"non-finite {name}")
 
 
-def phase_slice(profile: bool) -> dict:
+def build_stitched():
+    import torch
+
+    from vist3a_tpu_torch.stitch import chopped_anysplat as ca
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    model = ca.init(stitched_config(), gen, device="cuda",
+                    dtype=torch.bfloat16)
+    # Random weights give each of the 13 frames an unrelated camera: a
+    # context view then sees only its own frame's Gaussians (~1/13) and an
+    # in-between orbit view none.  With the pose branch's last weight scaled
+    # down, every frame's camera lies near the bias pose (see CAMERA_BIAS)
+    # and still follows its own frame, so the orbit moves through cameras
+    # that see one scene, as a trained model's consistent cameras do.
+    fc2 = model.encoder.camera_head.pose_branch.fc2
+    fc2.weight.mul_(CAMERA_WEIGHT_SCALE)
+    fc2.bias.copy_(torch.tensor(CAMERA_BIAS))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"model: StitchedConfig() full width, {n_params} parameters, built "
+        f"in {time.perf_counter() - t0:.1f} s")
+    return model
+
+
+def phase_slice(model, profile: bool) -> dict:
     import torch
 
     from vist3a_tpu_torch.kernels import flash_attention as fa
     from vist3a_tpu_torch.stitch import chopped_anysplat as ca
 
     cfg = stitched_config()
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    t0 = time.perf_counter()
-    model = ca.init(cfg, gen, device="cuda", dtype=torch.bfloat16)
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in model.parameters())
-    log(f"slice: StitchedConfig() full width, {n_params} parameters, built "
-        f"in {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device="cuda").manual_seed(1)
     inputs = []
     for _ in range(REQUESTS):
         latent = torch.randn(1, 16, 4, 64, 64, generator=gen, device="cuda"
@@ -298,7 +376,10 @@ def phase_slice(profile: bool) -> dict:
     log(f"slice: latency ms {latencies}; peak memory allocated {peak} B; "
         f"launches {counts}")
     if profile:
-        profile_request(model, cfg, *inputs[-1])
+        latent, images = inputs[-1]
+        profile_call("slice", lambda: ca.forward_with_latent(
+            model, latent, images, cfg))
+        stage_times(model, cfg, latent, images)
     return {"latency_ms": latencies, "peak_bytes": peak, "launches": counts}
 
 
@@ -314,6 +395,8 @@ def _kernel_group(name: str) -> str:
     if any(t in low for t in ("gemm", "xmma", "cutlass", "sm90_", "gemv",
                               "nvjet")):
         return "matmul (cuBLAS)"
+    if "composite_fwd_kernel" in low:
+        return "rasterizer composite (this repo)"
     if any(t in low for t in ("sort", "radix", "quantile", "topk")):
         return "sort / quantile"
     if "layer_norm" in low or "layernorm" in low:
@@ -324,24 +407,29 @@ def _kernel_group(name: str) -> str:
     return "other"
 
 
-def profile_request(model, cfg, latent, images) -> None:
-    """One request under torch.profiler: device time by kernel and group,
-    and the device's busy share of the request's wall time."""
+def profile_call(label: str, fn, stages=(), nested=()) -> None:
+    """`fn()` under torch.profiler: device time by kernel and group, the
+    device's busy share of its wall time, and for each of the profiler
+    ranges `stages` (which follow one another) and `nested` (inside them)
+    its calls, host time and the device time of the kernels it launched.
+    The port's own kernels launch through ctypes, outside any aten op, so
+    the profiler ties them to no range: their device time is in the group
+    lines only (flash attention in `decode.stitched`, the composite in
+    `render.composite`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-
-    from vist3a_tpu_torch.stitch import chopped_anysplat as ca
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        ca.forward_with_latent(model, latent, images, cfg)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = {}
     for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
+        if ev.device_type != torch.autograd.DeviceType.CUDA \
+                or ev.is_user_annotation:
             continue
         us = ev.time_range.elapsed_us()
         kernels[ev.name] = kernels.get(ev.name, 0.0) + us / 1e3
@@ -352,19 +440,38 @@ def profile_request(model, cfg, latent, images) -> None:
     for name, ms in kernels.items():
         g = _kernel_group(name)
         groups[g] = groups.get(g, 0.0) + ms
-    log(f"profile: request wall {wall_ms:.3f} ms (under the profiler), "
+    tag = f"profile[{label}]"
+    log(f"{tag}: request wall {wall_ms:.3f} ms (under the profiler), "
         f"device kernels {device_ms:.3f} ms, busy share "
         f"{device_ms / wall_ms:.4f}")
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
-        log(f"profile: group {g}: {ms:.3f} ms ({ms / device_ms:.4f})")
+        log(f"{tag}: group {g}: {ms:.3f} ms ({ms / device_ms:.4f})")
     top = sorted(kernels.items(), key=lambda kv: -kv[1])
     for name, ms in top[:12]:
-        log(f"profile: kernel {ms:9.3f} ms  {name[:110]}")
+        log(f"{tag}: kernel {ms:9.3f} ms  {name[:110]}")
     host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
     for ev in host[:12]:
-        log(f"profile: host op {ev.self_cpu_time_total / 1e3:9.3f} ms self, "
+        log(f"{tag}: host op {ev.self_cpu_time_total / 1e3:9.3f} ms self, "
             f"{ev.count:5d} calls  {ev.key[:90]}")
-    stage_times(model, cfg, latent, images)
+    if not stages:
+        return
+    ranges = {n: [0, 0.0, 0.0] for n in (*stages, *nested)}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CPU \
+                and ev.name in ranges:
+            r = ranges[ev.name]
+            r[0] += 1
+            r[1] += ev.time_range.elapsed_us() / 1e3
+            r[2] += ev.device_time_total / 1e3
+    missing = [n for n, r in ranges.items() if r[0] == 0]
+    check(not missing, f"{tag}: no profiler range {missing}")
+    for n, (calls, host_ms, dev_ms) in ranges.items():
+        log(f"{tag}: range {n}: {calls} calls, host {host_ms:.3f} ms, "
+            f"device {dev_ms:.3f} ms")
+    host_sum = sum(ranges[n][1] for n in stages)
+    log(f"{tag}: the {len(stages)} stages' host time {host_sum:.3f} ms of "
+        f"the request's {wall_ms:.3f} ms ({wall_ms - host_sum:.3f} ms "
+        f"outside them)")
 
 
 def stage_times(model, cfg, latent, images) -> None:
@@ -494,11 +601,244 @@ def phase_reference() -> dict:
     return errs
 
 
-def _kernel_entries(timed: dict, launches: dict) -> list:
-    """One entry per kernel entry point (the two counters), each timed at
-    its main-path shape; the masked entry's top-level numbers are those of
-    the global shape, which holds 24 of its 48 launches and ~92 % of its
-    FLOPs, and `shapes` carries every measured shape."""
+def orbit_cameras(out):
+    """A decode's 13 context cameras interpolated as the export does."""
+    from vist3a_tpu_torch.io.video_export import interpolate_cameras
+
+    ex, kk = interpolate_cameras(out.extrinsic_c2w.float().cpu().numpy(),
+                                 out.intrinsic_norm.float().cpu().numpy(),
+                                 ORBIT_T)
+    check(ex.shape[1] == ORBIT_VIEWS, f"{ex.shape[1]} orbit views")
+    return ex, kk
+
+
+def orbit_view(cams, view: int):
+    """World→camera matrix and pixel K of orbit view `view`."""
+    import torch
+
+    ex, kk = cams
+    viewmat = torch.linalg.inv(torch.from_numpy(ex[0, view]).cuda())
+    K = torch.from_numpy(kk[0, view]).cuda() \
+        * torch.tensor([[IMAGE], [IMAGE], [1.0]], device="cuda")
+    return viewmat, K
+
+
+def composite_bound(pairs, n_eval, n_comp) -> dict:
+    """The least time the card needs for this view's composite: fp32
+    operations of the (pixel, pair) evaluations and compositions that this
+    data needs, and the bytes of the ids and rows the tiles must read (each
+    Gaussian's row once) plus the bounds and the six output planes."""
+    import torch
+
+    from vist3a_tpu_torch.kernels import rasterizer as tr
+
+    ops = OPS_PER_EVAL * int(n_eval.sum()) + OPS_PER_COMPOSITE * int(
+        n_comp.sum())
+    nt = IMAGE // tr.TILE
+    walk = n_eval.reshape(nt, tr.TILE, nt, tr.TILE).amax((1, 3)).flatten()
+    idx = torch.arange(pairs.gid.numel(), device=walk.device)
+    bounds = pairs.bounds.long()
+    tile = torch.searchsorted(bounds[1:], idx, right=True)
+    need = (idx - bounds[tile]) < walk[tile]
+    n_rows = torch.unique(pairs.gid[need]).numel()
+    n_bytes = 4 * int(need.sum()) + 4 * tr.N_ATTR * n_rows \
+        + 4 * bounds.numel() + 4 * tr.N_OUT * IMAGE * IMAGE
+    ops_ms = ops / PEAK_FP32_FLOPS * 1e3
+    bytes_ms = n_bytes / PEAK_BYTES * 1e3
+    return {"ops": ops, "bytes": n_bytes, "pairs_walked": int(need.sum()),
+            "rows_read": n_rows, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def camera_spread(c2w) -> tuple[float, float]:
+    """Largest rotation angle (degrees) and camera-centre distance of the
+    13 context cameras from the first."""
+    import torch
+
+    c2w = c2w[0].float()
+    rel = c2w[0, :3, :3].T @ c2w[:, :3, :3]
+    cos = ((rel.diagonal(dim1=1, dim2=2).sum(-1) - 1) / 2).clamp(-1, 1)
+    dist = (c2w[:, :3, 3] - c2w[0, :3, 3]).norm(dim=-1)
+    return (torch.rad2deg(torch.acos(cos)).max().item(),
+            dist.max().item())
+
+
+def raster_view(g, cams, view: int) -> dict:
+    """The composite kernel against its plain version on one orbit view,
+    both timed, with the view's bound."""
+    import torch
+
+    from vist3a_tpu_torch.kernels import rasterizer as tr
+
+    n_gauss = g.means.shape[1]
+    budget = tr.default_pair_budget(n_gauss)
+    viewmat, K = orbit_view(cams, view)
+    table, pairs = tr.view_pairs(g.means[0], g.covariances[0],
+                                 g.harmonics[0], g.opacities[0], viewmat, K,
+                                 IMAGE, IMAGE, budget)
+    n_pairs = pairs.gid.numel()
+    log(f"raster: G={n_gauss}, orbit view {view} of {ORBIT_VIEWS} at "
+        f"{IMAGE}², pair budget {budget}: {pairs.total} pairs, "
+        f"{n_pairs} kept, {pairs.total - n_pairs} cut by the budget; "
+        f"{int((table[:, 5] > 0).sum())} Gaussians valid with opacity > 0")
+    check(n_pairs > 0, f"orbit view {view} is empty: nothing to composite")
+    ntx = IMAGE // tr.TILE
+    args = (pairs.gid, pairs.bounds, table, ntx, IMAGE, IMAGE)
+    img = tr.composite(*args)
+    torch.cuda.synchronize()
+    ref, n_eval, n_comp = tr.composite_ref(*args, return_work=True)
+    check(bool(torch.isfinite(img).all()), "non-finite composite output")
+    diff = (img - ref).abs()
+    scale = ref.abs().flatten(1).amax(1).clamp_min(1.0)[:, None, None]
+    off = (diff > RASTER_ATOL * scale).any(0)
+    share = off.float().mean().item()
+    planes = ("r", "g", "b", "depth", "alpha", "T")
+    errs = {k: diff[i].max().item() for i, k in enumerate(planes)}
+    errs_in = {k: diff[i][~off].max().item() for i, k in enumerate(planes)}
+    log(f"raster: view {view}: kernel vs plain max |Δ| per plane {errs}; "
+        f"over the pixels within tolerance {errs_in}; pixels beyond "
+        f"{RASTER_ATOL}·scale: {int(off.sum())} ({share:.3g}); covered "
+        f"(alpha > 0.5) {(ref[4] > 0.5).float().mean().item():.4f}")
+    check(share <= RASTER_MAX_OFF_SHARE,
+          f"composite kernel disagrees with composite_ref on {share:.3g} of "
+          f"the pixels of view {view} (allowed {RASTER_MAX_OFF_SHARE})")
+    kernel_ms = cuda_events_ms(lambda: tr.composite(*args), iters=20)
+    plain_ms = cuda_events_ms(lambda: tr.composite_ref(*args), iters=1,
+                              warmup=0)
+    bound = composite_bound(pairs, n_eval, n_comp)
+    res = {"view": view, "gaussians": n_gauss, "pairs": n_pairs,
+           "pairs_total": pairs.total, "pairs_cut": pairs.total - n_pairs,
+           "evaluations": int(n_eval.sum()), "composited": int(n_comp.sum()),
+           "max_abs_err": max(errs.values()), "off_share": share,
+           "kernel_ms": kernel_ms, "plain_ms": plain_ms, **bound}
+    log(f"raster: {json.dumps(res)}")
+    return res
+
+
+def phase_raster(model) -> list:
+    import torch
+
+    from vist3a_tpu_torch.stitch import chopped_anysplat as ca
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    latent = torch.randn(1, 16, 4, 64, 64, generator=gen, device="cuda"
+                         ).to(torch.bfloat16)
+    images = (torch.rand(1, 3, 13, 448, 448, generator=gen, device="cuda")
+              * 2 - 1).to(torch.bfloat16)
+    out = ca.forward_with_latent(model, latent, images, stitched_config())
+    angle, dist = camera_spread(out.extrinsic_c2w)
+    log(f"raster: the 13 context cameras span {angle:.4f}° of rotation and "
+        f"{dist:.6g} of camera-centre distance from the first")
+    check(angle > 0.1 or dist > 1e-3,
+          "the 13 context cameras coincide: the orbit does not move")
+    cams = orbit_cameras(out)
+    views = [raster_view(out.gaussians, cams, v) for v in RASTER_VIEWS]
+    log("raster: library_ms null — no PyTorch call computes a front-to-back "
+        "alpha composite over sorted (tile, depth) pairs")
+    return views
+
+
+def phase_decode(model, profile: bool) -> dict:
+    import numpy as np
+    import torch
+
+    from vist3a_tpu_torch.io.ply_export import load_ply
+    from vist3a_tpu_torch.kernels import flash_attention as fa
+    from vist3a_tpu_torch.kernels import rasterizer as tr
+    from vist3a_tpu_torch.nn import wan_vae
+    from vist3a_tpu_torch.pipelines import t23d
+
+    cfg = t23d.T23DConfig()
+    check(cfg.stitched == stitched_config(), "stitched configs differ")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    vae = wan_vae.init_decoder(cfg.vae, gen, device="cuda",
+                               dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    log(f"decode: WanVAEConfig() decoder, "
+        f"{sum(p.numel() for p in vae.parameters())} parameters (bf16), built "
+        f"in {time.perf_counter() - t0:.1f} s")
+    zgen = torch.Generator(device="cuda").manual_seed(3)
+    latents = torch.randn(cfg.latent_shape, generator=zgen, device="cuda")
+
+    def request(save_path):
+        out, video = t23d.decode_and_reconstruct(vae, model, latents, cfg)
+        arts = t23d.export_artifacts(
+            out.gaussians, out.extrinsic_c2w, out.intrinsic_norm, save_path,
+            (IMAGE, IMAGE), orbit_t=ORBIT_T)
+        return out, video, arts
+
+    tmp = tempfile.mkdtemp(prefix="vist3a_decode_")
+    latencies, peaks = [], []
+    counts = {"unmasked": 0, "masked": 0, "composite": 0}
+    try:
+        for i in range(DECODE_REQUESTS):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fa.reset_launch_counts()
+            tr.reset_launch_counts()
+            t0 = time.perf_counter()
+            out, video, arts = request(os.path.join(tmp, f"scene{i}"))
+            torch.cuda.synchronize()
+            latencies.append((time.perf_counter() - t0) * 1e3)
+            peaks.append(torch.cuda.max_memory_allocated())
+            grew = {"unmasked": fa.launches_unmasked,
+                    "masked": fa.launches_masked, "composite": tr.launches}
+            want = {**LAUNCHES_PER_REQUEST, "composite": ORBIT_VIEWS}
+            check(grew == want, f"decode request {i}: launches {grew}, "
+                  f"want {want}")
+            for k in counts:
+                counts[k] += grew[k]
+            check(tuple(video.shape) == (1, 3, 13, 512, 512),
+                  f"video {tuple(video.shape)}")
+            check(bool(torch.isfinite(video).all())
+                  and float(video.abs().max()) <= 1.0, "video not in [−1, 1]")
+            _check_output(out, GAUSSIANS)
+            check(arts.color.shape == (ORBIT_VIEWS, 3, IMAGE, IMAGE),
+                  f"frames {arts.color.shape}")
+            check(bool(np.isfinite(arts.color).all())
+                  and arts.color.min() >= 0 and arts.color.max() <= 1,
+                  "orbit frames not finite in [0, 1]")
+            check(bool(np.isfinite(arts.depth).all()), "non-finite depth")
+            n_vertices = len(load_ply(arts.ply_path)["x"])
+            check(n_vertices == GAUSSIANS, f"PLY has {n_vertices} vertices")
+            mp4_bytes = [os.path.getsize(p) for p in (arts.gs_path,
+                                                      arts.depth_path)]
+            check(min(mp4_bytes) > 0, f"empty mp4 files {mp4_bytes}")
+            log(f"decode: request {i}: {latencies[-1]:.1f} ms, launches "
+                f"{grew}, video {tuple(video.shape)} in "
+                f"[{video.min().item():.4f}, {video.max().item():.4f}], "
+                f"frames mean {arts.color.mean():.4f}, PLY {n_vertices} "
+                f"vertices, {os.path.getsize(arts.ply_path)} B, gs.mp4 + "
+                f"depth.mp4 {mp4_bytes} B, peak memory {peaks[-1]} B")
+            del out, video, arts
+            shutil.rmtree(os.path.join(tmp, f"scene{i}"), ignore_errors=True)
+        log(f"decode: latency ms {latencies}; peak memory allocated {peaks}; "
+            f"launches {counts}")
+        if profile:
+            profile_call("decode", lambda: request(os.path.join(tmp, "prof")),
+                         DECODE_STAGES, RENDER_STAGES)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"latency_ms": latencies, "peak_bytes": peaks, "launches": counts}
+
+
+def _kernel_entries(timed: dict, raster: list | None,
+                    launches: dict) -> list:
+    """One entry per kernel entry point (the three counters), each timed
+    at its main-path shape.  `launches` counts this slice's main path (the
+    decode requests) where it ran, else the stitched-decoder slice;
+    `launches_by_path` has both.  The masked flash entry's top-level
+    numbers are those of the global shape, which holds 24 of its 48
+    launches and ~92 % of its FLOPs, and `shapes` carries every measured
+    shape; the composite's are those of the first raster view, and `views`
+    carries each view's."""
+    def count(counter):
+        by_path = {path: c[counter] for path, c in launches.items()
+                   if c is not None}
+        main = by_path.get("decode", by_path.get("slice"))
+        return main, by_path
+
     entries = []
     for kname, counter, line, cases in (
             ("flash_attention_fwd", "unmasked", 187, ("vit",)),
@@ -508,10 +848,11 @@ def _kernel_entries(timed: dict, launches: dict) -> list:
         if not rs:
             continue
         r = rs[0]
+        main, by_path = count(counter)
         entries.append({
             "name": kname, "route": "cuda", "source": KERNEL_SOURCE,
             "replaces": f"vist3a_tpu/kernels/flash_attention.py:{line}",
-            "launches": launches[counter],
+            "launches": main, "launches_by_path": by_path,
             "max_abs_err": max(x["max_abs_err_o"] for x in rs),
             "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -521,6 +862,24 @@ def _kernel_entries(timed: dict, launches: dict) -> list:
                                           "library_ms", "max_abs_err_o",
                                           "max_abs_err_lse")}
                        for x in rs]})
+    if raster:
+        main, by_path = count("composite")
+        r = raster[0]
+        entries.append({
+            "name": "rasterize_composite_fwd", "route": "cuda",
+            "source": RASTER_SOURCE,
+            "replaces": "vist3a_tpu/kernels/rasterizer.py:531",
+            "launches": main, "launches_by_path": by_path,
+            "max_abs_err": max(x["max_abs_err"] for x in raster),
+            "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None,
+            "shape": {"image": [IMAGE, IMAGE], "gaussians": r["gaussians"],
+                      "pairs": r["pairs"]},
+            "views": [{k: x[k] for k in ("view", "pairs", "kernel_ms",
+                                         "plain_ms", "bound_ms", "bound_by",
+                                         "max_abs_err", "off_share")}
+                      for x in raster]})
     return entries
 
 
@@ -554,13 +913,18 @@ def main(argv=None) -> int:
     if "build" in phases:
         phase_build()
     timed = phase_kernels() if "kernels" in phases else {}
-    sliced = phase_slice("profile" in phases) if "slice" in phases else None
+    model = build_stitched() if {"raster", "slice", "profile", "decode"} \
+        & set(phases) else None
+    raster = phase_raster(model) if "raster" in phases else None
+    profile = "profile" in phases
+    sliced = phase_slice(model, profile) if "slice" in phases else None
     if "reference" in phases:
         phase_reference()
+    decoded = phase_decode(model, profile) if "decode" in phases else None
 
-    launches = sliced["launches"] if sliced else {"unmasked": None,
-                                                   "masked": None}
-    print(json.dumps({"kernels": _kernel_entries(timed, launches)}))
+    launches = {"slice": sliced and {**sliced["launches"], "composite": 0},
+                "decode": decoded and decoded["launches"]}
+    print(json.dumps({"kernels": _kernel_entries(timed, raster, launches)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -1,4 +1,4 @@
-"""The port's CUDA kernel on the card (marker `gpu`; skips without one).
+"""The port's CUDA kernels on the card (marker `gpu`; skips without one).
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
 that has only PyTorch and the CUDA toolkit:
@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from vist3a_tpu_torch.kernels import flash_attention as fa
+from vist3a_tpu_torch.kernels import rasterizer as tr
 from vist3a_tpu_torch.ops.attention import dot_product_attention
 
 
@@ -71,3 +72,62 @@ def test_dispatch_raises_instead_of_falling_back(cuda):
     short = torch.zeros(1, 1023, 2, 64, device=cuda, dtype=torch.bfloat16)
     dot_product_attention(short, short, short)
     assert fa.launches_unmasked + fa.launches_masked == before
+
+
+def _splat_scene(g: int, w: int, h: int, device, seed: int):
+    """Random splats in front of an identity camera, most of them visible,
+    opacities up to 0.99 so that many pixels reach the 1e-4 stop."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    means = torch.randn(g, 3, generator=gen, device=device) * 0.6
+    means[:, 2] += 4.0
+    a = torch.randn(g, 3, 3, generator=gen, device=device) * 0.08
+    covars = a @ a.transpose(1, 2) + 1e-3 * torch.eye(3, device=device)
+    harm = torch.randn(g, 3, 25, generator=gen, device=device) * 0.3
+    op = torch.rand(g, generator=gen, device=device) * 0.69 + 0.3
+    viewmat = torch.eye(4, device=device)
+    K = torch.tensor([[0.9 * w, 0, w / 2], [0, 0.9 * w, h / 2], [0, 0, 1]],
+                     device=device)
+    return means, covars, harm, op, viewmat, K
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g,w,h,budget", [
+    (2000, 64, 64, 1 << 16), (1500, 72, 40, 1 << 16), (3000, 64, 64, 2048)])
+def test_composite_kernel_matches_plain_on_card(cuda, g, w, h, budget):
+    """The kernel against `composite_ref` on the same pair stream: every
+    plane within 1e-5 (fp32, sums in another order) on all but 0.5 % of
+    the pixels, where the 1e-4 stop may fire one pair apart (the plain
+    version's cumprod is a parallel scan on the card); a budget of 2048
+    truncates the stream; 72×40 is no multiple of the tile."""
+    means, covars, harm, op, viewmat, K = _splat_scene(g, w, h, cuda, g)
+    table, pairs = tr.view_pairs(means, covars, harm, op, viewmat, K, w, h,
+                                 budget)
+    assert (pairs.total > pairs.gid.numel()) == (budget == 2048)
+    ntx = -(-w // tr.TILE)
+    before = tr.launches
+    img = tr.composite(pairs.gid, pairs.bounds, table, ntx, w, h)
+    torch.cuda.synchronize()
+    assert tr.launches == before + 1
+    ref = tr.composite_ref(pairs.gid, pairs.bounds, table, ntx, w, h)
+    assert img.shape == ref.shape == (6, h, w)
+    assert bool(torch.isfinite(img).all())
+    off = ((img - ref).abs() > 1e-5 + 1e-5 * ref.abs()).any(0)
+    assert off.float().mean().item() <= 0.005
+    assert float(img[4].max()) > 0.5          # the splats cover pixels
+
+
+@pytest.mark.gpu
+def test_rasterize_launches_once_per_view(cuda):
+    means, covars, harm, op, viewmat, K = _splat_scene(500, 48, 48, cuda, 7)
+    vms = torch.stack([viewmat, viewmat, viewmat])
+    vms[1, 0, 3] = -0.4
+    tr.reset_launch_counts()
+    rgb, dep, alp = tr.rasterize(means, covars, harm, op, vms,
+                                 torch.stack([K, K, K]), 48, 48)
+    torch.cuda.synchronize()
+    assert tr.launches == 3
+    assert rgb.shape == (3, 48, 48, 3) and bool(torch.isfinite(rgb).all())
+    with pytest.raises(TypeError, match="int32"):
+        tr.composite(torch.zeros(4, dtype=torch.int64, device=cuda),
+                     torch.zeros(10, dtype=torch.int32, device=cuda),
+                     torch.zeros(8, tr.N_ATTR, device=cuda), 3, 48, 48)

@@ -18,11 +18,15 @@ modules.  The layouts it changes:
     permutation: `lax.conv_transpose(transpose_kernel=True)` flips the
     spatial axes and swaps in/out itself, exactly as torch's transposed
     conv does with its weight;
-  * the stitch conv `kernel` is already torch's (out, in, *k) → `weight`.
+  * the stitch conv `kernel` is already torch's (out, in, *k) → `weight`;
+  * under the `vae` subtree the params are channels-last: `kernel` DHWIO →
+    OIDHW and HWIO → OIHW, and RMSNorm `gamma` → `weight`.
 
 `load_jax_params(module, tree)` loads that dict into a `StitchedDecoder`,
 dropping what the chopped model does not hold (the patch embedding, the mask
-token and the ViT blocks before the chop).
+token and the ViT blocks before the chop).  `load_jax_vae_params(module,
+tree)` loads the Wan VAE tree into a `WanVAEDecoder`, dropping the encoder
+side (`encoder`, `quant_conv`), which the port does not hold yet.
 """
 
 from __future__ import annotations
@@ -41,7 +45,13 @@ def _tensor(x) -> torch.Tensor:
     return torch.from_numpy(np.array(a))        # a writable copy
 
 
-def _leaf(key: str, value: np.ndarray) -> tuple[str, np.ndarray]:
+def _leaf(key: str, value: np.ndarray,
+          channels_last: bool) -> tuple[str, np.ndarray]:
+    if channels_last and key == "kernel":          # (*k, in, out) → (out, in, *k)
+        n = value.ndim
+        return "weight", value.transpose(n - 1, n - 2, *range(n - 2))
+    if channels_last and key == "gamma":
+        return "weight", value
     if key == "w":
         return "weight", value.T
     if key == "b":
@@ -70,7 +80,8 @@ def _walk(node, prefix: str, out: dict) -> None:
             elif isinstance(child, (dict, list, tuple)):
                 _walk(child, f"{prefix}{key}.", out)
             else:
-                name, arr = _leaf(key, np.asarray(child))
+                name, arr = _leaf(key, np.asarray(child),
+                                  prefix.startswith("vae."))
                 out[prefix + name] = _tensor(arr)
     elif isinstance(node, (list, tuple)):
         for i, child in enumerate(node):
@@ -105,16 +116,27 @@ def from_jax_params(tree: dict) -> dict[str, torch.Tensor]:
     return out
 
 
-def load_jax_params(module: nn.Module, tree: dict) -> nn.Module:
-    """Load a JAX tree into `module` (strict on everything it holds)."""
-    sd = from_jax_params(tree)
+def _load(module: nn.Module, sd: dict, dropped: tuple) -> nn.Module:
+    """Strict on everything `module` holds; keys starting with one of
+    `dropped` may be left out, any other stray key raises."""
     own = module.state_dict()
-    stray = [k for k in sd if k not in own and not k.startswith(
-        ("encoder.vit.patch_proj.", "encoder.vit.mask_token",
-         "encoder.vit.blocks."))]
+    stray = [k for k in sd if k not in own and not k.startswith(dropped)]
     if stray:
         raise KeyError(f"JAX params without a place in the module: {stray}")
     with torch.no_grad():
         module.load_state_dict({k: v for k, v in sd.items() if k in own},
                                strict=True)
     return module
+
+
+def load_jax_params(module: nn.Module, tree: dict) -> nn.Module:
+    """Load a stitched-decoder JAX tree into a `StitchedDecoder`."""
+    return _load(module, from_jax_params(tree),
+                 ("encoder.vit.patch_proj.", "encoder.vit.mask_token",
+                  "encoder.vit.blocks."))
+
+
+def load_jax_vae_params(module: nn.Module, tree: dict) -> nn.Module:
+    """Load a Wan VAE JAX tree (`wan_vae.init`) into a `WanVAEDecoder`."""
+    sd = {k[len("vae."):]: v for k, v in from_jax_params({"vae": tree}).items()}
+    return _load(module, sd, ("encoder.", "quant_conv."))

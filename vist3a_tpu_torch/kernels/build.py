@@ -15,6 +15,7 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
@@ -68,3 +69,9 @@ def load(source: str) -> ctypes.CDLL:
         if source not in _loaded:
             _loaded[source] = ctypes.CDLL(str(build(source)))
         return _loaded[source]
+
+
+def build_all(sources: list[str]) -> None:
+    """Build several sources at once, one nvcc process each."""
+    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+        list(pool.map(build, sources))
