@@ -6,8 +6,8 @@ bf16 included — and returns a flat state dict named like the port's
 modules.  The layouts it changes:
 
   * stacked block leaves (`blocks`, `frame_blocks`, `global_blocks`,
-    `trunk`: a leading layer axis) split into per-block entries
-    `<stack>.<i>.…`;
+    `trunk`, and UMT5's `layers`: a leading layer axis) split into
+    per-block entries `<stack>.<i>.…`;
   * linear `w` (in, out) → `weight` (out, in); `b` → `bias`;
   * LayerNorm `scale` → `weight`;
   * heads convs `kernel_mat<k>` (k·k·ci, co), row-major over (kh, kw, ci)
@@ -19,14 +19,20 @@ modules.  The layouts it changes:
     spatial axes and swaps in/out itself, exactly as torch's transposed
     conv does with its weight;
   * the stitch conv `kernel` is already torch's (out, in, *k) → `weight`;
-  * under the `vae` subtree the params are channels-last: `kernel` DHWIO →
-    OIDHW and HWIO → OIHW, and RMSNorm `gamma` → `weight`.
+  * under the `vae` and `dit` subtrees the params are channels-last:
+    `kernel` DHWIO → OIDHW and HWIO → OIHW (the DiT's patch embedding), and
+    RMSNorm `gamma` → `weight`;
+  * under the `umt5` subtree the dense weights are bare (in, out) arrays
+    named `q`, `k`, `v`, `o`, `wi_0`, `wi_1`, `wo` → `<name>.weight`
+    (out, in); the norms, bias tables and embedding keep name and layout.
 
 `load_jax_params(module, tree)` loads that dict into a `StitchedDecoder`,
 dropping what the chopped model does not hold (the patch embedding, the mask
 token and the ViT blocks before the chop).  `load_jax_vae_params(module,
 tree)` loads the Wan VAE tree into a `WanVAEDecoder`, dropping the encoder
 side (`encoder`, `quant_conv`), which the port does not hold yet.
+`load_jax_umt5_params` and `load_jax_dit_params` load the UMT5 and Wan DiT
+trees into a `UMT5Encoder` and a `WanDiT`, strictly.
 """
 
 from __future__ import annotations
@@ -35,7 +41,10 @@ import numpy as np
 import torch
 from torch import nn
 
-_STACKS = ("blocks", "frame_blocks", "global_blocks", "trunk")
+from vist3a_tpu_torch.nn.umt5 import DENSE as _UMT5_DENSE
+
+_STACKS = ("blocks", "frame_blocks", "global_blocks", "trunk", "layers")
+_CHANNELS_LAST = ("vae", "dit")
 
 
 def _tensor(x) -> torch.Tensor:
@@ -46,12 +55,15 @@ def _tensor(x) -> torch.Tensor:
 
 
 def _leaf(key: str, value: np.ndarray,
-          channels_last: bool) -> tuple[str, np.ndarray]:
+          subtree: str) -> tuple[str, np.ndarray]:
+    channels_last = subtree in _CHANNELS_LAST
     if channels_last and key == "kernel":          # (*k, in, out) → (out, in, *k)
         n = value.ndim
         return "weight", value.transpose(n - 1, n - 2, *range(n - 2))
     if channels_last and key == "gamma":
         return "weight", value
+    if subtree == "umt5" and key in _UMT5_DENSE:   # bare (in, out)
+        return f"{key}.weight", value.T
     if key == "w":
         return "weight", value.T
     if key == "b":
@@ -81,7 +93,7 @@ def _walk(node, prefix: str, out: dict) -> None:
                 _walk(child, f"{prefix}{key}.", out)
             else:
                 name, arr = _leaf(key, np.asarray(child),
-                                  prefix.startswith("vae."))
+                                  prefix.split(".", 1)[0])
                 out[prefix + name] = _tensor(arr)
     elif isinstance(node, (list, tuple)):
         for i, child in enumerate(node):
@@ -136,7 +148,23 @@ def load_jax_params(module: nn.Module, tree: dict) -> nn.Module:
                   "encoder.vit.blocks."))
 
 
+def _subtree(name: str, tree: dict) -> dict[str, torch.Tensor]:
+    """`from_jax_params` of `tree` read as the subtree `name`, keys without
+    the `<name>.` prefix."""
+    n = len(name) + 1
+    return {k[n:]: v for k, v in from_jax_params({name: tree}).items()}
+
+
 def load_jax_vae_params(module: nn.Module, tree: dict) -> nn.Module:
     """Load a Wan VAE JAX tree (`wan_vae.init`) into a `WanVAEDecoder`."""
-    sd = {k[len("vae."):]: v for k, v in from_jax_params({"vae": tree}).items()}
-    return _load(module, sd, ("encoder.", "quant_conv."))
+    return _load(module, _subtree("vae", tree), ("encoder.", "quant_conv."))
+
+
+def load_jax_umt5_params(module: nn.Module, tree: dict) -> nn.Module:
+    """Load a UMT5 JAX tree (`umt5.init`) into a `UMT5Encoder`."""
+    return _load(module, _subtree("umt5", tree), ())
+
+
+def load_jax_dit_params(module: nn.Module, tree: dict) -> nn.Module:
+    """Load a Wan DiT JAX tree (`wan_dit.init`) into a `WanDiT`."""
+    return _load(module, _subtree("dit", tree), ())

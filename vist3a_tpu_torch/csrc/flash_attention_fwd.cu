@@ -1,11 +1,15 @@
 // Flash-attention forward for Hopper (sm_90a): non-causal softmax(scale·QKᵀ)·V
 // over (B, N, H, D) bf16 tensors, with an optional per-key validity vector.
 //
-// Replaces two Pallas entries of vist3a_tpu/kernels/flash_attention.py:
+// Replaces three Pallas entries of vist3a_tpu/kernels/flash_attention.py:
 //   * flash_attention(layout="transposed") → _flash_fwd_t → _fwd_kernel_t and
 //     its online-max fallback _fwd_kernel_t_onmax (the unmasked forward);
 //   * flash_attention_masked → _fwd_t_masked_part → _flash_fwd_t(kv_bias=…),
-//     the same two kernels with a key-bias row (the masked forward).
+//     the same two kernels with a key-bias row (the masked forward);
+//   * flash_attention(layout="natural") → _flash_fwd → _fwd_kernel, which
+//     the JAX package runs for an unmasked call with head_dim 128 (the Wan
+//     DiT's self-attention): here the DP = 128 instantiation, with the
+//     fp32 scores scaled where that kernel scales q in the input dtype.
 // What it must reproduce: O in the input dtype, the per-row natural-log
 // log-sum-exp (LSE, fp32, shape (B, H, N_q)), masked keys that add exactly
 // nothing, and a row with no live key giving O = 0 (the `safe_l` rule: an
@@ -21,17 +25,22 @@
 //     compute-bound: 0.757 ms at the tensor-core peak against 33 µs of bytes;
 //   frame attention   B=13, N=1040: 5.8e10 FLOP, ViT blocks B=13, N=1029:
 //     5.6e10 FLOP — about 57 µs each at the peak, against 55 MB (16 µs), so
-//     also compute-bound (≈ 1000 FLOP per byte, above the ridge of ≈ 295).
+//     also compute-bound (≈ 1000 FLOP per byte, above the ridge of ≈ 295);
+//   Wan DiT self-attention B=2, N=4096, H=12, D=128: 2.06e11 FLOP against
+//     101 MB, 0.208 ms at the peak against 30 µs of bytes (40 heads at 14B:
+//     6.87e11 FLOP, 0.695 ms) — compute-bound.
 // The simple design here: one block of 4 warps owns a 64-row query tile of
 // one (b, h); each warp holds its 16 query rows as mma.sync A fragments in
 // registers for the whole key loop.  K and V tiles of 64 keys are staged in
 // shared memory (K row-major, V transposed so that both B operands are
 // 32-bit shared loads), with rows padded by 8 elements against bank
-// conflicts.  QKᵀ and PV run on mma.sync m16n8k16 (bf16 in, fp32 out); P is
-// re-packed from the score accumulators into A fragments without touching
-// shared memory.  Loads are not overlapped with the tensor-core work (no
-// cp.async, TMA, wgmma or warp specialisation): that is where the gap to the
-// bound lies, and it is work for a later change.
+// conflicts.  At D = 128 a thread holds 32 registers of Q fragments, 64 of
+// O accumulators and 32 of scores (ptxas: 171 registers, 35,904 bytes of
+// shared memory, no spills).  QKᵀ and PV run on mma.sync m16n8k16 (bf16 in,
+// fp32 out); P is re-packed from the score accumulators into A fragments
+// without touching shared memory.  Loads are not overlapped with the
+// tensor-core work (no cp.async, TMA, wgmma or warp specialisation): that is
+// where the gap to the bound lies, and it is work for a later change.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libflash_attention_fwd.so flash_attention_fwd.cu

@@ -2,9 +2,12 @@
 
 Counterpart of `vist3a_tpu/kernels/flash_attention.py`'s forward entries
 `flash_attention` (transposed layout, `_fwd_kernel_t` and its online-max
-fallback) and `flash_attention_masked`.  One CUDA source,
-`csrc/flash_attention_fwd.cu`, serves both: the key-validity pointer is
-null for the unmasked forward.  See that file for the design and its bound.
+fallback), `flash_attention_masked`, and `flash_attention` in the natural
+layout (`_fwd_kernel`, which the JAX package runs for an unmasked call with
+head_dim 128: the Wan DiT's self-attention).  One CUDA source,
+`csrc/flash_attention_fwd.cu`, and one entry serve all three: the
+key-validity pointer is null for an unmasked call, and head_dim 128 selects
+its DP = 128 instantiation.  See that file for the design and its bound.
 
 Semantics, shared by kernel and plain version:
   * q (B, N_q, H, D), k and v (B, N_k, H, D), non-causal, scale D^-1/2 by
@@ -15,9 +18,14 @@ Semantics, shared by kernel and plain version:
     max starts at the finite −1e30 and the empty sum divides by 1, the
     `safe_l` rule of the TPU kernel).
 
+The natural-layout TPU kernel multiplies q by scale·log2(e) in the input
+dtype before the product; here (kernel and plain version) the fp32 scores
+are scaled, one rounding fewer.
+
 A wrapper call on CPU tensors runs `flash_attention_ref`; on CUDA tensors it
-launches the kernel or raises.  `launches_unmasked` and `launches_masked`
-count the kernel's launches.
+launches the kernel or raises.  Each launch adds one to a counter by the
+TPU entry it stands for: `launches_masked` (key_valid given),
+`launches_natural` (unmasked, head_dim 128) or `launches_unmasked`.
 """
 
 from __future__ import annotations
@@ -31,17 +39,20 @@ from vist3a_tpu_torch.kernels import build
 
 SOURCE = "flash_attention_fwd.cu"
 MAX_HEAD_DIM = 128
+NATURAL_HEAD_DIM = 128
 _NEG_BIG = -1e30
 _LOG2E = 1.4426950408889634
 
 launches_unmasked = 0
 launches_masked = 0
+launches_natural = 0
 
 
 def reset_launch_counts() -> None:
-    global launches_unmasked, launches_masked
+    global launches_unmasked, launches_masked, launches_natural
     launches_unmasked = 0
     launches_masked = 0
+    launches_natural = 0
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -116,7 +127,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         scale: float | None = None
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """(O, LSE) — the kernel on CUDA tensors, the plain version on CPU."""
-    global launches_unmasked, launches_masked
+    global launches_unmasked, launches_masked, launches_natural
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, key_valid, scale)
     if q.device.type != "cuda":
@@ -138,10 +149,12 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err:
         raise RuntimeError(f"flash_attention_fwd_bf16 launch failed: "
                            f"cudaError {err}")
-    if key_valid is None:
-        launches_unmasked += 1
-    else:
+    if key_valid is not None:
         launches_masked += 1
+    elif d == NATURAL_HEAD_DIM:
+        launches_natural += 1
+    else:
+        launches_unmasked += 1
     return o, lse
 
 

@@ -22,6 +22,7 @@ weights, zero biases, unit LayerNorm scales, constant LayerScale).
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 import torch
 import torch.nn.functional as F
@@ -36,6 +37,15 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     y = F.layer_norm(x.float(), (x.shape[-1],), weight.float(), bias.float(),
                      eps)
     return y.to(x.dtype)
+
+
+def rms_norm(scale: torch.Tensor, x: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMSNorm over the last axis (UMT5's, and the Wan DiT's q/k norm across
+    the full inner dim): statistics and rescale in fp32, cast back to x's
+    dtype."""
+    xf = x.float()
+    y = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+    return (y * scale.float()).to(x.dtype)
 
 
 def linear(x: torch.Tensor, weight: torch.Tensor,
@@ -184,3 +194,16 @@ def init_params(module: nn.Module, generator: torch.Generator) -> None:
         for m in module.modules():
             if hasattr(m, "init_params"):
                 m.init_params(generator)
+
+
+def build_random(factory: Callable[[], nn.Module], generator: torch.Generator,
+                 device: torch.device | str, dtype: torch.dtype) -> nn.Module:
+    """`factory()` with random weights drawn by each module's `init_params`
+    with `generator` (which must live on `device`), in `dtype`.  The
+    parameters are allocated once, on `device` and in `dtype`, never first
+    in fp32 or on the host."""
+    with torch.device("meta"):
+        model = factory()
+    model = model.to(dtype).to_empty(device=device)
+    init_params(model, generator)
+    return model.eval().requires_grad_(False)

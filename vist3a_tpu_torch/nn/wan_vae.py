@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vist3a_tpu_torch.nn.layers import init_params
+from vist3a_tpu_torch.nn.layers import build_random
 from vist3a_tpu_torch.ops.attention import plain_attention
 
 LATENTS_MEAN = (
@@ -264,11 +264,9 @@ def init_decoder(cfg: WanVAEConfig, generator: torch.Generator,
                  device: torch.device | str = "cuda",
                  dtype: torch.dtype = torch.float32) -> WanVAEDecoder:
     """A decoder with random weights of the full shapes, drawn from the JAX
-    `init` distributions with `generator` (which must live on `device`)."""
-    with torch.device(device):
-        model = WanVAEDecoder(cfg)
-    init_params(model, generator)
-    return model.to(dtype).eval().requires_grad_(False)
+    `init` distributions, in `dtype`, with `generator` (which must live on
+    `device`)."""
+    return build_random(lambda: WanVAEDecoder(cfg), generator, device, dtype)
 
 
 @torch.inference_mode()

@@ -5,8 +5,8 @@ is the JAX package's: with impl "auto", a CUDA tensor whose sequence is at
 least 1024 long goes to the flash-attention kernel (masked when key_valid is
 given), and that call launches the kernel or raises — it never falls back.
 Everything else, every CPU tensor and every short sequence (the camera
-head's N = S, whose blocks ask for impl "plain" like the JAX "xla"), runs
-the plain math of `_xla_attention`.
+head's N = S, whose blocks ask for impl "plain" like the JAX "xla", as the
+Wan DiT's cross-attention does), runs the plain math of `_xla_attention`.
 """
 
 from __future__ import annotations
