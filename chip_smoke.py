@@ -3,12 +3,14 @@
 
     python3 chip_smoke.py            # every phase, as the check runs it
     python3 chip_smoke.py --phases device,build,kernels,raster
+    python3 chip_smoke.py --phases device,build,kernels,train
 
 Phases, each of which passes or raises (any failure exits non-zero):
   1. device  — the card's name and power limit; fails without CUDA.
-  2. build   — builds `vist3a_tpu_torch/csrc/flash_attention_fwd.cu` and
-               `csrc/rasterize_fwd.cu` for sm_90a, one nvcc each, at once,
-               and prints ptxas's registers / shared memory / spills.
+  2. build   — builds `vist3a_tpu_torch/csrc/flash_attention_fwd.cu`,
+               `csrc/flash_attention_bwd.cu` and `csrc/rasterize_fwd.cu` for
+               sm_90a, one nvcc each, at once, and prints ptxas's
+               registers / shared memory / spills.
   3. kernels — holds the flash-attention kernel against its plain PyTorch
                version at the three shapes of the decode (ViT blocks,
                frame attention, global attention) and at the Wan DiT's
@@ -20,7 +22,14 @@ Phases, each of which passes or raises (any failure exits non-zero):
                `O_RTOL`), and
                times it beside the plain version and
                `F.scaled_dot_product_attention` (a yardstick the port never
-               calls).
+               calls).  Then the fp32 forward and the backward (kernel 4)
+               on fp32 inputs at the training step's shapes — (13, 1029,
+               16, 64), (1, 13377, 16, 64), (1, 21609, 16, 64) — a ragged
+               (2, 1100, 2, 64) and a short (1, 45, 3, 64): O, LSE and the
+               three gradients against the plain versions (`F32_*`
+               limits), the backward bit for bit repeatable; timed beside
+               the plain versions, SDPA's memory-efficient fp32 backward
+               and the bounds.
   4. raster  — one full-width scene: the Gaussians of one stitched-decoder
                request and its 13 context cameras interpolated to the
                133-view orbit.  Holds the composite kernel against its
@@ -64,6 +73,20 @@ Phases, each of which passes or raises (any failure exits non-zero):
                launch counts; prints the ms per denoise step, peak memory,
                a profile of 2 denoise steps and, with `profile`, each
                profiler range's host and device time in the request.
+  10. train — stitching distillation at full width, fp32 (TF32 off):
+               the teacher (the whole `EncoderConfig()` encoder, ~1.19 B
+               parameters), the stitch conv and the Wan 2.1 VAE encoder
+               drawn on the card from a seed; LoRA r64,a32; two steps of
+               `cli.train_stitching.run` over a synthetic clip (1, 3, 21,
+               512, 512) and its 448² resize, at S = 13 then S = 21 (the
+               seed is the first whose draws give those).  Checks finite
+               losses and grad_norm > 0, the B factors moved after the
+               step with lr > 0, the teacher's weights unchanged and the
+               student's frozen tensors its own, and per step 184 unmasked
+               flash launches (fp32) and 56 backward; prints ms per step,
+               peak memory, a profile of one more step at S = 13, and
+               compares a narrow step on the card with the host CPU.
+               Cut: B = 1 and two steps; random weights, no data loader.
 The line before the last lists the kernels as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -73,6 +96,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -83,7 +107,7 @@ import zlib
 from pathlib import Path
 
 PHASES = ("device", "build", "kernels", "raster", "slice", "profile",
-          "reference", "decode", "denoise")
+          "reference", "decode", "denoise", "train")
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 (data sheet)
 PEAK_FP32_FLOPS = 67e12       # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
@@ -105,6 +129,24 @@ RASTER_SOURCE = "vist3a_tpu_torch/csrc/rasterize_fwd.cu"
 O_ATOL_STD = 0.1
 O_RTOL = 2 ** -6
 LSE_ATOL = 1e-3   # fp32 statistics; only the summation order differs
+# The fp32 forward and the backward (kernel 4) against their plain versions
+# on fp32 inputs: both sides compute in fp32, in another order, summing over
+# up to 21,609 keys (the backward's gradients sum twice as many products: a
+# dS term, then a tile loop), so O within 2e-5 of its largest magnitude,
+# each gradient within 1e-4 of its, LSE within 1e-5 (values ~10).
+F32_O_RTOL = 2e-5
+F32_GRAD_RTOL = 1e-4
+F32_LSE_ATOL = 1e-5
+# (name, (B, N, H, D)): the training step's ViT and frame attention, its
+# global attention at S = 13 and S = 21 (the largest view count), a ragged
+# N and an N below one 64-row tile
+F32_CASES = (("f32_vit_frame", (13, 1029, 16, 64)),
+             ("f32_global_s13", (1, 13377, 16, 64)),
+             ("f32_global_s21", (1, 21609, 16, 64)),
+             ("f32_ragged", (2, 1100, 2, 64)),
+             ("f32_short", (1, 45, 3, 64)))
+F32_TIMED = ("f32_vit_frame", "f32_global_s13", "f32_global_s21")
+BWD_SOURCE = "vist3a_tpu_torch/csrc/flash_attention_bwd.cu"
 # Composite kernel vs its plain version, both fp32: each plane within
 # 1e-4 of its own scale (1 for colour, alpha, T; the largest depth for
 # depth), on all but 0.1 % of the pixels — the 1e-4 stop can fire one pair
@@ -123,6 +165,17 @@ ORBIT_T = 10
 ORBIT_VIEWS = (13 - 1) * (ORBIT_T + 1) + 1       # 133
 RASTER_VIEWS = (5, 71)     # in-between orbit views: frames 0-1 and 6-7
 DECODE_REQUESTS = 2
+# the distillation phase: two steps through `run`, at these view counts,
+# from one clip in [−1, 1] (its 448² resize feeds the students and teacher)
+TRAIN_VIEWS = (13, 21)
+TRAIN_CLIP = (1, 3, 21, 512, 512)
+TRAIN_LORA = "r64,a32,d0.0,f0"
+# flash launches a step: the teacher's 24 ViT blocks and 24 frame + 24
+# global attentions; the student's 8 ViT blocks (after the chop at 16) and
+# 48 trunk attentions, once forward and once more in the recompute; and
+# one backward for each of the student's
+TRAIN_LAUNCHES = {"unmasked": 72 + 2 * 56, "masked": 0, "natural": 0,
+                  "backward": 56}
 
 REQUESTS = 3
 GAUSSIANS = 13 * 448 * 448
@@ -194,13 +247,15 @@ def phase_build() -> None:
     from vist3a_tpu_torch.kernels import flash_attention as fa
     from vist3a_tpu_torch.kernels import rasterizer as tr
 
+    sources = (fa.SOURCE, fa.BWD_SOURCE, tr.SOURCE)
     t0 = time.perf_counter()
-    build.build_all([fa.SOURCE, tr.SOURCE])
+    build.build_all(list(sources))
     fa._lib()
+    fa._bwd_lib()
     tr._lib()
-    log(f"build: {fa.SOURCE} and {tr.SOURCE} built and loaded in "
+    log(f"build: {', '.join(sources)} built and loaded in "
         f"{time.perf_counter() - t0:.1f} s")
-    for source in (fa.SOURCE, tr.SOURCE):
+    for source in sources:
         text = build.build_logs.get(source, "(library already built)")
         for line in text.splitlines():
             if any(t in line.lower() for t in ("ptxas", "spill", "error")):
@@ -354,7 +409,145 @@ def phase_kernels() -> dict:
     excess = o_excess(o, o_ref)
     check(excess <= 1.0, f"strided inputs: max |ΔO| {err}, o_excess {excess}")
     log(f"kernels: strided qkv views max_abs_err_o {err}, o_excess {excess}")
+    # the training step's fp32 attention: forward and backward (kernel 4)
+    for name, shape in F32_CASES:
+        timed[name] = check_f32_case(fa, name, shape, gen,
+                                     timed=name in F32_TIMED)
     return timed
+
+
+def _f32_ref_by_heads(fa, q, k, v, do, heads_per_call: int):
+    """The plain forward and backward, a few heads at a time (the global
+    case's fp32 score matrices are 1.9 GB a head)."""
+    import torch
+
+    outs = []
+    for h0 in range(0, q.shape[2], heads_per_call):
+        sl = slice(h0, h0 + heads_per_call)
+        o, lse = fa.flash_attention_ref(q[:, :, sl], k[:, :, sl], v[:, :, sl])
+        outs.append((o, lse, *fa.flash_attention_bwd_ref(
+            q[:, :, sl], k[:, :, sl], v[:, :, sl], o, lse, do[:, :, sl])))
+    o, lse, dq, dk, dv = (torch.cat([x[i] for x in outs],
+                                    dim=1 if i == 1 else 2)
+                          for i in range(5))
+    return o, lse, dq, dk, dv
+
+
+def library_fwd_bwd_ms(q, k, v, do) -> tuple[float, float, str]:
+    """`F.scaled_dot_product_attention` on the same fp32 inputs, restricted
+    to the memory-efficient backend (the one that takes fp32; the math
+    backend would hold (B, H, N, N)) → (its forward ms, its forward plus
+    backward under autograd minus its forward, the kernels it ran) — a
+    yardstick the port never calls."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.profiler import ProfilerActivity, profile
+
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt)
+
+    def fwd_bwd():
+        fwd().backward(dot)
+
+    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fwd_bwd()
+            torch.cuda.synchronize()
+        names = sorted({ev.name[:60] for ev in prof.events()
+                        if ev.device_type == torch.autograd.DeviceType.CUDA
+                        and any(s in ev.name.lower()
+                                for s in ("fmha", "attention", "mem_eff"))})
+        with torch.no_grad():
+            fwd_ms = cuda_events_ms(fwd, iters=3, warmup=1)
+        both_ms = cuda_events_ms(fwd_bwd, iters=3, warmup=1)
+    return fwd_ms, both_ms - fwd_ms, "efficient: " + ", ".join(names)
+
+
+def compare_f32_case(fa, name: str, shape: tuple, gen):
+    """The fp32 forward and the backward kernel against their plain
+    versions on fp32 inputs drawn from `gen`: O within F32_O_RTOL of its
+    largest magnitude, each gradient within F32_GRAD_RTOL of its, LSE
+    within F32_LSE_ATOL, the backward the same bits twice → (result,
+    passed, inputs and outputs)."""
+    import torch
+
+    n, h = shape[1], shape[2]
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                   for _ in range(4))
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    dq, dk, dv = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    ref = _f32_ref_by_heads(fa, q, k, v, do, 2 if n > 8192 else h)
+
+    def rel(x, y):
+        return ((x - y).abs().max() / y.abs().max()).item()
+    res = {"case": name, "shape": list(shape),
+           "rel_err_o": rel(o, ref[0]),
+           "max_abs_err_lse": (lse - ref[1]).abs().max().item(),
+           "rel_err_dq": rel(dq, ref[2]), "rel_err_dk": rel(dk, ref[3]),
+           "rel_err_dv": rel(dv, ref[4]),
+           "max_abs_err_o": (o - ref[0]).abs().max().item(),
+           "max_abs_err_grads": max((x - y).abs().max().item() for x, y in
+                                    zip((dq, dk, dv), ref[2:]))}
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    res["bitwise_repeatable"] = all(torch.equal(x, y)
+                                    for x, y in zip((dq, dk, dv), again))
+    passed = (res["rel_err_o"] <= F32_O_RTOL
+              and res["max_abs_err_lse"] <= F32_LSE_ATOL
+              and max(res[f"rel_err_d{x}"] for x in "qkv") <= F32_GRAD_RTOL
+              and res["bitwise_repeatable"])
+    return res, passed, (q, k, v, do, o, lse)
+
+
+def check_f32_case(fa, name: str, shape: tuple, gen, *, timed: bool) -> dict:
+    """`compare_f32_case`, failing the run on a disagreement; with `timed`,
+    both kernels' times beside the plain versions', SDPA's and the
+    bounds."""
+    b, n, h, d = shape
+    res, passed, (q, k, v, do, o, lse) = compare_f32_case(fa, name, shape,
+                                                          gen)
+    check(passed, f"fp32 flash kernels disagree with their plain versions: "
+          f"{res}")
+    heads_per_call = 2 if n > 8192 else h
+    if not timed:
+        log(f"kernels: fp32 {json.dumps(res)}")
+        return res
+    fwd_flops = 4.0 * b * n * n * h * d
+    bwd_flops = 10.0 * b * n * n * h * d
+    elems = b * n * h * d
+    fwd_bytes = 4 * (4 * elems + b * h * n)
+    bwd_bytes = 4 * (8 * elems + b * h * n)   # q k v O dO and LSE in, 3 out
+    fwd_ms = cuda_events_ms(lambda: fa.flash_attention_fwd(q, k, v), iters=5,
+                            warmup=1)
+    bwd_ms = cuda_events_ms(
+        lambda: fa.flash_attention_bwd(q, k, v, o, lse, do), iters=3,
+        warmup=1)
+    plain_ms = cuda_events_ms(
+        lambda: _f32_ref_by_heads(fa, q, k, v, do, heads_per_call), iters=1,
+        warmup=1)
+    library_fwd_ms, library_ms, backend = library_fwd_bwd_ms(q, k, v, do)
+
+    def bound(flops, n_bytes):
+        ops_ms = flops / PEAK_FP32_FLOPS * 1e3
+        bytes_ms = n_bytes / PEAK_BYTES * 1e3
+        return (max(ops_ms, bytes_ms),
+                "operations" if ops_ms >= bytes_ms else "bytes")
+    fwd_bound, fwd_by = bound(fwd_flops, fwd_bytes)
+    bwd_bound, bwd_by = bound(bwd_flops, bwd_bytes)
+    res.update(fwd_flops=fwd_flops, bwd_flops=bwd_flops, fwd_ms=fwd_ms,
+               bwd_ms=bwd_ms, fwd_bound_ms=fwd_bound, fwd_bound_by=fwd_by,
+               bwd_bound_ms=bwd_bound, bwd_bound_by=bwd_by,
+               plain_fwd_bwd_ms=plain_ms, library_fwd_ms=library_fwd_ms,
+               library_bwd_ms=library_ms, library_backend=backend,
+               fwd_tflops=fwd_flops / fwd_ms / 1e9,
+               bwd_tflops=bwd_flops / bwd_ms / 1e9)
+    log(f"kernels: fp32 {json.dumps(res)}")
+    return res
 
 
 def stitched_config():
@@ -458,6 +651,10 @@ def _kernel_group(name: str) -> str:
     low = name.lower()
     if "flash_fwd_kernel<128>" in low or "flash_fwd_kernelili128" in low:
         return "flash attention, natural D = 128 (this repo)"
+    if "flash_bwd_" in low:
+        return "flash attention backward, fp32 (this repo)"
+    if "flash_fwd_f32_kernel" in low:
+        return "flash attention forward, fp32 (this repo)"
     if "flash_fwd_kernel" in low:
         return "flash attention (this repo)"
     if any(t in low for t in ("conv", "cudnn", "implicit_convolve", "wgrad",
@@ -1068,25 +1265,260 @@ def phase_denoise(model, vae, profile: bool) -> dict:
             "ms_per_step": steps_ms}
 
 
+def build_trainer(cfg):
+    """The distillation teacher (the full encoder, ~1.19 B parameters), a
+    stitch conv and the Wan 2.1 VAE encoder, fp32, random weights drawn on
+    the card from a seeded generator; the teacher's camera head as the
+    stitched decoder's (`build_stitched`), which the student shares."""
+    import torch
+
+    from vist3a_tpu_torch.nn import wan_vae
+    from vist3a_tpu_torch.nn.encoder import Encoder
+    from vist3a_tpu_torch.nn.layers import build_random
+    from vist3a_tpu_torch.stitch import chopped_anysplat as ca
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    t0 = time.perf_counter()
+    teacher = build_random(lambda: Encoder(cfg.encoder, vit_start=0), gen,
+                           "cuda", torch.float32)
+    fc2 = teacher.camera_head.pose_branch.fc2
+    fc2.weight.mul_(CAMERA_WEIGHT_SCALE)
+    fc2.bias.copy_(torch.tensor(CAMERA_BIAS))
+    stitch_conv = build_random(lambda: ca.init_stitch_conv(cfg), gen, "cuda",
+                               torch.float32)
+    vae = wan_vae.init_encoder(wan_vae.WanVAEConfig(), gen, device="cuda")
+    torch.cuda.synchronize()
+    count = lambda m: sum(p.numel() for p in m.parameters())  # noqa: E731
+    log(f"train: teacher EncoderConfig() with the whole ViT, "
+        f"{count(teacher)} parameters (fp32); stitch conv "
+        f"{count(stitch_conv)}; Wan VAE encoder {count(vae)}; built on the "
+        f"card in {time.perf_counter() - t0:.1f} s")
+    return teacher, stitch_conv, vae
+
+
+def train_seed() -> int:
+    """The smallest seed whose view-count draws for steps 0 and 1 are
+    `TRAIN_VIEWS` (13, then the largest, 21, which sets the peak memory)."""
+    from vist3a_tpu_torch.train import stitching as st
+
+    return next(s for s in range(1 << 16)
+                if [st.sample_view_count(s, i) for i in range(2)]
+                == list(TRAIN_VIEWS))
+
+
+def _train_counts(fa) -> dict:
+    return {"unmasked": fa.launches_unmasked, "masked": fa.launches_masked,
+            "natural": fa.launches_natural, "backward": fa.launches_backward}
+
+
+def phase_train() -> dict:
+    """Two full-width fp32 distillation steps through `run` (S = 13, then
+    21), their checks, launch counts, times and peak memory, then one more
+    step at S = 13 under the profiler, then a narrow step card vs host."""
+    import torch
+
+    from vist3a_tpu_torch.cli import train_stitching as cli
+    from vist3a_tpu_torch.kernels import flash_attention as fa
+    from vist3a_tpu_torch.pipelines import t23d
+    from vist3a_tpu_torch.stitch import chopped_anysplat as ca
+    from vist3a_tpu_torch.train import stitching as st
+
+    log(f"train: torch.backends.cuda.matmul.allow_tf32 = "
+        f"{torch.backends.cuda.matmul.allow_tf32}, "
+        f"torch.backends.cudnn.allow_tf32 = "
+        f"{torch.backends.cudnn.allow_tf32} (the JAX step's fp32)")
+    cfg = ca.StitchedConfig()
+    torch.cuda.empty_cache()
+    teacher, stitch_conv, vae = build_trainer(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    clip = torch.rand(TRAIN_CLIP, generator=gen, device="cuda") * 2 - 1
+    feedforward = t23d.resize_trilinear_half_pixel(clip, (IMAGE, IMAGE))
+    batch = {"vae_image_tensor": clip,
+             "feedforward_image_tensor": feedforward}
+    seed = train_seed()
+    tcfg = st.StitchTrainConfig(lora_spec=TRAIN_LORA, warmup_steps=1,
+                                total_steps=10)
+    sums_before = [p.double().sum().item() for p in teacher.parameters()]
+    marks = []
+
+    def on_metrics(m):
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), _train_counts(fa),
+                      torch.cuda.max_memory_allocated(), m))
+        torch.cuda.reset_peak_memory_stats()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, history = cli.run(
+        {"encoder": teacher, "stitch_conv": stitch_conv, "vae": vae}, cfg,
+        [batch, batch], train_cfg=tcfg, num_epochs=1, seed=seed, log_every=1,
+        on_metrics=on_metrics)
+    counts = _train_counts(fa)
+    n_train = sum(p.numel() for p in st.trainable_list(state.trainable))
+    log(f"train: seed {seed}, LoRA {TRAIN_LORA}, {n_train} trainable "
+        f"parameters ({len(state.trainable['lora'])} LoRA sites)")
+    check([h["views"] for h in history] == list(TRAIN_VIEWS),
+          f"view counts {[h['views'] for h in history]}")
+    steps_ms, peaks, prev, prev_t = [], [], {k: 0 for k in counts}, t0
+    for i, (tm, c, peak, m) in enumerate(marks):
+        grew = {k: c[k] - prev[k] for k in c}
+        steps_ms.append((tm - prev_t) * 1e3)
+        peaks.append(peak)
+        prev, prev_t = c, tm
+        bad = {k: v for k, v in m.items() if not math.isfinite(v)}
+        check(not bad, f"step {i}: non-finite metrics {bad}")
+        check(m["grad_norm"] > 0, f"step {i}: grad_norm {m['grad_norm']}")
+        check(grew == TRAIN_LAUNCHES,
+              f"step {i}: launches {grew}, want {TRAIN_LAUNCHES}")
+        log(f"train: step {i} (S = {m['views']}): {steps_ms[-1]:.1f} ms, "
+            f"peak memory allocated {peak} B, launches {grew}, lr "
+            f"{m['lr']:.6g}, grad_norm {m['grad_norm']:.6g}, total_loss "
+            f"{m['total_loss']:.6g}")
+        log(f"train: step {i} loss terms " + json.dumps(
+            {k: v for k, v in m.items() if "loss" in k}))
+    check(history[0]["lr"] == 0 and history[1]["lr"] > 0,
+          f"lr {[h['lr'] for h in history]}")
+    b_max = [f["b"].abs().max().item()
+             for f in state.trainable["lora"].values()]
+    check(min(b_max) > 0, f"{sum(b == 0 for b in b_max)} LoRA B factors "
+          "never moved after the step with lr > 0")
+    sums_after = [p.double().sum().item() for p in teacher.parameters()]
+    check(sums_after == sums_before, "the teacher's weights changed")
+    own = {f"encoder.{n}": p for n, p in teacher.named_parameters()}
+    _, frozen = st.split_params(teacher, None, cfg, tcfg.lora)
+    check(bool(frozen) and all(t.data_ptr() == own[n].data_ptr()
+                               for n, t in frozen.items()),
+          "the student's frozen tensors are not the teacher's")
+    check(all(p.data_ptr() != own[n].data_ptr()
+              for n, p in state.trainable["model"].items() if n in own),
+          "a trainable shares the teacher's storage")
+    log(f"train: teacher weights unchanged ({len(sums_before)} checksums), "
+        f"{len(frozen)} frozen student tensors are the teacher's own; "
+        f"LoRA B factors moved (smallest max |B| {min(b_max):.3g})")
+    log(f"train: ms per step {steps_ms}; peak memory allocated {peaks} B; "
+        f"launches {counts}")
+
+    latent = cli.encode_context(vae, clip[:, :, :TRAIN_VIEWS[0]], gen)
+    ff = feedforward[:, :, :TRAIN_VIEWS[0]]
+    teacher01 = ((ff + 1.0) * 0.5).transpose(1, 2)
+    profile_call("train_step_s13", lambda: st.stitch_train_step(
+        state, teacher, latent, ff, teacher01, cfg, tcfg))
+    del state, frozen, teacher, vae, latent
+    torch.cuda.empty_cache()
+    return {"ms_per_step": steps_ms, "peak_bytes": peaks, "launches": counts,
+            "reference": train_reference()}
+
+
+def train_reference() -> dict:
+    """One narrow training step (`narrow_config()`: full spatial shape, 5
+    frames of 448², P = 1029) on the card (the fp32 flash kernels) and on
+    the host CPU (plain attention), from the same teacher, trainables and
+    inputs, with random nonzero LoRA B factors so every factor has a
+    gradient: loss terms and gradients compared."""
+    import torch
+
+    from vist3a_tpu_torch.kernels import flash_attention as fa
+    from vist3a_tpu_torch.nn import encoder as enc
+    from vist3a_tpu_torch.nn.layers import build_random
+    from vist3a_tpu_torch.stitch import chopped_anysplat as ca
+    from vist3a_tpu_torch.train import stitching as st
+
+    cfg = narrow_config()
+    gen = torch.Generator().manual_seed(11)
+    teacher = build_random(lambda: enc.Encoder(cfg.encoder, vit_start=0),
+                           gen, "cpu", torch.float32)
+    teacher.camera_head.pose_branch.fc2.bias.copy_(torch.tensor(CAMERA_BIAS))
+    stitch_conv = build_random(lambda: ca.init_stitch_conv(cfg), gen, "cpu",
+                               torch.float32)
+    tcfg = st.StitchTrainConfig(lora_spec="r4,a8,d0.0,f0")
+    state, _ = st.init_train_state(gen, teacher, stitch_conv, cfg, tcfg)
+    with torch.no_grad():
+        for f in state.trainable["lora"].values():
+            f["b"].normal_(std=0.02, generator=gen)
+    latent = torch.randn(1, 16, 2, 64, 64, generator=gen)
+    images = torch.rand(1, 3, 5, IMAGE, IMAGE, generator=gen) * 2 - 1
+    teacher01 = ((images + 1.0) * 0.5).transpose(1, 2)
+
+    def step(device):
+        tch = teacher.to(device)
+        trainable = {"lora": {s: {k: torch.nn.Parameter(v.detach().to(device))
+                                  for k, v in f.items()}
+                              for s, f in state.trainable["lora"].items()},
+                     "model": {n: torch.nn.Parameter(p.detach().to(device))
+                               for n, p in state.trainable["model"].items()}}
+        _, frozen = st.split_params(tch, None, cfg, tcfg.lora)
+        with torch.no_grad():
+            tout = enc.forward(tch, teacher01.to(device), cfg.encoder)
+        total, losses = st.loss_fn(trainable, frozen, tout, latent.to(device),
+                                   images.to(device), cfg, tcfg.lora)
+        total.backward()
+        names = [f"lora.{s}.{k}" for s, f in trainable["lora"].items()
+                 for k in ("a", "b")] + list(trainable["model"])
+        grads = {n: p.grad.detach().cpu() for n, p in
+                 zip(names, st.trainable_list(trainable))}
+        return {k: v.item() for k, v in losses.items()}, grads
+
+    t0 = time.perf_counter()
+    loss_cpu, grads_cpu = step("cpu")
+    cpu_s = time.perf_counter() - t0
+    before = _train_counts(fa)
+    loss_card, grads_card = step("cuda")
+    torch.cuda.synchronize()
+    grew = {k: v - before[k] for k, v in _train_counts(fa).items()}
+    check(grew["unmasked"] > 0 and grew["backward"] > 0,
+          f"the narrow step launched {grew}")
+    loss_err = max(abs(loss_card[k] - v) / max(abs(v), 1e-30)
+                   for k, v in loss_cpu.items())
+    leaf_err = {n: ((grads_card[n] - g).abs().max()
+                    / g.abs().max().clamp_min(1e-30)).item()
+                for n, g in grads_cpu.items()}
+    num = sum(((grads_card[n] - g) ** 2).sum() for n, g in grads_cpu.items())
+    den = sum((g ** 2).sum() for g in grads_cpu.values())
+    global_err = (num / den).sqrt().item()
+    worst = sorted(leaf_err, key=leaf_err.get, reverse=True)[:3]
+    log(f"train reference: narrow step, card vs host CPU ({cpu_s:.1f} s "
+        f"there), launches {grew}: loss terms max rel err {loss_err:.3g}; "
+        f"gradients ‖Δ‖/‖g‖ {global_err:.3g}, worst leaves "
+        f"{[(n, round(leaf_err[n], 6)) for n in worst]}")
+    # fp32 on both sides (TF32 off); the sums run in other orders, and an
+    # L1 term's sign at a near-tie of student and teacher may differ
+    # (see tests/test_torch_stitch_train.py), which moves a few elements of
+    # the GS head's gradients: hence a global and a per-leaf limit
+    check(loss_err <= 1e-4 and global_err <= 1e-3
+          and max(leaf_err.values()) <= 5e-2,
+          f"narrow training step: card and host CPU disagree (loss "
+          f"{loss_err}, gradients {global_err}, worst leaf "
+          f"{leaf_err[worst[0]]})")
+    return {"loss_rel_err": loss_err, "grad_rel_err": global_err,
+            "worst_leaf_rel_err": leaf_err[worst[0]]}
+
+
 def _kernel_entries(timed: dict, raster: list | None,
                     launches: dict) -> list:
-    """One entry per kernel entry point (the four counters), each timed
-    at its main-path shape.  `launches` counts the main path — the whole
-    text→3DGS request of phase `denoise` — where it ran, else the latest
-    earlier path that did (decode, then the stitched-decoder slice);
-    `launches_by_path` has each path's.  The masked flash entry's
-    top-level numbers are those of the global shape, which holds 24 of its
-    48 launches and ~92 % of its FLOPs, the natural entry's those of the
-    1.3B DiT (the 14B heads are in `shapes`), and `shapes` carries every
-    measured shape; the composite's are those of the first raster view,
-    and `views` carries each view's."""
-    def count(counter):
+    """One entry per kernel entry point, each timed at its main-path
+    shape.  `launches` counts the entry's main path: for the bf16 forwards
+    the whole text→3DGS request of phase `denoise` where it ran, else the
+    latest earlier path that did (decode, then the stitched-decoder slice);
+    for the fp32 forward and the backward the two distillation steps of
+    phase `train`.  `launches_by_path` has each path's.  The masked flash
+    entry's top-level numbers are those of the global shape, which holds 24
+    of its 48 launches and ~92 % of its FLOPs, the natural entry's those of
+    the 1.3B DiT (the 14B heads are in `shapes`), the fp32 entries' those
+    of the global attention at S = 13, and `shapes` carries every measured
+    shape; the composite's are those of the first raster view, and `views`
+    carries each view's."""
+    def count(counter, paths):
         by_path = {path: c[counter] for path, c in launches.items()
-                   if c is not None}
-        main = next((by_path[p] for p in ("denoise", "decode", "slice")
-                     if p in by_path), None)
+                   if c is not None and path in paths}
+        main = next((by_path[p] for p in paths if p in by_path), None)
         return main, by_path
 
+    bf16_paths = ("denoise", "decode", "slice")
+    shape_keys = ("case", "shape", "kernel_ms", "plain_ms", "bound_ms",
+                  "library_ms", "max_abs_err_o", "o_excess",
+                  "max_abs_err_lse")
     entries = []
     for kname, counter, line, cases in (
             ("flash_attention_fwd", "unmasked", 187, ("vit",)),
@@ -1098,7 +1530,7 @@ def _kernel_entries(timed: dict, raster: list | None,
         if not rs:
             continue
         r = rs[0]
-        main, by_path = count(counter)
+        main, by_path = count(counter, bf16_paths)
         entries.append({
             "name": kname, "route": "cuda", "source": KERNEL_SOURCE,
             "replaces": f"vist3a_tpu/kernels/flash_attention.py:{line}",
@@ -1107,13 +1539,38 @@ def _kernel_entries(timed: dict, raster: list | None,
             "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["shape"],
-            "shapes": [{k: x[k] for k in ("case", "shape", "kernel_ms",
-                                          "plain_ms", "bound_ms",
-                                          "library_ms", "max_abs_err_o",
-                                          "o_excess", "max_abs_err_lse")}
-                       for x in rs]})
+            "shapes": [{k: x[k] for k in shape_keys} for x in rs]})
+    f32 = [timed[c] for c in F32_TIMED if c in timed]
+    if f32:
+        r = f32[1] if len(f32) > 1 else f32[0]
+        for kname, source, line, counter, pre in (
+                ("flash_attention_fwd_f32", KERNEL_SOURCE, 187, "unmasked",
+                 "fwd"),
+                ("flash_attention_bwd", BWD_SOURCE, 397, "backward", "bwd")):
+            main, by_path = count(counter, ("train",))
+            entries.append({
+                "name": kname, "route": "cuda", "source": source,
+                "replaces": f"vist3a_tpu/kernels/flash_attention.py:{line}",
+                "launches": main, "launches_by_path": by_path,
+                "max_abs_err": max(
+                    x["max_abs_err_o" if pre == "fwd"
+                      else "max_abs_err_grads"] for x in f32),
+                "ms": r[f"{pre}_ms"],
+                # the plain version computes the forward and the backward
+                # in one call: its time stands beside both entries
+                "plain_ms": r["plain_fwd_bwd_ms"],
+                "bound_ms": r[f"{pre}_bound_ms"],
+                "bound_by": r[f"{pre}_bound_by"],
+                "library_ms": r[f"library_{pre}_ms"],
+                "library_backend": r["library_backend"],
+                "shape": r["shape"],
+                "shapes": [{k: x[k] for k in (
+                    "case", "shape", f"{pre}_ms", f"{pre}_bound_ms",
+                    "plain_fwd_bwd_ms", f"library_{pre}_ms", "rel_err_o",
+                    "rel_err_dq", "rel_err_dk", "rel_err_dv")}
+                    for x in f32]})
     if raster:
-        main, by_path = count("composite")
+        main, by_path = count("composite", bf16_paths)
         r = raster[0]
         entries.append({
             "name": "rasterize_composite_fwd", "route": "cuda",
@@ -1175,11 +1632,14 @@ def main(argv=None) -> int:
         else None
     denoised = phase_denoise(model, vae, profile) if "denoise" in phases \
         else None
+    del model, vae
+    trained = phase_train() if "train" in phases else None
 
     launches = {"slice": sliced and {**sliced["launches"], "composite": 0,
                                      "natural": 0},
                 "decode": decoded and {**decoded["launches"], "natural": 0},
-                "denoise": denoised and denoised["launches"]}
+                "denoise": denoised and denoised["launches"],
+                "train": trained and trained["launches"]}
     print(json.dumps({"kernels": _kernel_entries(timed, raster, launches)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -79,15 +79,77 @@ def test_kernel_reads_strided_views_in_place(cuda):
 
 @pytest.mark.gpu
 def test_dispatch_raises_instead_of_falling_back(cuda):
-    """N ≥ 1024 on the card selects the kernel; fp32 inputs raise there,
+    """N ≥ 1024 on the card selects the kernel; fp64 inputs raise there,
     and a short sequence takes the plain math without a launch."""
-    x = torch.zeros(1, 1024, 2, 64, device=cuda)
-    with pytest.raises(TypeError, match="bf16"):
+    x = torch.zeros(1, 1024, 2, 64, device=cuda, dtype=torch.float64)
+    with pytest.raises(TypeError, match="bf16 or fp32"):
         dot_product_attention(x, x, x)
     before = fa.launches_unmasked + fa.launches_masked
     short = torch.zeros(1, 1023, 2, 64, device=cuda, dtype=torch.bfloat16)
     dot_product_attention(short, short, short)
     assert fa.launches_unmasked + fa.launches_masked == before
+
+
+# The fp32 kernels against the plain version (both fp32, sums in another
+# order over up to a few thousand keys here): O within 2e-5 of its largest
+# magnitude, the three gradients within 1e-4 of theirs (each sums twice as
+# many products: a dS term, then a tile loop), LSE within 1e-5.
+F32_O_RTOL = 2e-5
+F32_GRAD_RTOL = 1e-4
+F32_LSE_ATOL = 1e-5
+
+
+def _rel(a, b) -> float:
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n,h", [(2, 1100, 2), (1, 45, 3), (2, 1029, 4)])
+def test_fp32_kernels_match_ref_on_card(cuda, b, n, h):
+    """The fp32 forward and the backward (kernel 4) at ragged N (1100 and
+    1029 are no multiples of the 64-row tiles, 45 is less than one), each a
+    launch of its counter; the backward gives the same bits twice (no
+    atomics), and autograd through the dispatch reaches it."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v, do = (torch.randn(b, n, h, 64, generator=gen, device=cuda)
+                   for _ in range(4))
+    before = (fa.launches_unmasked, fa.launches_backward)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    grads = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    assert (fa.launches_unmasked, fa.launches_backward) == (
+        before[0] + 1, before[1] + 1)
+    o_ref, lse_ref = fa.flash_attention_ref(q, k, v)
+    assert _rel(o, o_ref) <= F32_O_RTOL
+    assert (lse - lse_ref).abs().max().item() <= F32_LSE_ATOL
+    refs = fa.flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, do)
+    for got, want in zip(grads, refs):
+        assert _rel(got, want) <= F32_GRAD_RTOL
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    assert all(torch.equal(x, y) for x, y in zip(grads, again))
+    if n >= 1024:
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        dot_product_attention(*leaves).backward(do)
+        for leaf, want in zip(leaves, grads):
+            assert torch.equal(leaf.grad, want)
+
+
+@pytest.mark.gpu
+def test_backward_raises_without_a_kernel(cuda):
+    """A grad-requiring call whose backward has no kernel raises in the
+    backward instead of dropping the gradient: bf16 (either head dim) and a
+    masked fp32 call."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    for dtype, d, kv in ((torch.bfloat16, 64, None),
+                         (torch.bfloat16, 128, None),
+                         (torch.float32, 64, torch.ones(1100, device=cuda,
+                                                        dtype=torch.bool))):
+        q = torch.randn(1, 1100, 2, d, generator=gen, device=cuda
+                        ).to(dtype).requires_grad_()
+        o = dot_product_attention(q, q, q, key_valid=kv)
+        assert o.grad_fn is not None
+        with pytest.raises(NotImplementedError):
+            o.float().sum().backward()
 
 
 def _counts():

@@ -1,21 +1,26 @@
 #!/usr/bin/env python3
-"""Plant faults in the port's flash-attention kernel and check that
-`chip_smoke.py`'s tolerance catches them (needs one NVIDIA GPU and nvcc).
+"""Plant faults in the port's flash-attention kernels and check that
+`chip_smoke.py`'s tolerances catch them (needs one NVIDIA GPU and nvcc).
 
     python3 tools/torch_flash_mutants.py [--out results.json]
 
-Each mutant is `csrc/flash_attention_fwd.cu` with one textual change on the
-PV side of the kernel, where a fault can leave the LSE untouched, so only
-the O check can see it.  The mutated sources are written to and built in a
+Each forward mutant is `csrc/flash_attention_fwd.cu` with one textual
+change on the PV side of the kernel, where a fault can leave the LSE
+untouched, so only the O check can see it; each backward mutant is
+`csrc/flash_attention_bwd.cu` with δ dropped or the dK/dV kernel's last
+query tile skipped.  The mutated sources are written to and built in a
 fresh temporary directory (the checkout is not touched), one nvcc each, all
-at once.  Every library — the unchanged source first — is loaded in place of
-the kernel's own and driven through the wrapper `flash_attention_fwd` at the
-cases of `chip_smoke.py` on the same seeded inputs; each case is judged by
+at once.  Every library — the unchanged sources first — is loaded in place
+of the kernel's own and driven through the wrappers on the same seeded
+inputs: the forward mutants at the bf16 cases of `chip_smoke.py`, judged by
 `chip_smoke.compare_case` (each |ΔO| within `O_ATOL_STD` of the plain
 output's std plus `O_RTOL` of itself, LSE within `LSE_ATOL`) and, for
-comparison, by the fixed O limit of 2e-2 that the script used before.  The
-script fails unless the unchanged kernel passes every case and every
-mutant fails the scaled limit on the natural (head_dim 128) cases.
+comparison, by the fixed O limit of 2e-2 that the script used before; the
+backward mutants at fp32 cases, judged by `chip_smoke.compare_f32_case`
+(O, LSE and the three gradients against the `F32_*` limits).  The script
+fails unless the unchanged kernels pass every case, every forward mutant
+fails the scaled limit on the natural (head_dim 128) cases and every
+backward mutant fails every fp32 case.
 """
 
 from __future__ import annotations
@@ -32,7 +37,21 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 OLD_O_ATOL = 2e-2
-# name → (text of the unchanged source, its replacement)
+# backward mutants: name → [(text of the unchanged source, its
+# replacement), ...]
+BWD_MUTANTS = {
+    # δ = rowsum(dO∘O) read as 0 in both kernels: dS = P∘dP
+    "delta_dropped": [
+        ("delta_s[tid] = live ? delta_b[q0 + tid] : 0.f;",
+         "delta_s[tid] = 0.f;"),
+        ("delta[r] = row < p.n_q ? p.delta[bh * p.n_q + row] : 0.f;",
+         "delta[r] = 0.f;")],
+    # the dK/dV kernel never visits its last query tile
+    "dkv_skips_last_query_tile": [
+        ("const int n_tiles = (p.n_q + kTile - 1) / kTile;",
+         "const int n_tiles = (p.n_q + kTile - 1) / kTile - 1;")],
+}
+# forward mutants: name → (text of the unchanged source, its replacement)
 MUTANTS = {
     # the last key tile's P·V product is skipped; its keys stay in the sum l
     "pv_skips_last_tile": (
@@ -72,15 +91,34 @@ def cases(cs):
             cs.Case("ragged_d128", 2, 333, 3, 128, 7)]
 
 
-def build_mutants(build, workdir: Path) -> dict[str, Path]:
-    text = (build.CSRC_DIR / "flash_attention_fwd.cu").read_text()
-    sources = {}
-    for name, (old, new) in MUTANTS.items():
+def f32_cases():
+    """fp32 (name, shape) cases for the backward mutants: the training
+    step's ViT/frame shape, a 4096-token global-like one, ragged and
+    short."""
+    return [("f32_vit_frame", (13, 1029, 16, 64)),
+            ("f32_4096", (1, 4096, 4, 64)),
+            ("f32_ragged", (2, 1100, 2, 64)),
+            ("f32_short", (1, 45, 3, 64))]
+
+
+def _mutate(text: str, name: str, edits) -> str:
+    for old, new in edits:
         if text.count(old) != 1:
             raise RuntimeError(f"mutant {name}: the text to replace occurs "
                                f"{text.count(old)} times in the source")
+        text = text.replace(old, new)
+    return text
+
+
+def build_mutants(build, workdir: Path) -> dict[str, Path]:
+    fwd = (build.CSRC_DIR / "flash_attention_fwd.cu").read_text()
+    bwd = (build.CSRC_DIR / "flash_attention_bwd.cu").read_text()
+    sources = {}
+    for name, edits, text in (
+            *((n, [e], fwd) for n, e in MUTANTS.items()),
+            *((n, e, bwd) for n, e in BWD_MUTANTS.items())):
         src = workdir / f"{name}.cu"
-        src.write_text(text.replace(old, new))
+        src.write_text(_mutate(text, name, edits))
         sources[name] = src
 
     def nvcc(item):
@@ -108,6 +146,15 @@ def run_cases(cs, fa, torch) -> list[dict]:
     return rows
 
 
+def run_f32_cases(cs, fa, torch) -> list[dict]:
+    rows = []
+    for i, (name, shape) in enumerate(f32_cases()):
+        gen = torch.Generator(device="cuda").manual_seed(200 + i)
+        res, passed, _ = cs.compare_f32_case(fa, name, shape, gen)
+        rows.append({**res, "passes": passed})
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -128,40 +175,64 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(f"nvidia-smi: {smi}", flush=True)
-    results = {}
+    results, f32_results = {}, {}
     with tempfile.TemporaryDirectory(prefix="flash_mutants_") as tmp:
         t0 = time.perf_counter()
-        fa._lib()                                   # the unchanged kernel
-        libs = {"unchanged": None, **build_mutants(build, Path(tmp))}
-        print(f"built {len(libs) - 1} mutants in "
+        fa._lib()                                   # the unchanged kernels
+        fa._bwd_lib()
+        built = build_mutants(build, Path(tmp))
+        print(f"built {len(built)} mutants in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         own = build._loaded[fa.SOURCE]
+        own_bwd = build._loaded[fa.BWD_SOURCE]
         try:
-            for name, path in libs.items():
-                build._loaded[fa.SOURCE] = own if path is None \
-                    else ctypes.CDLL(str(path))
-                results[name] = run_cases(cs, fa, torch)
-                for r in results[name]:
-                    print(f"{name:24s} {r['case']:15s} max|ΔO| "
-                          f"{r['max_abs_err_o']:.6g} o_excess "
-                          f"{r['o_excess']:.6g} "
-                          f"max|ΔLSE| {r['max_abs_err_lse']:.6g} passes "
-                          f"{r['passes']} (old 2e-2 limit: "
-                          f"{r['passes_old_limit']})", flush=True)
+            for name, path in {"unchanged": None, **built}.items():
+                lib = None if path is None else ctypes.CDLL(str(path))
+                if name in BWD_MUTANTS:
+                    build._loaded[fa.BWD_SOURCE] = lib
+                elif lib is not None:
+                    build._loaded[fa.SOURCE] = lib
+                if name not in BWD_MUTANTS:
+                    results[name] = run_cases(cs, fa, torch)
+                    for r in results[name]:
+                        print(f"{name:26s} {r['case']:15s} max|ΔO| "
+                              f"{r['max_abs_err_o']:.6g} o_excess "
+                              f"{r['o_excess']:.6g} "
+                              f"max|ΔLSE| {r['max_abs_err_lse']:.6g} passes "
+                              f"{r['passes']} (old 2e-2 limit: "
+                              f"{r['passes_old_limit']})", flush=True)
+                if name == "unchanged" or name in BWD_MUTANTS:
+                    f32_results[name] = run_f32_cases(cs, fa, torch)
+                    for r in f32_results[name]:
+                        print(f"{name:26s} {r['case']:15s} rel|Δ| O "
+                              f"{r['rel_err_o']:.3g} dQ {r['rel_err_dq']:.3g}"
+                              f" dK {r['rel_err_dk']:.3g} dV "
+                              f"{r['rel_err_dv']:.3g} passes {r['passes']}",
+                              flush=True)
+                build._loaded[fa.SOURCE] = own
+                build._loaded[fa.BWD_SOURCE] = own_bwd
         finally:
             build._loaded[fa.SOURCE] = own
+            build._loaded[fa.BWD_SOURCE] = own_bwd
     summary = {"device": smi, "o_atol_std": cs.O_ATOL_STD,
-               "o_rtol": cs.O_RTOL,
-               "old_o_atol": OLD_O_ATOL, "results": results}
+               "o_rtol": cs.O_RTOL, "old_o_atol": OLD_O_ATOL,
+               "f32_limits": {"o_rtol": cs.F32_O_RTOL,
+                              "grad_rtol": cs.F32_GRAD_RTOL,
+                              "lse_atol": cs.F32_LSE_ATOL},
+               "results": results, "f32_results": f32_results}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(summary, indent=1))
-    bad = [r["case"] for r in results["unchanged"] if not r["passes"]]
+    bad = [r["case"] for rows in (results["unchanged"],
+                                  f32_results["unchanged"])
+           for r in rows if not r["passes"]]
     missed = [f"{name}/{r['case']}" for name, rows in results.items()
               if name != "unchanged" for r in rows
               if r["natural"] and r["passes"]]
+    missed += [f"{name}/{r['case']}" for name, rows in f32_results.items()
+               if name != "unchanged" for r in rows if r["passes"]]
     print(json.dumps({"unchanged_fails": bad,
-                      "mutant_natural_cases_passed": missed}))
+                      "mutant_cases_passed": missed}))
     return 1 if bad or missed else 0
 
 

@@ -28,11 +28,26 @@ modules.  The layouts it changes:
 
 `load_jax_params(module, tree)` loads that dict into a `StitchedDecoder`,
 dropping what the chopped model does not hold (the patch embedding, the mask
-token and the ViT blocks before the chop).  `load_jax_vae_params(module,
-tree)` loads the Wan VAE tree into a `WanVAEDecoder`, dropping the encoder
-side (`encoder`, `quant_conv`), which the port does not hold yet.
+token and the ViT blocks before the chop).  `load_jax_encoder_params` loads
+a full encoder tree into an `Encoder` built with vit_start=0 (the
+distillation teacher: patch embedding and every ViT block), dropping only
+the mask token.  `load_jax_vae_params(module, tree)` loads the Wan VAE tree
+into a `WanVAEDecoder` or a `WanVAEEncoder`, dropping the other half.
 `load_jax_umt5_params` and `load_jax_dit_params` load the UMT5 and Wan DiT
 trees into a `UMT5Encoder` and a `WanDiT`, strictly.
+
+For the stitching trainer: `lora_from_jax(tree, k_chop)` carries a JAX
+LoRA tree (`init_lora`'s, rooted at the encoder) over to the port's factors
+keyed by the student's module names (`encoder.<site>`), and
+`trainable_from_jax(tree, k_chop)` a `TrainState.trainable` (its LoRA
+factors and its partitioned model leaves).  The factors keep the JAX
+layout, a (in·k, r·k) and b (r·k, out·k): the port's merge takes
+(a@b)ᵀ reshaped to the weight's shape, which is the JAX merge of every
+site kind (linear, stacked linear, `conv`, `conv_hwio`, `kernel_mat<k>`)
+followed by this converter's weight layout.  Both drop what the student
+does not hold: rows [0, k) of the ViT blocks, the mask token, and the patch
+embedding's factor and bias (no student path reads them; the JAX step
+leaves the first two at their init and weight-decays the last).
 """
 
 from __future__ import annotations
@@ -83,11 +98,15 @@ def _leaf(key: str, value: np.ndarray,
 
 
 def _walk(node, prefix: str, out: dict) -> None:
+    """None leaves (the placeholders of a JAX `partition`) are skipped."""
     if isinstance(node, dict):
         for key, child in node.items():
+            if child is None:
+                continue
             if key in _STACKS:
-                depth = np.asarray(next(_leaves(child))).shape[0]
-                for i in range(depth):
+                leaf = next(_leaves(child), None)
+                for i in range(0 if leaf is None
+                               else np.asarray(leaf).shape[0]):
                     _walk(_take(child, i), f"{prefix}{key}.{i}.", out)
             elif isinstance(child, (dict, list, tuple)):
                 _walk(child, f"{prefix}{key}.", out)
@@ -97,7 +116,8 @@ def _walk(node, prefix: str, out: dict) -> None:
                 out[prefix + name] = _tensor(arr)
     elif isinstance(node, (list, tuple)):
         for i, child in enumerate(node):
-            _walk(child, f"{prefix}{i}.", out)
+            if child is not None:
+                _walk(child, f"{prefix}{i}.", out)
     else:
         raise TypeError(f"unexpected leaf at {prefix!r}")
 
@@ -109,7 +129,7 @@ def _leaves(node):
     elif isinstance(node, (list, tuple)):
         for child in node:
             yield from _leaves(child)
-    else:
+    elif node is not None:
         yield node
 
 
@@ -118,7 +138,7 @@ def _take(node, i: int):
         return {k: _take(v, i) for k, v in node.items()}
     if isinstance(node, (list, tuple)):
         return [_take(v, i) for v in node]
-    return np.asarray(node)[i]
+    return None if node is None else np.asarray(node)[i]
 
 
 def from_jax_params(tree: dict) -> dict[str, torch.Tensor]:
@@ -155,9 +175,18 @@ def _subtree(name: str, tree: dict) -> dict[str, torch.Tensor]:
     return {k[n:]: v for k, v in from_jax_params({name: tree}).items()}
 
 
+def load_jax_encoder_params(module: nn.Module, tree: dict) -> nn.Module:
+    """Load a full encoder JAX tree (`encoder.init`) into an `Encoder` built
+    with vit_start=0."""
+    return _load(module, from_jax_params(tree), ("vit.mask_token",))
+
+
 def load_jax_vae_params(module: nn.Module, tree: dict) -> nn.Module:
-    """Load a Wan VAE JAX tree (`wan_vae.init`) into a `WanVAEDecoder`."""
-    return _load(module, _subtree("vae", tree), ("encoder.", "quant_conv."))
+    """Load a Wan VAE JAX tree (`wan_vae.init`) into a `WanVAEDecoder` or a
+    `WanVAEEncoder`; the top-level subtrees the module does not hold (the
+    other half) are dropped."""
+    dropped = tuple(f"{k}." for k in tree if not hasattr(module, k))
+    return _load(module, _subtree("vae", tree), dropped)
 
 
 def load_jax_umt5_params(module: nn.Module, tree: dict) -> nn.Module:
@@ -168,3 +197,38 @@ def load_jax_umt5_params(module: nn.Module, tree: dict) -> nn.Module:
 def load_jax_dit_params(module: nn.Module, tree: dict) -> nn.Module:
     """Load a Wan DiT JAX tree (`wan_dit.init`) into a `WanDiT`."""
     return _load(module, _subtree("dit", tree), ())
+
+
+def _student_holds(name: str, k_chop: int | None) -> bool:
+    """Whether the student chopped at `k_chop` has the parameter `name`
+    (None: the whole encoder, as the teacher holds it)."""
+    if k_chop is None:
+        return True
+    if name.startswith(("encoder.vit.patch_proj.", "encoder.vit.mask_token")):
+        return False
+    parts = name.split(".")
+    return not (parts[1:3] == ["vit", "blocks"] and int(parts[3]) < k_chop)
+
+
+def lora_from_jax(tree: dict, k_chop: int | None) -> dict[str, dict]:
+    """JAX LoRA tree (rooted at the encoder) → {site: {"a", "b"}} keyed by
+    `encoder.<module name>`, stacked factors split per block; k_chop=None
+    keeps every site (the teacher's)."""
+    flat = from_jax_params({"encoder": tree})
+    out: dict[str, dict] = {}
+    for name, value in flat.items():
+        site, factor = name.rsplit(".", 1)
+        if factor == "bias":          # `_leaf` renames a bare "b" to "bias"
+            factor = "b"
+        if _student_holds(site + ".", k_chop):
+            out.setdefault(site, {})[factor] = value
+    return out
+
+
+def trainable_from_jax(tree: dict, k_chop: int) -> dict:
+    """A JAX `TrainState.trainable` ({"lora", "model"}) → {"lora": {site:
+    {"a", "b"}}, "model": {name: tensor}} in the port's names and layouts,
+    without what the student does not hold."""
+    model = {k: v for k, v in from_jax_params(tree["model"]).items()
+             if _student_holds(k, k_chop)}
+    return {"lora": lora_from_jax(tree["lora"], k_chop), "model": model}

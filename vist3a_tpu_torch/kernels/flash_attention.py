@@ -1,13 +1,23 @@
-"""Flash-attention forward: the Hopper kernel, its wrapper and its plain version.
+"""Flash attention: the Hopper kernels, their wrappers and plain versions.
 
 Counterpart of `vist3a_tpu/kernels/flash_attention.py`'s forward entries
 `flash_attention` (transposed layout, `_fwd_kernel_t` and its online-max
 fallback), `flash_attention_masked`, and `flash_attention` in the natural
 layout (`_fwd_kernel`, which the JAX package runs for an unmasked call with
-head_dim 128: the Wan DiT's self-attention).  One CUDA source,
-`csrc/flash_attention_fwd.cu`, and one entry serve all three: the
-key-validity pointer is null for an unmasked call, and head_dim 128 selects
-its DP = 128 instantiation.  See that file for the design and its bound.
+head_dim 128: the Wan DiT's self-attention), and of the transposed layout's
+VJP (`_dq_kernel_t` and `_dkv_kernel_t`).  One CUDA source,
+`csrc/flash_attention_fwd.cu`, and one entry serve the three forwards: the
+key-validity pointer is null for an unmasked call, head_dim 128 selects its
+DP = 128 instantiation, and fp32 inputs its fp32 instantiation (head_dim
+≤ 64, the training step's).  `csrc/flash_attention_bwd.cu` is the backward,
+fp32 at head_dim ≤ 64.  See those files for the designs and their bounds.
+
+`FlashAttention` is the autograd function the attention dispatch calls on
+the card: its forward saves q, k, v, O and the LSE, its backward calls
+`flash_attention_bwd`.  A backward the port has no kernel for raises
+`NotImplementedError` — a masked call (the JAX package has no masked VJP),
+head_dim 128 or bf16 on the card — and never falls back to plain math, so a
+gradient is never silently dropped.
 
 Semantics, shared by kernel and plain version:
   * q (B, N_q, H, D), k and v (B, N_k, H, D), non-causal, scale D^-1/2 by
@@ -22,10 +32,12 @@ The natural-layout TPU kernel multiplies q by scale·log2(e) in the input
 dtype before the product; here (kernel and plain version) the fp32 scores
 are scaled, one rounding fewer.
 
-A wrapper call on CPU tensors runs `flash_attention_ref`; on CUDA tensors it
-launches the kernel or raises.  Each launch adds one to a counter by the
-TPU entry it stands for: `launches_masked` (key_valid given),
-`launches_natural` (unmasked, head_dim 128) or `launches_unmasked`.
+A wrapper call on CPU tensors runs the plain version (`flash_attention_ref`,
+`flash_attention_bwd_ref`); on CUDA tensors it launches the kernel or raises.
+Each forward launch adds one to a counter by the TPU entry it stands for:
+`launches_masked` (key_valid given), `launches_natural` (unmasked, head_dim
+128) or `launches_unmasked` (bf16 or fp32); each backward launch (its two
+kernels) adds one to `launches_backward`.
 """
 
 from __future__ import annotations
@@ -38,7 +50,9 @@ import torch
 from vist3a_tpu_torch.kernels import build
 
 SOURCE = "flash_attention_fwd.cu"
+BWD_SOURCE = "flash_attention_bwd.cu"
 MAX_HEAD_DIM = 128
+MAX_HEAD_DIM_F32 = 64          # the fp32 forward's and the backward's
 NATURAL_HEAD_DIM = 128
 _NEG_BIG = -1e30
 _LOG2E = 1.4426950408889634
@@ -46,13 +60,21 @@ _LOG2E = 1.4426950408889634
 launches_unmasked = 0
 launches_masked = 0
 launches_natural = 0
+launches_backward = 0
 
 
 def reset_launch_counts() -> None:
     global launches_unmasked, launches_masked, launches_natural
+    global launches_backward
     launches_unmasked = 0
     launches_masked = 0
     launches_natural = 0
+    launches_backward = 0
+
+
+def _compute_dtype(x: torch.Tensor) -> torch.dtype:
+    """fp32, or fp64 for fp64 inputs (the gradient checks)."""
+    return torch.promote_types(x.dtype, torch.float32)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -65,7 +87,8 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     −1e30, so rows with no live key agree with it exactly."""
     d = q.shape[-1]
     scale = d ** -0.5 if scale is None else scale
-    s2 = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) \
+    ct = _compute_dtype(q)
+    s2 = torch.einsum("bnhd,bmhd->bhnm", q.to(ct), k.to(ct)) \
         * (scale * _LOG2E)
     live = torch.ones(k.shape[1], dtype=torch.bool, device=q.device) \
         if key_valid is None else key_valid.to(q.device, torch.bool)
@@ -74,42 +97,94 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.exp2(s2 - m)
     l = p.sum(dim=-1, keepdim=True)
     safe_l = torch.where(l == 0, torch.ones_like(l), l)
-    o = torch.einsum("bhnm,bmhd->bnhd", p, v.float()) \
+    o = torch.einsum("bhnm,bmhd->bnhd", p, v.to(ct)) \
         / safe_l.squeeze(-1).transpose(1, 2)[..., None]
     lse = (m + torch.log2(safe_l)).squeeze(-1) / _LOG2E
     return o.to(q.dtype), lse
 
 
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            lse: torch.Tensor, do: torch.Tensor,
+                            scale: float | None = None
+                            ) -> tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """Plain PyTorch version of the backward kernel: (dQ, dK, dV) in the
+    input dtype, computed in fp32 from the forward's O and LSE:
+    δ = rowsum(dO∘O), P = exp(scale·qkᵀ − LSE), dV = PᵀdO,
+    dS = P∘(dO·Vᵀ − δ), dQ = scale·dS·K, dK = scale·dSᵀ·Q."""
+    d = q.shape[-1]
+    scale = d ** -0.5 if scale is None else scale
+    ct = _compute_dtype(q)
+    qf, kf, vf, dof = (x.to(ct) for x in (q, k, v, do))
+    delta = (dof * o.to(ct)).sum(-1).transpose(1, 2)           # (B, H, N_q)
+    s = torch.einsum("bnhd,bmhd->bhnm", qf, kf) * scale
+    p = torch.exp(s - lse.to(ct)[..., None])
+    dv = torch.einsum("bhnm,bnhd->bmhd", p, dof)
+    dp = torch.einsum("bnhd,bmhd->bhnm", dof, vf)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhnm,bmhd->bnhd", ds, kf) * scale
+    dk = torch.einsum("bhnm,bnhd->bmhd", ds, qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def _lib() -> ctypes.CDLL:
     lib = build.load(SOURCE)
-    fn = lib.flash_attention_fwd_bf16
+    fn = lib.flash_attention_fwd
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                        + [ctypes.c_longlong] * 12
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    return lib
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    lib = build.load(BWD_SOURCE)
+    fn = lib.flash_attention_bwd_f32
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+                       + [ctypes.c_longlong] * 21
                        + [ctypes.c_float, ctypes.c_void_p])
     return lib
 
 
+def _loadable(x: torch.Tensor) -> bool:
+    """The strides and alignment the kernels' 16-byte loads need: the last
+    stride 1, the others multiples of 16 bytes, the start 16-byte aligned."""
+    per16 = 16 // x.element_size()
+    return (x.stride(-1) == 1 and not any(s % per16 for s in x.stride()[:3])
+            and x.data_ptr() % 16 == 0)
+
+
+def _check_operand(name: str, x: torch.Tensor, like: torch.Tensor) -> None:
+    if x.device != like.device:
+        raise ValueError(f"{name} on {x.device}, q on {like.device}")
+    if x.dtype not in (torch.bfloat16, torch.float32) or x.dtype != like.dtype:
+        raise TypeError(f"the flash-attention kernels take bf16 or fp32 "
+                        f"q, k, v of one dtype; {name} is {x.dtype}, q "
+                        f"{like.dtype}")
+    if x.dim() != 4:
+        raise ValueError(f"{name} must be (B, N, H, D), got {tuple(x.shape)}")
+    if not _loadable(x):
+        raise ValueError(f"{name} strides {x.stride()}: the kernels need a "
+                         f"unit last stride, the others multiples of 16 "
+                         f"bytes, and a 16-byte aligned start")
+
+
 def _check(q, k, v, key_valid) -> None:
     for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.device != q.device:
-            raise ValueError(f"{name} on {x.device}, q on {q.device}")
-        if x.dtype != torch.bfloat16:
-            raise TypeError(f"the flash-attention kernel takes bf16, "
-                            f"{name} is {x.dtype}")
-        if x.dim() != 4:
-            raise ValueError(f"{name} must be (B, N, H, D), got {tuple(x.shape)}")
-        if x.stride(-1) != 1 or any(s % 8 for s in x.stride()[:3]):
-            raise ValueError(f"{name} strides {x.stride()}: the kernel needs a "
-                             "unit last stride and the others multiples of 8")
-        if x.data_ptr() % 16:
-            raise ValueError(f"{name} is not 16-byte aligned")
+        _check_operand(name, x, q)
     b, _, h, d = q.shape
     if k.shape != v.shape or (k.shape[0], k.shape[2], k.shape[3]) != (b, h, d):
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} do not match")
-    if d % 8 or not 0 < d <= MAX_HEAD_DIM:
+    if q.dtype == torch.float32:
+        if d % 4 or not 0 < d <= MAX_HEAD_DIM_F32:
+            raise ValueError(f"head_dim {d}: the fp32 kernels take multiples "
+                             f"of 4 up to {MAX_HEAD_DIM_F32}")
+    elif d % 8 or not 0 < d <= MAX_HEAD_DIM:
         raise ValueError(f"head_dim {d}: the kernel takes multiples of 8 up "
                          f"to {MAX_HEAD_DIM}")
     if q.shape[1] == 0 or k.shape[1] == 0:
@@ -140,14 +215,15 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.flash_attention_fwd_bf16(
+        err = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if key_valid is None else key_valid.data_ptr(),
             o.data_ptr(), lse.data_ptr(), b, n_q, k.shape[1], h, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *o.stride()[:3], float(scale), stream)
+            *o.stride()[:3], float(scale), int(q.dtype == torch.float32),
+            stream)
     if err:
-        raise RuntimeError(f"flash_attention_fwd_bf16 launch failed: "
+        raise RuntimeError(f"flash_attention_fwd launch failed: "
                            f"cudaError {err}")
     if key_valid is not None:
         launches_masked += 1
@@ -158,8 +234,85 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o, lse
 
 
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        key_valid: torch.Tensor | None = None,
+                        scale: float | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dQ, dK, dV) — the backward kernel on CUDA tensors, the plain version
+    on CPU.  Raises `NotImplementedError` where the port has no backward
+    kernel: a masked call (anywhere), head_dim 128 or bf16 on the card."""
+    global launches_backward
+    if key_valid is not None:
+        raise NotImplementedError(
+            "flash attention with key_valid has no backward: the JAX "
+            "package's masked entry is forward-only, for the padded "
+            "inference layout; train with the unpadded layout (remat=True)")
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, o, lse, do, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash-attention kernel for {q.device}")
+    d = q.shape[-1]
+    if d == NATURAL_HEAD_DIM:
+        raise NotImplementedError(
+            "the natural-layout (head_dim 128) flash backward, kernel 5 of "
+            "the kernel table, is not ported yet")
+    if q.dtype != torch.float32:
+        raise NotImplementedError(
+            f"the flash backward takes fp32; its {q.dtype} instantiation is "
+            "not ported yet")
+    _check(q, k, v, None)
+    if do.shape != q.shape:
+        raise ValueError(f"dO {tuple(do.shape)} does not match q "
+                         f"{tuple(q.shape)}")
+    if not _loadable(do):           # an incoming gradient may be any view
+        do = do.contiguous()
+    _check_operand("dO", do, q)
+    b, n_q, h, _ = q.shape
+    n_k = k.shape[1]
+    scale = d ** -0.5 if scale is None else scale
+    lse = lse.contiguous()
+    delta = (do * o).sum(-1).transpose(1, 2).contiguous()      # (B, H, N_q)
+    dq, dk, dv = (torch.empty_like(x, memory_format=torch.contiguous_format)
+                  for x in (q, k, v))
+    lib = _bwd_lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.flash_attention_bwd_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), b, n_q, n_k, h, d,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *do.stride()[:3], *dq.stride()[:3], *dk.stride()[:3],
+            *dv.stride()[:3], float(scale), stream)
+    if err:
+        raise RuntimeError(f"flash_attention_bwd_f32 launch failed: "
+                           f"cudaError {err}")
+    launches_backward += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """O = softmax(scale·qkᵀ)·v through the kernels, differentiable: the
+    forward saves q, k, v, O and the LSE for `flash_attention_bwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_valid=None, scale=None):
+        o, lse = flash_attention_fwd(q, k, v, key_valid, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.key_valid, ctx.scale = key_valid, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, ctx.key_valid,
+                                         ctx.scale)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     key_valid: torch.Tensor | None = None,
                     scale: float | None = None) -> torch.Tensor:
-    """Attention output O only (the inference trunk needs no LSE)."""
-    return flash_attention_fwd(q, k, v, key_valid, scale)[0]
+    """Attention output O only, differentiable through `FlashAttention`."""
+    return FlashAttention.apply(q, k, v, key_valid, scale)

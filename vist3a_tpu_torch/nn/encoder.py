@@ -9,7 +9,9 @@ stays resident (G = S·H·W, static); the unified adapter calibrates the
 Gaussians; the context pose is c2w 4×4 plus width/height-normalised K.
 
 The depth-head path ("depth", the deployed VIST3A path) is the one ported;
-the JAX package's `pred_head_type="point"` branch is not.
+the JAX package's `pred_head_type="point"` branch is not.  `forward` is the
+full (un-chopped) encoder from images, the frozen distillation teacher: an
+`Encoder` built with vit_start=0 holds the whole DINOv2 trunk.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
+from vist3a_tpu_torch.nn import aggregator as agg_mod
 from vist3a_tpu_torch.nn.aggregator import Aggregator, AggregatorConfig
 from vist3a_tpu_torch.nn.gaussians import (Gaussians, map_pdf_to_opacity,
                                            unified_gaussian_adapter)
@@ -30,7 +33,7 @@ from vist3a_tpu_torch.nn.heads import (CameraHead, CameraHeadConfig, DPTConfig,
                                        DPTHead, GSHead, GSHeadConfig,
                                        camera_head_apply, dpt_apply,
                                        gs_head_apply)
-from vist3a_tpu_torch.nn.vit import VIT_LARGE, ChoppedViT, ViTConfig
+from vist3a_tpu_torch.nn.vit import VIT_LARGE, ViT, ChoppedViT, ViTConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,11 +69,13 @@ class EncoderOutput(NamedTuple):
 
 
 class Encoder(nn.Module):
-    """The encoder's modules, with the ViT chopped at `vit_start`."""
+    """The encoder's modules, with the ViT chopped at `vit_start` (0: the
+    whole trunk with its patch embedding)."""
 
     def __init__(self, cfg: EncoderConfig, vit_start: int = 0):
         super().__init__()
-        self.vit = ChoppedViT(cfg.vit, vit_start)
+        self.vit = ViT(cfg.vit) if vit_start == 0 else \
+            ChoppedViT(cfg.vit, vit_start)
         self.aggregator = Aggregator(cfg.agg)
         self.camera_head = CameraHead(cfg.camera)
         self.depth_head = DPTHead(cfg.depth)
@@ -90,8 +95,10 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def heads_pipeline(encoder: Encoder, cfg: EncoderConfig, taps: list,
-                   images01: torch.Tensor) -> EncoderOutput:
-    """taps (4 × (B,S,P,2C)) + images (B,S,3,H,W) in [0,1] → EncoderOutput."""
+                   images01: torch.Tensor, *,
+                   remat: bool = False) -> EncoderOutput:
+    """taps (4 × (B,S,P,2C)) + images (B,S,3,H,W) in [0,1] → EncoderOutput;
+    with remat the DPT frame chunks are recomputed in the backward."""
     b, s, _, h, w = images01.shape
     psi = cfg.agg.patch_start_idx
     pose_enc_list = camera_head_apply(encoder.camera_head, taps[-1],
@@ -103,13 +110,14 @@ def heads_pipeline(encoder: Encoder, cfg: EncoderConfig, taps: list,
     extrinsic, intrinsic = pose_encoding_to_extri_intri(pose_enc_list[-1],
                                                         (h, w))
     depth, depth_conf = dpt_apply(encoder.depth_head, taps, (h, w), psi,
-                                  cfg.depth, (b, s))
+                                  cfg.depth, (b, s), remat=remat)
     pts = unproject_depth(depth, extrinsic, intrinsic)       # (B,S,H,W,3)
 
     conf_valid = depth_conf > torch.quantile(depth_conf.flatten(),
                                              cfg.conf_threshold)
 
-    raw = gs_head_apply(encoder.gs_head, taps, images01, psi, cfg.gs)
+    raw = gs_head_apply(encoder.gs_head, taps, images01, psi, cfg.gs,
+                        remat=remat)
     gs_conf = raw[..., cfg.raw_gs_dim]
     anchor_feats = raw[..., :cfg.raw_gs_dim].movedim(-1, 2)
     scene_scale = torch.linalg.norm(pts.reshape(b, -1, 3), dim=-1).mean() \
@@ -129,3 +137,14 @@ def heads_pipeline(encoder: Encoder, cfg: EncoderConfig, taps: list,
         extrinsic_c2w=c2w, intrinsic_norm=intrinsic * scale, depth=depth,
         depth_conf=depth_conf, conf_valid_mask=conf_valid,
         scene_scale=scene_scale, anchor_feats=anchor_feats, gs_conf=gs_conf)
+
+
+def forward(encoder: Encoder, images01: torch.Tensor, cfg: EncoderConfig, *,
+            remat: bool = True) -> EncoderOutput:
+    """The full encoder (vit_start=0), the frozen distillation teacher:
+    images (B, S, 3, H, W) in [0, 1] → EncoderOutput.  remat=True (the JAX
+    default) is the training layout: the unpadded trunk, every flash call
+    unmasked; without grad mode nothing is recomputed."""
+    taps = agg_mod.forward(encoder.aggregator, encoder.vit, images01,
+                           cfg.agg, cfg.vit, remat=remat)
+    return heads_pipeline(encoder, cfg, taps, images01, remat=remat)

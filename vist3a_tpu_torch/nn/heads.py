@@ -26,7 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vist3a_tpu_torch.nn.layers import (Block, BlockConfig, LayerNorm, Linear,
-                                        Mlp)
+                                        Mlp, recompute)
 
 
 # --------------------------------------------------------------------------- #
@@ -269,18 +269,26 @@ def _dpt_frames(head: DPTHead, taps_flat, images_hw, patch_start_idx,
 
 def dpt_apply(head: DPTHead, taps, images_hw: tuple[int, int],
               patch_start_idx: int, cfg: DPTConfig,
-              batch_seq: tuple[int, int]):
+              batch_seq: tuple[int, int], *, remat: bool = False):
     """Depth-style DPT: returns (preds (B,S,H,W,C−1), conf (B,S,H,W)),
     activated in fp32 whatever the cascade dtype: the depth head's "exp"
     and "expp1" (the JAX package's other activations serve its point head,
-    which the decoder does not run)."""
+    which the decoder does not run).  With remat each frame chunk is
+    recomputed in the backward (its 448² conv activations are the largest
+    training temporaries)."""
     h, w = images_hw
     b, s = batch_seq
     taps_flat = [t.reshape(b * s, *t.shape[2:]) for t in taps]
-    out = torch.cat([
-        _dpt_frames(head, [t[lo:hi] for t in taps_flat], images_hw,
-                    patch_start_idx, cfg)
-        for lo, hi in _frame_chunks(b * s, cfg.frames_chunk_size)])
+
+    def frames(hd, chunk):
+        return _dpt_frames(hd, chunk, images_hw, patch_start_idx, cfg)
+
+    chunks = []
+    for lo, hi in _frame_chunks(b * s, cfg.frames_chunk_size):
+        chunk = [t[lo:hi] for t in taps_flat]
+        chunks.append(recompute(frames, head, chunk) if remat
+                      else frames(head, chunk))
+    out = torch.cat(chunks)
     fmap = out.float().permute(0, 2, 3, 1)         # (BS, H, W, C)
     preds, conf = torch.exp(fmap[..., :-1]), 1 + torch.exp(fmap[..., -1])
     return preds.reshape(b, s, h, w, -1), conf.reshape(b, s, h, w)
@@ -300,15 +308,23 @@ def _gs_frames(head: GSHead, taps_flat, imgs, cfg: GSHeadConfig,
 
 
 def gs_head_apply(head: GSHead, taps, images: torch.Tensor,
-                  patch_start_idx: int, cfg: GSHeadConfig) -> torch.Tensor:
-    """images (B, S, 3, H, W) in [0, 1] → raw (B, S, H, W, output_dim) fp32."""
+                  patch_start_idx: int, cfg: GSHeadConfig, *,
+                  remat: bool = False) -> torch.Tensor:
+    """images (B, S, 3, H, W) in [0, 1] → raw (B, S, H, W, output_dim) fp32;
+    with remat each frame chunk is recomputed in the backward."""
     b, s, _, h, w = images.shape
     taps_flat = [t.reshape(b * s, *t.shape[2:]) for t in taps]
     imgs = images.reshape(b * s, 3, h, w)
-    out = torch.cat([
-        _gs_frames(head, [t[lo:hi] for t in taps_flat], imgs[lo:hi], cfg,
-                   patch_start_idx)
-        for lo, hi in _frame_chunks(b * s, cfg.frames_chunk_size)])
+
+    def frames(hd, chunk, img):
+        return _gs_frames(hd, chunk, img, cfg, patch_start_idx)
+
+    chunks = []
+    for lo, hi in _frame_chunks(b * s, cfg.frames_chunk_size):
+        args = ([t[lo:hi] for t in taps_flat], imgs[lo:hi])
+        chunks.append(recompute(frames, head, *args) if remat
+                      else frames(head, *args))
+    out = torch.cat(chunks)
     return out.float().permute(0, 2, 3, 1).reshape(b, s, h, w, cfg.output_dim)
 
 

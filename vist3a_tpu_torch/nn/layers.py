@@ -3,6 +3,8 @@
 Port of `vist3a_tpu/nn/layers.py`.  The JAX package keeps a block stack as
 one pytree with a leading layer axis and runs it with `lax.scan`; here each
 block is its own `nn.Module` in a `ModuleList`, run by a Python loop.
+`recompute` and `run_blocks(remat_blocks=True)` take the place of
+`jax.checkpoint` and `scan_blocks(remat=True)` on the training path.
 
 Numerics follow the JAX functions:
   * `layer_norm` takes its statistics in fp32 and casts back to the input
@@ -27,6 +29,8 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from vist3a_tpu_torch.ops.attention import dot_product_attention
 from vist3a_tpu_torch.ops.rope import apply_rope2d
@@ -186,6 +190,45 @@ class Block(nn.Module):
         if self.ls2 is not None:
             h = self.ls2(h)
         return x + h
+
+
+class _Bound(nn.Module):
+    """`fn(module, *args)` as a module's forward, for `functional_call`."""
+
+    def __init__(self, fn: Callable, module: nn.Module):
+        super().__init__()
+        self.fn = fn
+        self.module = module
+
+    def forward(self, *args):
+        return self.fn(self.module, *args)
+
+
+def recompute(fn: Callable, module: nn.Module, *args):
+    """`fn(module, *args)`, its activations recomputed in the backward — the
+    counterpart of `jax.checkpoint` (a non-reentrant
+    `torch.utils.checkpoint`).  The recompute runs after the forward's
+    caller has returned, so it binds, through `functional_call`, the
+    parameter tensors `module` holds now: under the trainer's
+    `functional_call` those are the merged student weights, gone from the
+    module by the time the backward runs.  Without grad mode it is a plain
+    call."""
+    if not torch.is_grad_enabled():
+        return fn(module, *args)
+    bound = _Bound(fn, module)
+    params = dict(bound.named_parameters())
+    return checkpoint(lambda *a: functional_call(bound, params, a), *args,
+                      use_reentrant=False)
+
+
+def run_blocks(blocks, x: torch.Tensor, *, remat_blocks: bool = False,
+               **kwargs) -> torch.Tensor:
+    """The blocks in order over x; with remat_blocks each block is
+    recomputed in the backward (`scan_blocks(remat=True)`)."""
+    for blk in blocks:
+        x = recompute(lambda b, y: b(y, **kwargs), blk, x) if remat_blocks \
+            else blk(x, **kwargs)
+    return x
 
 
 def init_params(module: nn.Module, generator: torch.Generator) -> None:

@@ -1,13 +1,17 @@
-"""DINOv2 vision transformer: the part the chopped (stitched) path runs.
+"""DINOv2 vision transformer: the chopped half and the whole trunk.
 
 Port of `vist3a_tpu/nn/vit.py`: `ViTConfig`, `VIT_LARGE` (ViT-L/14, 4
-register tokens, LayerScale 1.0, LN eps 1e-6, no QK-norm) and
-`interpolate_pos_embed`.  The stitched decoder replaces the patch embedding
-and the first `stitch_layer_index` blocks with the stitch conv, so
-`ChoppedViT` holds only the special tokens, the positional embedding, the
-blocks after the chop and the final norm.  Its blocks sit in a `ModuleDict`
-keyed by their index in the full trunk, so a state dict names them as the
-JAX stack does.
+register tokens, LayerScale 1.0, LN eps 1e-6, no QK-norm),
+`interpolate_pos_embed`, `patch_embed`, `prepare_tokens` and
+`forward_features`.  The stitched decoder replaces the patch embedding and
+the first `stitch_layer_index` blocks with the stitch conv, so `ChoppedViT`
+holds only the special tokens, the positional embedding, the blocks after
+the chop and the final norm.  `ViT`, the distillation teacher's trunk, adds
+the 14×14 patch embedding and holds blocks [0, depth); both run the same
+token assembly (`prepare_tokens`) and blocks (`blocks_and_norm`).  Blocks
+sit in a `ModuleDict` keyed by their index in the full trunk, so a state
+dict names them as the JAX stack does.  The JAX trunk's `mask_token` (for
+masked-image pretraining) is read by no forward here and is not held.
 
 `interpolate_pos_embed` reproduces `jax.image.resize(method="bicubic",
 antialias=True)` as two (out, in) weight matrices built in numpy by the rule
@@ -24,9 +28,11 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from vist3a_tpu_torch.nn.layers import Block, BlockConfig, LayerNorm
+from vist3a_tpu_torch.nn.layers import (Block, BlockConfig, LayerNorm,
+                                        run_blocks)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,6 +83,68 @@ class ChoppedViT(nn.Module):
         for p, std in ((self.cls_token, 1e-6), (self.register_tokens, 1e-6),
                        (self.pos_embed, 0.02)):
             nn.init.normal_(p, std=std, generator=generator)
+
+
+class PatchEmbed(nn.Conv2d):
+    """The p×p stride-p patch projection, weight (D, 3, p, p) as in the JAX
+    tree; N(0, 0.02²) weights and zero bias at init, as there."""
+
+    def __init__(self, cfg: ViTConfig):
+        super().__init__(3, cfg.embed_dim, cfg.patch_size,
+                         stride=cfg.patch_size)
+
+    def init_params(self, generator: torch.Generator) -> None:
+        nn.init.normal_(self.weight, std=0.02, generator=generator)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        """(B, 3, H, W) → patch tokens (B, H/p·W/p, D), row-major, in the
+        images' dtype; the bias is added after the product, as in JAX."""
+        out = F.conv2d(images, self.weight.to(images.dtype),
+                       stride=self.stride)
+        out = out + self.bias.to(out.dtype)[None, :, None, None]
+        return out.flatten(2).transpose(1, 2)
+
+
+class ViT(ChoppedViT):
+    """The whole trunk: the patch embedding and blocks [0, depth)."""
+
+    def __init__(self, cfg: ViTConfig):
+        super().__init__(cfg, 0)
+        self.patch_proj = PatchEmbed(cfg)
+
+
+def prepare_tokens(vit: ChoppedViT, patch_tokens: torch.Tensor,
+                   grid_hw: tuple[int, int], cfg: ViTConfig) -> torch.Tensor:
+    """Patch tokens (N, gh·gw, D) → [cls, registers, patches] in their
+    dtype, the interpolated positional embedding added to cls and patches
+    before the registers go in (they carry none)."""
+    n, _, d = patch_tokens.shape
+    x = torch.cat([vit.cls_token.to(patch_tokens.dtype).expand(n, 1, d),
+                   patch_tokens], dim=1)
+    x = x + interpolate_pos_embed(vit.pos_embed, *grid_hw).to(x.dtype)
+    reg = vit.register_tokens.to(x.dtype).expand(n, cfg.num_register_tokens,
+                                                 d)
+    return torch.cat([x[:, :1], reg, x[:, 1:]], dim=1)
+
+
+def blocks_and_norm(vit: ChoppedViT, x: torch.Tensor, cfg: ViTConfig, *,
+                    remat: bool = False) -> torch.Tensor:
+    """The held blocks (each recomputed in the backward with remat), the
+    final norm, and the special tokens stripped: normalised patch tokens."""
+    x = run_blocks(vit.blocks.values(), x, remat_blocks=remat)
+    return vit.norm(x)[:, 1 + cfg.num_register_tokens:]
+
+
+def forward_features(vit: ViT, images: torch.Tensor, cfg: ViTConfig, *,
+                     remat: bool = False) -> torch.Tensor:
+    """Images (N, 3, H, W) → normalised patch tokens (N, H/p·W/p, D) in the
+    trunk's dtype: the patch embedding and token assembly in the images'
+    dtype, then the blocks in their parameters'."""
+    grid_hw = (images.shape[-2] // cfg.patch_size,
+               images.shape[-1] // cfg.patch_size)
+    x = prepare_tokens(vit, vit.patch_proj(images), grid_hw, cfg)
+    return blocks_and_norm(vit, x.to(vit.cls_token.dtype), cfg, remat=remat)
 
 
 def _keys_cubic(x: np.ndarray) -> np.ndarray:

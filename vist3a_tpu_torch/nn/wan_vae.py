@@ -1,11 +1,15 @@
-"""Wan 2.1 causal-3D VAE, decoder half.
+"""Wan 2.1 causal-3D VAE: the decoder and the encoder.
 
-Port of the decoding side of `vist3a_tpu/nn/wan_vae.py`: causal conv3d with
-the time axis padded 2·pad_t at the front only, channel RMSNorm, residual
-blocks, the mid block with single-head per-frame spatial attention, and the
-2D/3D upsampling resample blocks, run over the full sequence (the JAX
-package's closed form of the reference's chunked decode: in `upsample3d`
-frame 0 passes through and the time conv never sees it).
+Port of `vist3a_tpu/nn/wan_vae.py`: causal conv3d with the time axis padded
+2·pad_t at the front only, channel RMSNorm, residual blocks, the mid block
+with single-head per-frame spatial attention, and the 2D/3D resample blocks,
+run over the full sequence (the JAX package's closed form of the
+reference's chunked loops: in `upsample3d` frame 0 passes through and the
+time conv never sees it; in `downsample3d` frame 0 passes through and the
+stride-2 time conv's windows start at frame 0).  `encode` and
+`sample_posterior` give the distillation trainer its latents; the encoder
+has no attention blocks outside its mid block (the JAX `attn_scales` is
+empty for Wan 2.1 and is not ported).
 
 The JAX package computes channels-last; the port keeps PyTorch's
 channels-first (B, C, T, H, W) throughout, which is also the public layout
@@ -15,9 +19,10 @@ matmul-softmax-matmul, as the JAX package runs it (`impl="xla"`).  Each
 conv casts its weight to the activation dtype and adds the bias after the
 product, in that dtype, as the JAX package does.
 
-Weights come from `convert.load_jax_vae_params` or from `init_decoder`,
-which draws them from the JAX `init` distributions.  The encoder,
-`sample_posterior` and remat wait for the training slice.
+Weights come from `convert.load_jax_vae_params` or from `init_decoder` /
+`init_encoder`, which draw them from the JAX `init` distributions.  The
+VAE's remat (the reward-training decode's) waits for the slice that trains
+through it.
 """
 
 from __future__ import annotations
@@ -55,6 +60,10 @@ class WanVAEConfig:
         return self.temperal_downsample[::-1]
 
     @property
+    def enc_dims(self) -> tuple:
+        return tuple(self.base_dim * u for u in (1,) + tuple(self.dim_mult))
+
+    @property
     def dec_dims(self) -> tuple:
         m = tuple(self.dim_mult)
         return tuple(self.base_dim * u for u in (m[-1],) + m[::-1])
@@ -82,15 +91,17 @@ class CausalConv3d(_Conv):
     with zeros; weight (out, in, kt, kh, kw)."""
 
     def __init__(self, ci: int, co: int, k: tuple = (3, 3, 3),
-                 pad: tuple = (1, 1, 1)):
+                 pad: tuple = (1, 1, 1), stride: tuple = (1, 1, 1)):
         super().__init__(ci, co, k)
         self.pad = pad
+        self.stride = stride
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         pt, ph, pw = self.pad
         if pt:
             x = F.pad(x, (0, 0, 0, 0, 2 * pt, 0))
-        y = F.conv3d(x, self.weight.to(x.dtype), padding=(0, ph, pw))
+        y = F.conv3d(x, self.weight.to(x.dtype), stride=self.stride,
+                     padding=(0, ph, pw))
         return y + self._bias(x)
 
 
@@ -98,12 +109,14 @@ class Conv2dFrames(_Conv):
     """A 2D conv applied to every frame of (B, C, T, H, W); weight
     (out, in, k, k), run as a conv3d with a kernel one frame deep."""
 
-    def __init__(self, ci: int, co: int, k: int, pad: int):
+    def __init__(self, ci: int, co: int, k: int, pad: int, stride: int = 1):
         super().__init__(ci, co, (k, k))
         self.pad = pad
+        self.stride = stride
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.conv3d(x, self.weight.to(x.dtype)[:, :, None],
+                     stride=(1, self.stride, self.stride),
                      padding=(0, self.pad, self.pad))
         return y + self._bias(x)
 
@@ -189,15 +202,33 @@ def _interleave_time(x: torch.Tensor) -> torch.Tensor:
 class Resample(nn.Module):
     """`upsample2d` / `upsample3d`: nearest 2× in H and W, then a 3×3 conv
     to half the channels; `upsample3d` first doubles the frames after
-    frame 0 with a causal time conv."""
+    frame 0 with a causal time conv.  `downsample2d` / `downsample3d`: one
+    zero row and column at the bottom and right, a stride-2 3×3 conv;
+    `downsample3d` then halves the frames after frame 0 with a stride-2
+    time conv over windows starting at frame 0 (a single frame passes)."""
 
     def __init__(self, dim: int, mode: str):
         super().__init__()
-        self.conv = Conv2dFrames(dim, dim // 2, 3, 1)
-        self.time_conv = CausalConv3d(dim, 2 * dim, (3, 1, 1), (1, 0, 0)) \
-            if mode == "upsample3d" else None
+        self.mode = mode
+        up = mode.startswith("up")
+        self.conv = Conv2dFrames(dim, dim // 2, 3, 1) if up else \
+            Conv2dFrames(dim, dim, 3, 0, stride=2)
+        if mode == "upsample3d":
+            self.time_conv = CausalConv3d(dim, 2 * dim, (3, 1, 1), (1, 0, 0))
+        elif mode == "downsample3d":
+            self.time_conv = CausalConv3d(dim, dim, (3, 1, 1), (0, 0, 0),
+                                          stride=(2, 1, 1))
+        else:
+            self.time_conv = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.mode.startswith("down"):
+            x = self.conv(F.pad(x, (0, 1, 0, 1)))
+            if self.time_conv is None:
+                return x
+            if x.shape[2] < 3:
+                return x[:, :, :1]
+            return torch.cat([x[:, :, :1], self.time_conv(x)], dim=2)
         if self.time_conv is not None and x.shape[2] > 1:
             tail = _interleave_time(self.time_conv(x[:, :, 1:]))
             x = torch.cat([x[:, :, :1], tail], dim=2)
@@ -248,6 +279,87 @@ class WanDecoder3d(nn.Module):
             x = blk(x)
         x = self.conv_out(F.silu(self.norm_out(x)))
         return torch.clamp(x, -1.0, 1.0)
+
+
+def encoder_plan(cfg: WanVAEConfig) -> list[tuple[str, int, int]]:
+    """The flat `down_blocks` list, as the JAX `_encoder_plan`: per stage
+    `num_res_blocks` residual blocks, then a resample (but after the last)."""
+    dims = cfg.enc_dims
+    plan = []
+    for i, (ci, co) in enumerate(zip(dims[:-1], dims[1:])):
+        for _ in range(cfg.num_res_blocks):
+            plan.append(("res", ci, co))
+            ci = co
+        if i != len(cfg.dim_mult) - 1:
+            plan.append(("downsample3d" if cfg.temperal_downsample[i]
+                         else "downsample2d", co, co))
+    return plan
+
+
+class WanEncoder3d(nn.Module):
+    def __init__(self, cfg: WanVAEConfig):
+        super().__init__()
+        dims = cfg.enc_dims
+        self.conv_in = CausalConv3d(3, dims[0])
+        self.down_blocks = nn.ModuleList(
+            ResidualBlock(ci, co) if kind == "res" else Resample(co, kind)
+            for kind, ci, co in encoder_plan(cfg))
+        self.mid_block = MidBlock(dims[-1])
+        self.norm_out = RMSNorm(dims[-1])
+        self.conv_out = CausalConv3d(dims[-1], 2 * cfg.z_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, 3, T, H, W) → (B, 2·z, 1 + (T−1)/4, H/8, W/8)."""
+        x = self.conv_in(x)
+        for blk in self.down_blocks:
+            x = blk(x)
+        x = self.mid_block(x)
+        return self.conv_out(F.silu(self.norm_out(x)))
+
+
+class WanVAEEncoder(nn.Module):
+    """`encoder` and `quant_conv`, as in the JAX params tree."""
+
+    def __init__(self, cfg: WanVAEConfig = WanVAEConfig()):
+        super().__init__()
+        self.cfg = cfg
+        self.encoder = WanEncoder3d(cfg)
+        self.quant_conv = CausalConv3d(2 * cfg.z_dim, 2 * cfg.z_dim,
+                                       (1, 1, 1), (0, 0, 0))
+
+
+def init_encoder(cfg: WanVAEConfig, generator: torch.Generator,
+                 device: torch.device | str = "cuda",
+                 dtype: torch.dtype = torch.float32) -> WanVAEEncoder:
+    """An encoder with random weights of the full shapes (see
+    `init_decoder`)."""
+    return build_random(lambda: WanVAEEncoder(cfg), generator, device, dtype)
+
+
+@torch.no_grad()
+def encode(model: WanVAEEncoder, video: torch.Tensor
+           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """video (B, 3, T, H, W) in [−1, 1] → (mu, logvar), each (B, z,
+    1 + (T−1)/4, H/8, W/8), in video's dtype.  T must be 1 + 4k: the
+    reference's chunked encode silently drops frames beyond that, the JAX
+    package and the port refuse.  No grad: the VAE is frozen (the latents
+    are plain tensors, which the student's backward may save)."""
+    t = video.shape[2]
+    if t % 4 != 1:
+        raise ValueError(f"the Wan VAE needs T ≡ 1 (mod 4) frames, got {t}")
+    h = model.quant_conv(model.encoder(video))
+    mu, logvar = h.chunk(2, dim=1)
+    return mu, logvar
+
+
+def sample_posterior(mu: torch.Tensor, logvar: torch.Tensor,
+                     generator: torch.Generator) -> torch.Tensor:
+    """`DiagonalGaussianDistribution.sample`: logvar clamped to [−30, 20],
+    mu + exp(logvar / 2)·ε with ε drawn from `generator` (on mu's device)."""
+    std = torch.exp(0.5 * torch.clamp(logvar, -30.0, 20.0))
+    eps = torch.randn(mu.shape, generator=generator, device=mu.device,
+                      dtype=mu.dtype)
+    return mu + std * eps
 
 
 class WanVAEDecoder(nn.Module):

@@ -3,7 +3,9 @@
 Port of `vist3a_tpu/ops/attention.py`.  q, k, v are (B, N, H, D).  The rule
 is the JAX package's: with impl "auto", a CUDA tensor whose sequence is at
 least 1024 long goes to the flash-attention kernel (masked when key_valid is
-given), and that call launches the kernel or raises — it never falls back.
+given) through the autograd function `FlashAttention`, and that call
+launches the kernel or raises — it never falls back, and a call that needs
+a gradient gets one from the backward kernel or an error from it.
 Everything else, every CPU tensor and every short sequence (the camera
 head's N = S, whose blocks ask for impl "plain" like the JAX "xla", as the
 Wan DiT's cross-attention does), runs the plain math of `_xla_attention`.

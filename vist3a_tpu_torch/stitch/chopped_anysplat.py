@@ -11,8 +11,10 @@ an un-normalised Wan latent (B, 16, T_vae, h, w) and feed-forward images
      register tokens, blocks, final norm, special tokens stripped);
   4. the VGGT aggregator trunk and the encoder heads → Gaussians.
 
-The pixel-input `forward_from_video` needs the Wan VAE and is not ported
-here; `StitchedConfig` therefore has no `vae` field.
+`forward_with_latent(remat=True)` is the differentiable training entry
+(see there).  The pixel-input `forward_from_video` is not ported: the
+trainer encodes the clip itself (`cli/train_stitching.encode_context`), so
+`StitchedConfig` has no `vae` field.
 """
 
 from __future__ import annotations
@@ -53,6 +55,14 @@ class StitchedDecoder(nn.Module):
         super().__init__()
         self.encoder = Encoder(cfg.encoder, vit_start=cfg.stitch_layer_index)
         self.stitch_conv = init_stitch_conv(cfg)
+
+    def forward(self, latent: torch.Tensor, images: torch.Tensor,
+                cfg: StitchedConfig, *, remat: bool = False) -> EncoderOutput:
+        """The decoder on inputs already on its device, in the caller's
+        grad mode (the trainer's `functional_call` enters here)."""
+        lat = pre_upsample(latent, cfg)
+        return stitched_forward(self, self.stitch_conv(lat), images, cfg,
+                                remat=remat)
 
 
 def init_stitch_conv(cfg: StitchedConfig) -> SpecConv:
@@ -97,53 +107,54 @@ def pre_upsample(latent: torch.Tensor, cfg: StitchedConfig) -> torch.Tensor:
 
 
 def chopped_vit_forward(vit: vit_mod.ChoppedViT, tokens: torch.Tensor,
-                        grid_hw: tuple[int, int], cfg: StitchedConfig
-                        ) -> torch.Tensor:
+                        grid_hw: tuple[int, int], cfg: StitchedConfig, *,
+                        remat: bool = False) -> torch.Tensor:
     """Stitched tokens (N, gh·gw, D) → normalised patch tokens (N, gh·gw, D)
-    in the trunk's dtype."""
+    in the trunk's dtype (each block recomputed in the backward with
+    remat)."""
     vcfg = cfg.encoder.vit
-    tokens = tokens.to(vit.cls_token.dtype)
-    n, _, d = tokens.shape
-    x = torch.cat([vit.cls_token.expand(n, 1, d), tokens], dim=1)
-    x = x + vit_mod.interpolate_pos_embed(vit.pos_embed, *grid_hw).to(x.dtype)
-    reg = vit.register_tokens.expand(n, vcfg.num_register_tokens, d)
-    x = torch.cat([x[:, :1], reg, x[:, 1:]], dim=1)
-    for blk in vit.blocks.values():
-        x = blk(x)
-    return vit.norm(x)[:, 1 + vcfg.num_register_tokens:]
+    x = vit_mod.prepare_tokens(vit, tokens.to(vit.cls_token.dtype), grid_hw,
+                               vcfg)
+    return vit_mod.blocks_and_norm(vit, x, vcfg, remat=remat)
 
 
 def stitched_forward(model: StitchedDecoder, stitched_tokens: torch.Tensor,
-                     images: torch.Tensor, cfg: StitchedConfig
-                     ) -> EncoderOutput:
-    """stitched_tokens (B, D, S, gh, gw) + images (B, 3, S, H, W) in [−1, 1]."""
+                     images: torch.Tensor, cfg: StitchedConfig, *,
+                     remat: bool = False) -> EncoderOutput:
+    """stitched_tokens (B, D, S, gh, gw) + images (B, 3, S, H, W) in [−1, 1];
+    remat selects the training layout and recompute (see
+    `forward_with_latent`)."""
     b, d, s, gh, gw = stitched_tokens.shape
     images01 = (images.transpose(1, 2) + 1.0) / 2.0         # (B,S,3,H,W)
     tok = stitched_tokens.permute(0, 2, 3, 4, 1).reshape(b * s, gh * gw, d)
     enc = model.encoder
-    patch_tokens = chopped_vit_forward(enc.vit, tok, (gh, gw), cfg)
-
-    agg = enc.aggregator
-    cam = agg_mod.expand_special_tokens(
-        agg.camera_token.to(patch_tokens.dtype), b, s)
-    reg = agg_mod.expand_special_tokens(
-        agg.register_token.to(patch_tokens.dtype), b, s)
-    tokens = torch.cat([cam, reg, patch_tokens], dim=1).reshape(b, s, -1, d)
-    _, taps = agg_mod.run_trunk(agg, tokens, cfg.encoder.agg, (gh, gw))
-    return heads_pipeline(enc, cfg.encoder, taps, images01)
+    patch_tokens = chopped_vit_forward(enc.vit, tok, (gh, gw), cfg,
+                                       remat=remat)
+    tokens = agg_mod.special_tokens(enc.aggregator, patch_tokens, b, s)
+    _, taps = agg_mod.run_trunk(enc.aggregator, tokens, cfg.encoder.agg,
+                                (gh, gw), remat_pairs=remat)
+    return heads_pipeline(enc, cfg.encoder, taps, images01, remat=remat)
 
 
-@torch.inference_mode()
 def forward_with_latent(model: StitchedDecoder, latent: torch.Tensor,
                         images: torch.Tensor, cfg: StitchedConfig, *,
-                        device: torch.device | str = "cuda") -> EncoderOutput:
+                        device: torch.device | str = "cuda",
+                        remat: bool = False) -> EncoderOutput:
     """Wan latent (B, 16, T_vae, h, w) + images (B, 3, S, H, W) in [−1, 1]
     → EncoderOutput, computed on `device` (the inputs are moved there; the
-    model must already live there)."""
+    model must already live there).
+
+    remat=False is the inference entry (the JAX `remat=False` path, run in
+    inference mode): the padded trunk layout on the masked kernel.
+    remat=True is the training entry, differentiable: the unpadded layout
+    (P = 1029, every flash call unmasked), each ViT block, layer pair and
+    DPT frame chunk recomputed in the backward."""
     device = torch.device(device)
     if model.stitch_conv.weight.device.type != device.type:
         raise ValueError(f"model on {model.stitch_conv.weight.device}, "
                          f"asked to run on {device}")
     latent, images = latent.to(device), images.to(device)
-    lat = pre_upsample(latent, cfg)
-    return stitched_forward(model, model.stitch_conv(lat), images, cfg)
+    if remat:
+        return model(latent, images, cfg, remat=True)
+    with torch.inference_mode():
+        return model(latent, images, cfg)
