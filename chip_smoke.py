@@ -4,13 +4,14 @@
     python3 chip_smoke.py            # every phase, as the check runs it
     python3 chip_smoke.py --phases device,build,kernels,raster
     python3 chip_smoke.py --phases device,build,kernels,train
+    python3 chip_smoke.py --phases device,build,kernels,raster,vdm
 
 Phases, each of which passes or raises (any failure exits non-zero):
   1. device  — the card's name and power limit; fails without CUDA.
   2. build   — builds `vist3a_tpu_torch/csrc/flash_attention_fwd.cu`,
-               `csrc/flash_attention_bwd.cu` and `csrc/rasterize_fwd.cu` for
-               sm_90a, one nvcc each, at once, and prints ptxas's
-               registers / shared memory / spills.
+               `csrc/flash_attention_bwd.cu`, `csrc/rasterize_fwd.cu` and
+               `csrc/rasterize_bwd.cu` for sm_90a, one nvcc each, at once,
+               and prints ptxas's registers / shared memory / spills.
   3. kernels — holds the flash-attention kernel against its plain PyTorch
                version at the three shapes of the decode (ViT blocks,
                frame attention, global attention) and at the Wan DiT's
@@ -29,14 +30,25 @@ Phases, each of which passes or raises (any failure exits non-zero):
                three gradients against the plain versions (`F32_*`
                limits), the backward bit for bit repeatable; timed beside
                the plain versions, SDPA's memory-efficient fp32 backward
-               and the bounds.
+               and the bounds.  Then the bf16 backward (kernels 4b and 5)
+               at the VDM step's shapes — (13, 1029, 16, 64),
+               (1, 13377, 16, 64), (1, 4096, 12, 128), (6, 4096, 12, 128)
+               — a ragged (2, 1100, 2, 64) and (2, 333, 3, 128) and a short
+               (1, 45, 3, 64): each gradient within `GRAD_ATOL_STD` of its
+               std plus `GRAD_RTOL` of itself, bit for bit repeatable;
+               timed beside the plain version, SDPA's bf16 backward (a
+               yardstick) and the bound.
   4. raster  — one full-width scene: the Gaussians of one stitched-decoder
                request and its 13 context cameras interpolated to the
                133-view orbit.  Holds the composite kernel against its
                plain version on two orbit views at 448², prints each view's
                pair count and what the budget cut, times both, and states
-               the kernel's bound.  No PyTorch call computes the same
-               function, so its library time is null.
+               the kernel's bound.  Then the composite backward (kernel 7)
+               against `composite_bwd_ref` on the same two views at the
+               reward's 1×G pair budget, given a random cotangent
+               (`RASTER_BWD_*` limits), bit for bit repeatable, timed with
+               its bound.  No PyTorch call computes either function, so
+               their library times are null.
   5. slice   — builds the stitched decoder at full width (VGGT-1B /
                DINOv2-L, random weights from a seed, trunk bf16, heads bf16)
                and serves 3 decode requests through `forward_with_latent`:
@@ -87,6 +99,23 @@ Phases, each of which passes or raises (any failure exits non-zero):
                peak memory, a profile of one more step at S = 13, and
                compares a narrow step on the card with the host CPU.
                Cut: B = 1 and two steps; random weights, no data loader.
+  11. vdm    — reward-aligned VDM fine-tuning at full width: two steps of
+               `cli.train_vdm.run` (`VDMTrainConfig()`: LoRA r8 α16 on the
+               Wan 2.1 1.3B DiT's attention, bf16; UMT5-XXL for the prompts
+               with the stand-in tokenizer of phase `denoise`; the Wan VAE
+               in fp32 weights with bf16 activations; the stitched decoder
+               bf16; both CLIP-H vision towers, fp32; all drawn on the card
+               from seeds) over a synthetic clip (1, 3, 13, 512, 512) and
+               random L2-normalised scorer text features.  Step 0 takes the
+               50-step rollout (every 10th step), step 1 its drawn and
+               bucketed length.  Checks finite losses, grad_norm > 0, no
+               skip, the LoRA B factors moved, the EMA at its warm-up
+               formula, the frozen weights unchanged, and each step's
+               launches against `vdm_launches` (56 kernel-4b, 60 kernel-5
+               and 13 composite backward launches); prints ms per step,
+               peak memory, a profile of one more step with a 10-step
+               rollout, and compares a narrow step card vs host CPU.
+               Cut: B = 1, two steps, random weights and data.
 The line before the last lists the kernels as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -107,7 +136,7 @@ import zlib
 from pathlib import Path
 
 PHASES = ("device", "build", "kernels", "raster", "slice", "profile",
-          "reference", "decode", "denoise", "train")
+          "reference", "decode", "denoise", "train", "vdm")
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 (data sheet)
 PEAK_FP32_FLOPS = 67e12       # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
@@ -147,6 +176,54 @@ F32_CASES = (("f32_vit_frame", (13, 1029, 16, 64)),
              ("f32_short", (1, 45, 3, 64)))
 F32_TIMED = ("f32_vit_frame", "f32_global_s13", "f32_global_s21")
 BWD_SOURCE = "vist3a_tpu_torch/csrc/flash_attention_bwd.cu"
+# The bf16 backward (kernels 4b and 5) against the plain version, which
+# computes in fp32 from the same bf16 inputs, elementwise for each gradient:
+#   |Δ| ≤ GRAD_ATOL_STD · std(ref) + GRAD_RTOL · |ref|.
+# The kernel rounds P and dS to bf16 before the products (as the TPU
+# kernels do; 2⁻⁹ of each term, summed with random signs over N terms: a
+# small share of the gradient's std) and stores the gradients in bf16 (one
+# step, up to 2⁻⁸·|ref|); GRAD_RTOL is two such steps.  A dropped δ or a
+# skipped tile moves a gradient by a large share of its largest element.
+GRAD_ATOL_STD = 0.05
+GRAD_RTOL = 2 ** -6
+# (name, (B, N, H, D)): the VDM step's stitched-decoder ViT/frame and global
+# attention (kernel 4b), its DiT self-attention in the SFT branch and in
+# the rollout's re-evaluation (kernel 5), ragged N at both head dims and an
+# N below one 64-row tile
+BF16_BWD_CASES = (("bf16_vit_frame", (13, 1029, 16, 64)),
+                  ("bf16_global_s13", (1, 13377, 16, 64)),
+                  ("bf16_dit_sft", (1, 4096, 12, 128)),
+                  ("bf16_dit_reeval", (6, 4096, 12, 128)),
+                  ("bf16_ragged_d64", (2, 1100, 2, 64)),
+                  ("bf16_ragged_d128", (2, 333, 3, 128)),
+                  ("bf16_short", (1, 45, 3, 64)))
+BF16_BWD_TIMED = ("bf16_vit_frame", "bf16_global_s13", "bf16_dit_sft",
+                  "bf16_dit_reeval")
+RASTER_BWD_SOURCE = "vist3a_tpu_torch/csrc/rasterize_bwd.cu"
+# The composite backward against its plain version, both fp32, per pair
+# and column of the (P, 10) gradient rows: within RASTER_BWD_RTOL of the
+# column's largest magnitude on all but RASTER_BWD_MAX_OFF_SHARE of the
+# pairs — the sums run over 256 pixels in another order, and where the
+# 1e-4 stop fires one pair apart (see RASTER_ATOL) every later pair of
+# that pixel's tile sees another suffix — and every element within
+# RASTER_BWD_MAX_REL of its column's largest: a pixel stopping one pair
+# apart moves a row by about one pair's weight, while a fault in dα moves
+# the rows it touches by a large share of the column (the T_final
+# cotangent dropped: 0.26-0.41 of it, on 0.15 % of the pairs of a random
+# scene).
+RASTER_BWD_RTOL = 1e-3
+RASTER_BWD_MAX_OFF_SHARE = 1e-3
+RASTER_BWD_MAX_REL = 1e-2
+# The narrow VDM step, card against host CPU (`vdm_reference`): the loss
+# terms, and the SFT branch's gradients (‖Δ‖/‖g‖ over every LoRA factor).
+# Both sides run the DiT in bf16 and the VAE in bf16 activations, rounding
+# at other places; the limits separate that from a kernel fault, which
+# moves a loss or a gradient by O(1).
+VDM_REF_LOSS_RTOL = 2e-2
+VDM_REF_GRAD_RTOL = 1e-2
+# pairs a view of the narrow step renders: the host's plain composite,
+# forward, recompute and backward over 5 views, is its slowest part
+VDM_REF_PAIRS = 1 << 16
 # Composite kernel vs its plain version, both fp32: each plane within
 # 1e-4 of its own scale (1 for colour, alpha, T; the largest depth for
 # depth), on all but 0.1 % of the pixels — the 1e-4 stop can fire one pair
@@ -160,6 +237,11 @@ RASTER_MAX_OFF_SHARE = 1e-3
 # four multiply-adds (8) and the alpha sum.
 OPS_PER_EVAL = 14
 OPS_PER_COMPOSITE = 13
+# fp32 operations of the backward per composited (pixel, pair), beyond the
+# forward's: w, gp (8), the prefix (2), dα (5), dσ (2), the mean, conic and
+# opacity gradients (21), the colour and depth gradients (4), and the sum
+# over the tile's pixels of the 10 values (10)
+OPS_BWD_PER_COMPOSITE = OPS_PER_COMPOSITE + 52
 IMAGE = 448
 ORBIT_T = 10
 ORBIT_VIEWS = (13 - 1) * (ORBIT_T + 1) + 1       # 133
@@ -176,6 +258,13 @@ TRAIN_LORA = "r64,a32,d0.0,f0"
 # one backward for each of the student's
 TRAIN_LAUNCHES = {"unmasked": 72 + 2 * 56, "masked": 0, "natural": 0,
                   "backward": 56}
+
+# the VDM phase: two steps through `cli.train_vdm.run` on one synthetic
+# clip, the rollout prompt and caption embedded by UMT5-XXL
+VDM_CLIP = (1, 3, 13, 512, 512)
+VDM_CAPTION = "a wooden chair on a lawn, the camera circles it"
+VDM_SEED = 23
+VDM_STEPS = 2
 
 REQUESTS = 3
 GAUSSIANS = 13 * 448 * 448
@@ -247,12 +336,13 @@ def phase_build() -> None:
     from vist3a_tpu_torch.kernels import flash_attention as fa
     from vist3a_tpu_torch.kernels import rasterizer as tr
 
-    sources = (fa.SOURCE, fa.BWD_SOURCE, tr.SOURCE)
+    sources = (fa.SOURCE, fa.BWD_SOURCE, tr.SOURCE, tr.BWD_SOURCE)
     t0 = time.perf_counter()
     build.build_all(list(sources))
     fa._lib()
     fa._bwd_lib()
     tr._lib()
+    tr._bwd_lib()
     log(f"build: {', '.join(sources)} built and loaded in "
         f"{time.perf_counter() - t0:.1f} s")
     for source in sources:
@@ -413,7 +503,109 @@ def phase_kernels() -> dict:
     for name, shape in F32_CASES:
         timed[name] = check_f32_case(fa, name, shape, gen,
                                      timed=name in F32_TIMED)
+    # the VDM step's bf16 backward (kernels 4b and 5)
+    for name, shape in BF16_BWD_CASES:
+        timed[name] = check_bf16_bwd_case(fa, name, shape, gen,
+                                          timed=name in BF16_BWD_TIMED)
     return timed
+
+
+def grad_excess(g, ref) -> float:
+    """max |Δ| / (GRAD_ATOL_STD·std(ref) + GRAD_RTOL·|ref|) over the
+    elements: a correct kernel stays at or below 1."""
+    import torch
+
+    ref = ref.float()
+    limit = GRAD_ATOL_STD * ref.std() + GRAD_RTOL * ref.abs() \
+        + torch.finfo(torch.float32).tiny
+    return ((g.float() - ref).abs() / limit).max().item()
+
+
+def _bwd_ref_by_heads(fa, q, k, v, o, lse, do, heads_per_call: int):
+    """The plain backward a few heads at a time (the global case's fp32
+    score matrices are 0.7 GB a head)."""
+    import torch
+
+    outs = [fa.flash_attention_bwd_ref(
+        q[:, :, sl], k[:, :, sl], v[:, :, sl], o[:, :, sl], lse[:, sl],
+        do[:, :, sl])
+        for sl in (slice(h0, h0 + heads_per_call)
+                   for h0 in range(0, q.shape[2], heads_per_call))]
+    return [torch.cat([x[i] for x in outs], dim=2) for i in range(3)]
+
+
+def compare_bf16_bwd_case(fa, name: str, shape: tuple, gen):
+    """The bf16 backward kernel (its forward first) against the plain
+    version on bf16 inputs drawn from `gen`: each gradient within the
+    `grad_excess` limit, the same bits twice → (result, passed,
+    inputs and forward outputs)."""
+    import torch
+
+    n, h = shape[1], shape[2]
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    ref = _bwd_ref_by_heads(fa, q, k, v, o, lse, do, 2 if n > 8192 else h)
+    res = {"case": name, "shape": list(shape)}
+    for x, g, r in zip("qkv", got, ref):
+        res[f"excess_d{x}"] = grad_excess(g, r)
+        res[f"max_abs_err_d{x}"] = (g.float() - r.float()).abs().max().item()
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    res["bitwise_repeatable"] = all(torch.equal(x, y)
+                                    for x, y in zip(got, again))
+    passed = (max(res[f"excess_d{x}"] for x in "qkv") <= 1.0
+              and res["bitwise_repeatable"])
+    return res, passed, (q, k, v, do, o, lse)
+
+
+def check_bf16_bwd_case(fa, name: str, shape: tuple, gen, *,
+                        timed: bool) -> dict:
+    """`compare_bf16_bwd_case`, failing the run on a disagreement; with
+    `timed`, the kernels' time beside the plain version's, SDPA's bf16
+    backward (its forward and backward under autograd, less its forward)
+    and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    b, n, h, d = shape
+    res, passed, (q, k, v, do, o, lse) = compare_bf16_bwd_case(
+        fa, name, shape, gen)
+    check(passed, f"bf16 flash backward disagrees with its plain version: "
+          f"{res} (limit {GRAD_ATOL_STD}·std + {GRAD_RTOL}·|ref|)")
+    if not timed:
+        log(f"kernels: bf16 backward {json.dumps(res)}")
+        return res
+    flops = 10.0 * b * n * n * h * d
+    elems = b * n * h * d
+    n_bytes = 2 * 8 * elems + 4 * 2 * b * h * n   # q k v O dO in, 3 out; LSE, δ
+    bwd_ms = cuda_events_ms(
+        lambda: fa.flash_attention_bwd(q, k, v, o, lse, do), iters=5,
+        warmup=1)
+    plain_ms = cuda_events_ms(
+        lambda: _bwd_ref_by_heads(fa, q, k, v, o, lse, do,
+                                  2 if n > 8192 else h), iters=1, warmup=1)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt)
+
+    with torch.no_grad():
+        lib_fwd = cuda_events_ms(sdpa, iters=5, warmup=1)
+    lib_both = cuda_events_ms(lambda: sdpa().backward(dot), iters=5,
+                              warmup=1)
+    ops_ms = flops / PEAK_BF16_FLOPS * 1e3
+    bytes_ms = n_bytes / PEAK_BYTES * 1e3
+    res.update(flops=flops, bytes=n_bytes, bwd_ms=bwd_ms, plain_ms=plain_ms,
+               library_ms=lib_both - lib_fwd, library_fwd_ms=lib_fwd,
+               bound_ms=max(ops_ms, bytes_ms),
+               bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+               tflops=flops / bwd_ms / 1e9)
+    log(f"kernels: bf16 backward {json.dumps(res)}")
+    return res
 
 
 def _f32_ref_by_heads(fa, q, k, v, do, heads_per_call: int):
@@ -651,6 +843,11 @@ def _kernel_group(name: str) -> str:
     low = name.lower()
     if "flash_fwd_kernel<128>" in low or "flash_fwd_kernelili128" in low:
         return "flash attention, natural D = 128 (this repo)"
+    if "flash_bwd_dkv_bf16_kernel<128>" in low \
+            or "flash_bwd_dq_bf16_kernel<128>" in low:
+        return "flash attention backward, bf16 D = 128 (this repo)"
+    if "bf16_kernel" in low and "flash_bwd_" in low:
+        return "flash attention backward, bf16 D = 64 (this repo)"
     if "flash_bwd_" in low:
         return "flash attention backward, fp32 (this repo)"
     if "flash_fwd_f32_kernel" in low:
@@ -667,6 +864,8 @@ def _kernel_group(name: str) -> str:
         return "matmul (cuBLAS)"
     if "composite_fwd_kernel" in low:
         return "rasterizer composite (this repo)"
+    if "composite_bwd_kernel" in low:
+        return "rasterizer composite backward (this repo)"
     if any(t in low for t in ("sort", "radix", "quantile", "topk")):
         return "sort / quantile"
     if "layer_norm" in low or "layernorm" in low:
@@ -1024,6 +1223,91 @@ def raster_view(g, cams, view: int) -> dict:
            "max_abs_err": max(errs.values()), "off_share": share,
            "kernel_ms": kernel_ms, "plain_ms": plain_ms, **bound}
     log(f"raster: {json.dumps(res)}")
+    return {**res, "backward": raster_view_backward(g, cams, view)}
+
+
+def compare_composite_bwd(tr, gid, bounds, table, out, gout, ntx: int,
+                          width: int, height: int):
+    """The composite backward kernel against `composite_bwd_ref` on one
+    view: per column the share of pairs beyond `RASTER_BWD_RTOL` of the
+    column's largest, the largest error against `RASTER_BWD_MAX_REL`, and
+    the same bits twice → (result, passed, the kernel's rows)."""
+    import torch
+
+    got = tr.composite_bwd(gid, bounds, table, out, gout, ntx, width,
+                           height)
+    again = tr.composite_bwd(gid, bounds, table, out, gout, ntx, width,
+                             height)
+    torch.cuda.synchronize()
+    ref = tr.composite_bwd_ref(gid, bounds, table, out, gout, ntx, width,
+                               height)
+    check(bool(torch.isfinite(got).all()), "non-finite composite gradients")
+    diff = (got - ref).abs()
+    scale = ref.abs().amax(0).clamp_min(1e-30)
+    off = (diff > RASTER_BWD_RTOL * scale).any(1)
+    share = off.float().mean().item()
+    cols = ("mean_x", "mean_y", "conic_a", "conic_b", "conic_c", "opacity",
+            "r", "g", "b", "depth")
+    res = {"max_abs_err": diff.max().item(), "off_share": share,
+           "max_rel_err_by_column": {c: (diff[:, i].max() / scale[i]).item()
+                                     for i, c in enumerate(cols)},
+           "bitwise_repeatable": torch.equal(got, again)}
+    passed = (share <= RASTER_BWD_MAX_OFF_SHARE
+              and max(res["max_rel_err_by_column"].values())
+              <= RASTER_BWD_MAX_REL and res["bitwise_repeatable"])
+    return res, passed, got
+
+
+def composite_bwd_bound(tr, pairs, n_eval, n_comp) -> dict:
+    """The least time the card needs for this view's composite backward:
+    the fp32 operations of the evaluations and compositions this data needs
+    (the forward's, recomputed, and the gradients'), and the bytes: the
+    ids, rows and gradient rows of the pairs walked, each Gaussian's row
+    once, the bounds, and the saved output and its cotangent (6 planes
+    each)."""
+    fwd = composite_bound(pairs, n_eval, n_comp)
+    ops = OPS_PER_EVAL * int(n_eval.sum()) + OPS_BWD_PER_COMPOSITE * int(
+        n_comp.sum())
+    n_bytes = fwd["bytes"] + 4 * tr.N_OUT * IMAGE * IMAGE \
+        + 4 * tr.N_ATTR * fwd["pairs_walked"]
+    ops_ms = ops / PEAK_FP32_FLOPS * 1e3
+    bytes_ms = n_bytes / PEAK_BYTES * 1e3
+    return {"ops": ops, "bytes": n_bytes, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def raster_view_backward(g, cams, view: int) -> dict:
+    """Kernel 7 on one orbit view at the reward path's pair budget
+    (latent_t·448²), given a random cotangent, against its plain version;
+    both timed, with the bound."""
+    import torch
+
+    from vist3a_tpu_torch.kernels import rasterizer as tr
+
+    budget = stitched_config().latent_t * IMAGE * IMAGE
+    viewmat, K = orbit_view(cams, view)
+    table, pairs = tr.view_pairs(g.means[0], g.covariances[0],
+                                 g.harmonics[0], g.opacities[0], viewmat, K,
+                                 IMAGE, IMAGE, budget)
+    ntx = IMAGE // tr.TILE
+    out = tr.composite(pairs.gid, pairs.bounds, table, ntx, IMAGE, IMAGE)
+    gen = torch.Generator(device="cuda").manual_seed(30 + view)
+    gout = torch.randn(out.shape, generator=gen, device="cuda")
+    args = (pairs.gid, pairs.bounds, table, out, gout, ntx, IMAGE, IMAGE)
+    res, passed, _ = compare_composite_bwd(tr, *args)
+    check(passed, f"composite backward disagrees with composite_bwd_ref on "
+          f"view {view}: {res} (limits {RASTER_BWD_RTOL}, "
+          f"{RASTER_BWD_MAX_OFF_SHARE}, {RASTER_BWD_MAX_REL})")
+    _, n_eval, n_comp = tr.composite_ref(pairs.gid, pairs.bounds, table,
+                                         ntx, IMAGE, IMAGE, return_work=True)
+    kernel_ms = cuda_events_ms(lambda: tr.composite_bwd(*args), iters=10)
+    plain_ms = cuda_events_ms(lambda: tr.composite_bwd_ref(*args), iters=1,
+                              warmup=0)
+    res.update(view=view, pair_budget=budget, pairs=pairs.gid.numel(),
+               pairs_total=pairs.total, kernel_ms=kernel_ms,
+               plain_ms=plain_ms,
+               **composite_bwd_bound(tr, pairs, n_eval, n_comp))
+    log(f"raster: backward {json.dumps(res)}")
     return res
 
 
@@ -1046,7 +1330,7 @@ def phase_raster(model) -> list:
     cams = orbit_cameras(out)
     views = [raster_view(out.gaussians, cams, v) for v in RASTER_VIEWS]
     log("raster: library_ms null — no PyTorch call computes a front-to-back "
-        "alpha composite over sorted (tile, depth) pairs")
+        "alpha composite over sorted (tile, depth) pairs, nor its backward")
     return views
 
 
@@ -1495,27 +1779,340 @@ def train_reference() -> dict:
             "worst_leaf_rel_err": leaf_err[worst[0]]}
 
 
+def vdm_launches(num_steps: int, n_layers: int = 30) -> dict:
+    """Kernel launches of one full-width VDM step with a `num_steps`
+    rollout, as the code makes them: the DiT's self-attention (natural
+    forward) in the SFT forward and its recompute, every rollout step (no
+    grad, no recompute), and the re-evaluation and its recompute; its
+    backward (kernel 5) in the SFT branch and the re-evaluation; the
+    stitched decoder's 8 ViT blocks and 24 + 24 trunk attentions, forward
+    and recompute (bf16 D = 64), and their backward (kernel 4b); the 13
+    rendered views' composite, forward and per-view recompute, and its
+    backward (kernel 7)."""
+    return {"natural": n_layers * (num_steps + 4), "unmasked": 2 * 56,
+            "masked": 0, "backward": 0, "backward_bf16": 56,
+            "backward_natural": 2 * n_layers, "composite": 2 * 13,
+            "composite_backward": 13}
+
+
+def _vdm_counts() -> dict:
+    from vist3a_tpu_torch.kernels import flash_attention as fa
+    from vist3a_tpu_torch.kernels import rasterizer as tr
+
+    return {"natural": fa.launches_natural,
+            "unmasked": fa.launches_unmasked, "masked": fa.launches_masked,
+            "backward": fa.launches_backward,
+            "backward_bf16": fa.launches_backward_bf16,
+            "backward_natural": fa.launches_backward_natural,
+            "composite": tr.launches,
+            "composite_backward": tr.launches_backward}
+
+
+def _reset_counts() -> None:
+    from vist3a_tpu_torch.kernels import flash_attention as fa
+    from vist3a_tpu_torch.kernels import rasterizer as tr
+
+    fa.reset_launch_counts()
+    tr.reset_launch_counts()
+
+
+def build_vdm():
+    """The VDM step's models at full width, random weights drawn on the
+    card from seeds: UMT5-XXL and the Wan 2.1 1.3B DiT in bf16
+    (`build_generator`), the stitched decoder in bf16 (`build_stitched`),
+    the Wan VAE encoder and decoder in fp32, and the two CLIP-H vision
+    towers (PickScore's at 224², DFN5B's at 378²) in fp32."""
+    import torch
+
+    from vist3a_tpu_torch.nn import clip, wan_vae
+    from vist3a_tpu_torch.pipelines import t23d
+
+    cfg = t23d.T23DConfig()
+    models = {**build_generator(cfg), "stitched": build_stitched()}
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    for name, fn, mcfg in (
+            ("vae_encoder", wan_vae.init_encoder, cfg.vae),
+            ("vae_decoder", wan_vae.init_decoder, cfg.vae),
+            ("pick", clip.init, clip.CLIP_H_224),
+            ("pe", clip.init, clip.DFN5B_H_378)):
+        t0 = time.perf_counter()
+        models[name] = fn(mcfg, gen, device="cuda")
+        torch.cuda.synchronize()
+        n = sum(p.numel() for p in models[name].parameters())
+        log(f"model: {name}, {n} parameters (fp32), built on the card in "
+            f"{time.perf_counter() - t0:.1f} s")
+    return cfg, models
+
+
+def _checksums(models: dict) -> dict:
+    return {name: [p.double().sum().item() for p in m.parameters()]
+            for name, m in models.items() if name != "umt5"}
+
+
+def phase_vdm() -> dict:
+    """Two full-width VDM steps through `run`, their checks, launches,
+    times and peak memory; one more step under the profiler (a 10-step
+    rollout); a narrow step card vs host CPU."""
+    import torch
+
+    from vist3a_tpu_torch.cli import train_vdm as cli
+    from vist3a_tpu_torch.pipelines import t23d
+    from vist3a_tpu_torch.train import ema as ema_mod
+    from vist3a_tpu_torch.train import reward, vdm
+
+    torch.cuda.empty_cache()
+    cfg, m = build_vdm()
+    tokenize = fake_tokenizer(cfg.umt5)
+    vcfg = vdm.VDMTrainConfig()
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    clip_video = torch.rand(VDM_CLIP, generator=gen, device="cuda") * 2 - 1
+    feats = [torch.nn.functional.normalize(
+        torch.randn(1, tower.cfg.projection_dim, generator=gen,
+                    device="cuda"), dim=-1) for tower in (m["pick"], m["pe"])]
+    loss_fn = reward.make_loss_fn(m["pick"], m["pe"], logit_scale=100.0)
+
+    def embed_text(texts):
+        return torch.cat([t23d.embed_prompts(m["umt5"], tokenize, t)[0]
+                          for t in texts])
+    uncond = t23d.embed_prompts(m["umt5"], tokenize, PROMPT)[1]
+    state = vdm.init_train_state(gen, m["dit"], vcfg)
+    n_lora = sum(p.numel() for p in vdm.flat_lora(state.lora).values())
+    log(f"vdm: {len(state.lora)} LoRA sites ({vcfg.lora_spec}), {n_lora} "
+        f"trainable parameters; rollout lengths of steps 0 and 1 drawn "
+        f"from seed {VDM_SEED}")
+    frozen = {k: m[k] for k in ("dit", "vae_encoder", "vae_decoder",
+                                "stitched", "pick", "pe")}
+    sums_before = _checksums(frozen)
+    ema0 = {k: v.clone() for k, v in state.ema.items()}
+    marks = []
+
+    def on_metrics(h):
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), _vdm_counts(),
+                      torch.cuda.max_memory_allocated(), h,
+                      {k: v.detach().clone()
+                       for k, v in vdm.flat_lora(state.lora).items()}))
+        torch.cuda.reset_peak_memory_stats()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    state, history = cli.run(
+        state, m["dit"], m["vae_encoder"], m["vae_decoder"], m["stitched"],
+        text_loader=[{"prompt": [PROMPT]}] * VDM_STEPS,
+        video_loader=[{"image_tensor": clip_video,
+                       "caption": [VDM_CAPTION]}],
+        embed_text=embed_text, reward_loss_fn=loss_fn,
+        scfg=stitched_config(), cfg=vcfg, num_steps=VDM_STEPS,
+        seed=VDM_SEED, latent_shape=cfg.latent_shape, render_size=IMAGE,
+        on_metrics=on_metrics, uncond_embeds=uncond,
+        reward_text_fn=lambda prompt: tuple(feats))
+    counts = _vdm_counts()
+    steps_ms, peaks, prev, prev_t = [], [], {k: 0 for k in counts}, t0
+    for i, (tm, c, peak, h, _) in enumerate(marks):
+        grew = {k: c[k] - prev[k] for k in c}
+        want = vdm_launches(h["num_steps"], cfg.dit.num_layers)
+        steps_ms.append((tm - prev_t) * 1e3)
+        peaks.append(peak)
+        prev, prev_t = c, tm
+        losses = {k: h[k] for k in ("diffusion_loss", "reward_loss",
+                                    "total_loss", "grad_norm")}
+        check(all(math.isfinite(v) for v in losses.values()),
+              f"step {i}: non-finite metrics {losses}")
+        check(h["grad_norm"] > 0 and not h["skipped"],
+              f"step {i}: grad_norm {h['grad_norm']}, skipped "
+              f"{h['skipped']}")
+        check(grew == want, f"step {i}: launches {grew}, want {want}")
+        log(f"vdm: step {i}: rollout {h['num_steps']} steps, backprop "
+            f"indices {h['backprop_idx']}, guidance {h['guidance']:.4f}; "
+            f"{steps_ms[-1]:.1f} ms, peak memory allocated {peak} B, "
+            f"launches {grew}; " + json.dumps(losses))
+    check(history[0]["num_steps"] == vcfg.rollout_steps_high,
+          f"step 0 rolled out {history[0]['num_steps']} steps")
+    b_max = [f["b"].detach().abs().max().item()
+             for f in state.lora.values()]
+    check(min(b_max) > 0, f"{sum(b == 0 for b in b_max)} LoRA B factors "
+          "never moved")
+    # EMA: e1 = d0·e0 + (1 − d0)·p1, e2 = d1·e1 + (1 − d1)·p2
+    d0, d1 = ema_mod.current_decay(0), ema_mod.current_decay(1)
+    p1, p2 = marks[0][4], marks[1][4]
+    ema_err = max(((state.ema[k] - (d1 * (d0 * ema0[k] + (1 - d0) * p1[k])
+                                    + (1 - d1) * p2[k])).abs().max()
+                   / p2[k].abs().max().clamp_min(1e-30)).item()
+                  for k in state.ema)
+    check(ema_err <= 1e-6, f"EMA off its warm-up formula by {ema_err}")
+    sums_after = _checksums(frozen)
+    changed = [k for k in frozen if sums_after[k] != sums_before[k]]
+    check(not changed, f"frozen weights changed: {changed}")
+    log(f"vdm: LoRA B factors moved (smallest max |B| {min(b_max):.3g}); "
+        f"EMA at its warm-up formula (d = {d0:.4f}, {d1:.4f}; rel err "
+        f"{ema_err:.3g}); {', '.join(frozen)} unchanged "
+        f"({sum(len(v) for v in sums_before.values())} checksums)")
+    log(f"vdm: ms per step {steps_ms}; peak memory allocated {peaks} B; "
+        f"launches {counts}")
+
+    embeds = embed_text([VDM_CAPTION])
+    profile_call("vdm_step_rollout10", lambda: vdm.vdm_train_step(
+        state, m["dit"], m["vae_encoder"], m["vae_decoder"], m["stitched"],
+        video=clip_video, sft_text=embeds, rl_cond=embeds, rl_uncond=uncond,
+        reward_loss_fn=loss_fn, seed=VDM_SEED, scfg=stitched_config(),
+        cfg=vcfg, latent_shape=cfg.latent_shape, render_size=IMAGE,
+        reward_text=tuple(feats),
+        draws={"num_steps": 10, "backprop_idx": [3, 7, 9],
+               "guidance": 5.0}))
+    del state, m, loss_fn, embeds, uncond, clip_video
+    torch.cuda.empty_cache()
+    steps = [{k: h[k] for k in ("num_steps", "backprop_idx", "guidance",
+                                "diffusion_loss", "reward_loss",
+                                "grad_norm")} for h in history]
+    return {"ms_per_step": steps_ms, "peak_bytes": peaks,
+            "launches": counts, "steps": steps,
+            "reference": vdm_reference()}
+
+
+def vdm_reference() -> dict:
+    """One narrow VDM step on the card (the kernels) and on the host CPU
+    (plain attention and composite), from the same weights, LoRA state and
+    draws: a DiT of 2 layers with 2 heads of 128 at 2048 tokens, a Wan VAE
+    of base width 8 on 5 frames of 512², the narrow stitched decoder
+    (`narrow_config()`, P = 1029), 5 views rendered at 448² with the
+    nearest `VDM_REF_PAIRS` pairs of each, CLIP towers of
+    width 64 at 224² and 378², a 3-step rollout; the LoRA B factors random
+    and nonzero so that every factor has a gradient.  The deployed dtypes on
+    both sides (DiT and stitched trunk bf16, VAE activations bf16).  The
+    whole step's losses are compared, and the gradients of the step
+    without its reward (the SFT branch: the VAE encode, the LoRA'd DiT and
+    kernel 5): the reward's gradient passes thresholds — the decoder's 10 %
+    confidence quantile, each pixel's 1e-4 stop — where the two sides'
+    rounding takes other branches, so it is logged, not held to a limit
+    (two host runs from LoRA states one Adam step apart gave gradients
+    0.72 apart at losses 4e-4 apart)."""
+    import torch
+
+    from vist3a_tpu_torch.nn import clip, wan_dit, wan_vae
+    from vist3a_tpu_torch.stitch import chopped_anysplat as ca
+    from vist3a_tpu_torch.train import ema, reward, vdm
+
+    gen = torch.Generator().manual_seed(14)
+    dcfg = wan_dit.WanDiTConfig(dim=256, ffn_dim=512, num_layers=2,
+                                num_heads=2, text_dim=64)
+    vae_cfg = wan_vae.WanVAEConfig(base_dim=8)
+    scfg = dataclasses.replace(narrow_config(), latent_t=5)
+    ccfg = {s: clip.CLIPVisionConfig(hidden_size=64, num_layers=2,
+                                     num_heads=2, mlp_dim=128, image_size=s,
+                                     projection_dim=32) for s in (224, 378)}
+    models = {
+        "dit": wan_dit.init(dcfg, gen, "cpu", torch.bfloat16),
+        "enc": wan_vae.init_encoder(vae_cfg, gen, "cpu"),
+        "dec": wan_vae.init_decoder(vae_cfg, gen, "cpu"),
+        "stitched": ca.init(scfg, gen, "cpu", torch.bfloat16),
+        "pick": clip.init(ccfg[224], gen, "cpu"),
+        "pe": clip.init(ccfg[378], gen, "cpu")}
+    models["stitched"].encoder.camera_head.pose_branch.fc2.bias.copy_(
+        torch.tensor(CAMERA_BIAS))
+    vcfg = vdm.VDMTrainConfig(rollout_steps_low=3, rollout_steps_high=3)
+    lora = vdm.init_train_state(gen, models["dit"], vcfg).lora
+    with torch.no_grad():
+        for f in lora.values():
+            f["b"].normal_(std=0.02, generator=gen)
+    lat = (1, 16, 2, 64, 64)
+    inputs = {
+        "video": torch.rand(1, 3, 5, 512, 512, generator=gen) * 2 - 1,
+        "text": torch.randn(1, 12, dcfg.text_dim, generator=gen),
+        "feat": torch.nn.functional.normalize(
+            torch.randn(1, 32, generator=gen), dim=-1)}
+    draws = {"num_steps": 3, "backprop_idx": [0, 1, 2], "guidance": 5.0,
+             "posterior_eps": torch.randn(lat, generator=gen),
+             "flow_eps": torch.randn(lat, generator=gen),
+             "flow_sigma": torch.tensor([0.4]),
+             "latents0": torch.randn(lat, generator=gen),
+             "perm": torch.arange(5), "frame": 2}
+
+    def step(device, rl: bool):
+        ms = {k: v.to(device) for k, v in models.items()}
+        lo = {s: {k: torch.nn.Parameter(v.detach().to(device, copy=True))
+                  for k, v in f.items()} for s, f in lora.items()}
+        state = vdm.VDMTrainState(0, lo, vdm.build_optimizer(lo, vcfg),
+                                  ema.init_ema(vdm.flat_lora(lo)))
+        x = {k: v.to(device) for k, v in inputs.items()}
+        loss_fn = reward.make_loss_fn(
+            ms["pick"], ms["pe"], logit_scale=100.0,
+            cfg=reward.RewardConfig(pick_cfg=ccfg[224], pe_cfg=ccfg[378]))
+        met = vdm.vdm_train_step(
+            state, ms["dit"], ms["enc"], ms["dec"], ms["stitched"],
+            video=x["video"], sft_text=x["text"], rl_cond=x["text"],
+            rl_uncond=torch.zeros_like(x["text"]),
+            reward_loss_fn=loss_fn if rl else None,
+            seed=0, scfg=scfg, cfg=vcfg, latent_shape=lat, render_size=IMAGE,
+            pair_budget=VDM_REF_PAIRS, reward_text=(x["feat"], x["feat"]),
+            draws={k: v.to(device) if isinstance(v, torch.Tensor) else v
+                   for k, v in draws.items()})
+        grads = {f"{s}.{k}": state.optimizer.state[f[k]]["exp_avg"].cpu()
+                 for s, f in lo.items() for k in "ab"}
+        return {k: float(met[k]) for k in ("diffusion_loss", "reward_loss",
+                                           "grad_norm")}, grads
+
+    def grad_err(a, b):
+        num = sum(((a[k] - g) ** 2).sum() for k, g in b.items())
+        return (num / sum((g ** 2).sum() for g in b.values())).sqrt().item()
+
+    res = {}
+    for rl in (False, True):
+        t0 = time.perf_counter()
+        loss_cpu, g_cpu = step("cpu", rl)
+        cpu_s = time.perf_counter() - t0
+        _reset_counts()
+        loss_card, g_card = step("cuda", rl)
+        torch.cuda.synchronize()
+        grew = _vdm_counts()
+        check(grew["backward_natural"] == (2 if rl else 1) * dcfg.num_layers
+              and (grew["backward_bf16"] > 0) == rl
+              and grew["composite_backward"] == (5 if rl else 0),
+              f"the narrow step launched {grew}")
+        tag = "step" if rl else "sft"
+        res[f"{tag}_loss_rel_err"] = {
+            k: abs(loss_card[k] - v) / max(abs(v), 1e-30)
+            for k, v in loss_cpu.items() if k != "grad_norm"}
+        res[f"{tag}_grad_rel_err"] = grad_err(g_card, g_cpu)
+        log(f"vdm reference: narrow {tag}, card vs host CPU ({cpu_s:.1f} s "
+            f"there), launches {grew}: losses {loss_card} vs {loss_cpu}; "
+            f"loss rel err {res[f'{tag}_loss_rel_err']}, gradients ‖Δ‖/‖g‖ "
+            f"{res[f'{tag}_grad_rel_err']:.4g}")
+    # bf16 DiT and stitched trunk, bf16 VAE activations, rounded at other
+    # places on the two sides (kernels vs plain math, cuBLAS/cuDNN vs CPU),
+    # through a 3-step rollout, the decode and the render
+    losses = {**res["sft_loss_rel_err"], **res["step_loss_rel_err"]}
+    check(max(losses.values()) <= VDM_REF_LOSS_RTOL
+          and res["sft_grad_rel_err"] <= VDM_REF_GRAD_RTOL,
+          f"narrow VDM step: card and host CPU disagree: {res}")
+    return res
+
+
 def _kernel_entries(timed: dict, raster: list | None,
                     launches: dict) -> list:
     """One entry per kernel entry point, each timed at its main-path
     shape.  `launches` counts the entry's main path: for the bf16 forwards
     the whole text→3DGS request of phase `denoise` where it ran, else the
-    latest earlier path that did (decode, then the stitched-decoder slice);
-    for the fp32 forward and the backward the two distillation steps of
-    phase `train`.  `launches_by_path` has each path's.  The masked flash
-    entry's top-level numbers are those of the global shape, which holds 24
-    of its 48 launches and ~92 % of its FLOPs, the natural entry's those of
-    the 1.3B DiT (the 14B heads are in `shapes`), the fp32 entries' those
-    of the global attention at S = 13, and `shapes` carries every measured
-    shape; the composite's are those of the first raster view, and `views`
-    carries each view's."""
+    latest earlier path that did (decode, then the stitched-decoder slice,
+    then the VDM steps); for the fp32 forward and the fp32 backward the two
+    distillation steps of phase `train`; for the bf16 backward (kernels 4b
+    and 5) and the composite backward (kernel 7) the two VDM steps of phase
+    `vdm`.  `launches_by_path` has each path's.  The masked flash entry's
+    top-level numbers are those of the global shape, which holds 24 of its
+    48 launches and ~92 % of its FLOPs, the natural entry's those of the
+    1.3B DiT (the 14B heads are in `shapes`), the fp32 entries' those of the
+    global attention at S = 13, kernel 4b's those of the global attention
+    at S = 13 and kernel 5's those of the re-evaluation (6, 4096, 12, 128),
+    and `shapes` carries every measured shape; the composites' are those of
+    the first raster view, and `views` carries each view's."""
     def count(counter, paths):
         by_path = {path: c[counter] for path, c in launches.items()
                    if c is not None and path in paths}
         main = next((by_path[p] for p in paths if p in by_path), None)
         return main, by_path
 
-    bf16_paths = ("denoise", "decode", "slice")
+    bf16_paths = ("denoise", "decode", "slice", "vdm")
     shape_keys = ("case", "shape", "kernel_ms", "plain_ms", "bound_ms",
                   "library_ms", "max_abs_err_o", "o_excess",
                   "max_abs_err_lse")
@@ -1569,6 +2166,30 @@ def _kernel_entries(timed: dict, raster: list | None,
                     "plain_fwd_bwd_ms", f"library_{pre}_ms", "rel_err_o",
                     "rel_err_dq", "rel_err_dk", "rel_err_dv")}
                     for x in f32]})
+    bwd16 = [timed[c] for c in BF16_BWD_TIMED if c in timed]
+    for kname, counter, line, cases in (
+            ("flash_attention_bwd_bf16", "backward_bf16", 397,
+             ("bf16_global_s13", "bf16_vit_frame")),
+            ("flash_attention_bwd_natural", "backward_natural", 571,
+             ("bf16_dit_reeval", "bf16_dit_sft"))):
+        rs = [timed[c] for c in cases if c in timed]
+        if not rs:
+            continue
+        r = rs[0]
+        main, by_path = count(counter, ("vdm",))
+        entries.append({
+            "name": kname, "route": "cuda", "source": BWD_SOURCE,
+            "replaces": f"vist3a_tpu/kernels/flash_attention.py:{line}",
+            "launches": main, "launches_by_path": by_path,
+            "max_abs_err": max(x[f"max_abs_err_d{g}"] for x in bwd16
+                               for g in "qkv"),
+            "ms": r["bwd_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "shape": r["shape"],
+            "shapes": [{k: x[k] for k in (
+                "case", "shape", "bwd_ms", "plain_ms", "bound_ms",
+                "library_ms", "excess_dq", "excess_dk", "excess_dv")}
+                for x in rs]})
     if raster:
         main, by_path = count("composite", bf16_paths)
         r = raster[0]
@@ -1587,6 +2208,24 @@ def _kernel_entries(timed: dict, raster: list | None,
                                          "plain_ms", "bound_ms", "bound_by",
                                          "max_abs_err", "off_share")}
                       for x in raster]})
+        main, by_path = count("composite_backward", ("vdm",))
+        rb = [x["backward"] for x in raster]
+        entries.append({
+            "name": "rasterize_composite_bwd", "route": "cuda",
+            "source": RASTER_BWD_SOURCE,
+            "replaces": "vist3a_tpu/kernels/rasterizer.py:568",
+            "launches": main, "launches_by_path": by_path,
+            "max_abs_err": max(x["max_abs_err"] for x in rb),
+            "ms": rb[0]["kernel_ms"], "plain_ms": rb[0]["plain_ms"],
+            "bound_ms": rb[0]["bound_ms"], "bound_by": rb[0]["bound_by"],
+            "library_ms": None,
+            "shape": {"image": [IMAGE, IMAGE], "gaussians": r["gaussians"],
+                      "pairs": rb[0]["pairs"],
+                      "pair_budget": rb[0]["pair_budget"]},
+            "views": [{k: x[k] for k in ("view", "pairs", "kernel_ms",
+                                         "plain_ms", "bound_ms", "bound_by",
+                                         "max_abs_err", "off_share")}
+                      for x in rb]})
     return entries
 
 
@@ -1634,12 +2273,14 @@ def main(argv=None) -> int:
         else None
     del model, vae
     trained = phase_train() if "train" in phases else None
+    tuned = phase_vdm() if "vdm" in phases else None
 
     launches = {"slice": sliced and {**sliced["launches"], "composite": 0,
                                      "natural": 0},
                 "decode": decoded and {**decoded["launches"], "natural": 0},
                 "denoise": denoised and denoised["launches"],
-                "train": trained and trained["launches"]}
+                "train": trained and trained["launches"],
+                "vdm": tuned and tuned["launches"]}
     print(json.dumps({"kernels": _kernel_entries(timed, raster, launches)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

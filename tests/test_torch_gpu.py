@@ -136,18 +136,24 @@ def test_fp32_kernels_match_ref_on_card(cuda, b, n, h):
 
 @pytest.mark.gpu
 def test_backward_raises_without_a_kernel(cuda):
-    """A grad-requiring call whose backward has no kernel raises in the
-    backward instead of dropping the gradient: bf16 (either head dim) and a
-    masked fp32 call."""
+    """A grad-requiring call whose backward has no kernel — a masked call,
+    bf16 or fp32 — raises in the backward instead of dropping the gradient;
+    the unmasked bf16 calls (either head dim) have their kernels and give
+    gradients."""
     gen = torch.Generator(device=cuda).manual_seed(5)
+    mask = torch.ones(1100, device=cuda, dtype=torch.bool)
     for dtype, d, kv in ((torch.bfloat16, 64, None),
                          (torch.bfloat16, 128, None),
-                         (torch.float32, 64, torch.ones(1100, device=cuda,
-                                                        dtype=torch.bool))):
+                         (torch.bfloat16, 64, mask),
+                         (torch.float32, 64, mask)):
         q = torch.randn(1, 1100, 2, d, generator=gen, device=cuda
                         ).to(dtype).requires_grad_()
         o = dot_product_attention(q, q, q, key_valid=kv)
         assert o.grad_fn is not None
+        if kv is None:
+            o.float().sum().backward()
+            assert q.grad is not None and bool(torch.isfinite(q.grad).all())
+            continue
         with pytest.raises(NotImplementedError):
             o.float().sum().backward()
 
@@ -259,3 +265,92 @@ def test_rasterize_launches_once_per_view(cuda):
         tr.composite(torch.zeros(4, dtype=torch.int64, device=cuda),
                      torch.zeros(10, dtype=torch.int32, device=cuda),
                      torch.zeros(8, tr.N_ATTR, device=cuda), 3, 48, 48)
+
+
+# The bf16 backward (kernels 4b and 5) against the plain version, each
+# gradient elementwise within GRAD_ATOL_STD·std + GRAD_RTOL·|ref|, as in
+# chip_smoke.py, which states why.
+GRAD_ATOL_STD = 0.05
+GRAD_RTOL = 2 ** -6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n,h,d", [(2, 1100, 2, 64), (1, 45, 3, 64),
+                                     (1, 4096, 2, 128), (2, 333, 3, 128)])
+def test_bf16_backward_matches_plain_on_card(cuda, b, n, h, d):
+    """The bf16 backward kernel against the plain version on the card, bit
+    for bit repeatable, counted by head dim."""
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    q, k, v, do = (torch.randn(b, n, h, d, generator=gen, device=cuda)
+                   .to(torch.bfloat16) for _ in range(4))
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    before = (fa.launches_backward_bf16, fa.launches_backward_natural)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    grew = (fa.launches_backward_bf16 - before[0],
+            fa.launches_backward_natural - before[1])
+    assert grew == ((0, 1) if d == 128 else (1, 0))
+    want = fa.flash_attention_bwd_ref(q, k, v, o, lse, do)
+    for g, w in zip(got, want):
+        w = w.float()
+        limit = GRAD_ATOL_STD * w.std() + GRAD_RTOL * w.abs()
+        assert bool(((g.float() - w).abs() <= limit).all())
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+def _card_scene(device, g=2000, seed=5):
+    gen = torch.Generator().manual_seed(seed)
+    means = torch.randn(g, 3, generator=gen) * 0.6
+    means[:, 2] += 4.0
+    a = torch.randn(g, 3, 3, generator=gen) * 0.08
+    covars = a @ a.transpose(1, 2) + 1e-3 * torch.eye(3)
+    harm = torch.randn(g, 3, 16, generator=gen) * 0.3
+    op = torch.rand(g, generator=gen) * 0.69 + 0.3
+    vms = torch.eye(4).repeat(2, 1, 1)
+    vms[1, 0, 3] = -0.3
+    K = torch.tensor([[58.0, 0, 32], [0, 58.0, 32], [0, 0, 1]]).repeat(2, 1, 1)
+    return [x.to(device) for x in (means, covars, harm, op, vms, K)]
+
+
+@pytest.mark.gpu
+def test_rasterize_gradients_on_card_match_cpu(cuda):
+    """The repaired fault: on the card `rasterize` returns images with a
+    `grad_fn`, and the Gaussians' gradients (through the composite
+    backward kernel, one launch a view, plus one recompute forward a view)
+    equal the CPU's."""
+    def grads(device, remat):
+        scene = _card_scene(device)
+        leaves = [x.clone().requires_grad_() for x in scene[:4]]
+        out = tr.rasterize(*leaves, scene[4], scene[5], 64, 64,
+                           remat_views=remat)
+        assert all(x.grad_fn is not None for x in out)
+        loss = sum((x * x).sum() for x in out)
+        return [g.cpu() for g in torch.autograd.grad(loss, leaves)]
+    want = grads("cpu", False)
+    tr.reset_launch_counts()
+    got = grads(cuda, True)
+    torch.cuda.synchronize()
+    assert (tr.launches, tr.launches_backward) == (4, 2)
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max() / w.abs().max()) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_composite_backward_matches_plain_on_card(cuda):
+    scene = _card_scene(cuda)
+    table, pairs = tr.view_pairs(*scene[:4], scene[4][0], scene[5][0], 64,
+                                 64, 1 << 16)
+    out = tr.composite(pairs.gid, pairs.bounds, table, 4, 64, 64)
+    gout = torch.randn(6, 64, 64, device=cuda)
+    got = tr.composite_bwd(pairs.gid, pairs.bounds, table, out, gout, 4, 64,
+                           64)
+    again = tr.composite_bwd(pairs.gid, pairs.bounds, table, out, gout, 4,
+                             64, 64)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = tr.composite_bwd_ref(pairs.gid, pairs.bounds, table, out, gout,
+                                4, 64, 64)
+    scale = want.abs().amax(0).clamp_min(1e-30)
+    off = ((got - want).abs() > 1e-4 * scale).any(1)
+    assert off.float().mean().item() <= 0.005

@@ -427,7 +427,7 @@ def test_run_over_an_in_memory_loader(setup):
                                              for s in range(2)] == [9, 13]
     for h in history:
         assert np.isfinite(h["total_loss"]) and h["grad_norm"] > 0
-    with pytest.raises(NotImplementedError, match="slice 5"):
+    with pytest.raises(NotImplementedError, match="slice 6"):
         tcli.run(params, tcfg, [], train_cfg=cfg, num_epochs=1,
                  save_path="ckpt")
     assert dataclasses.is_dataclass(state)

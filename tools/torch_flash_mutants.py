@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Plant faults in the port's flash-attention kernels and check that
-`chip_smoke.py`'s tolerances catch them (needs one NVIDIA GPU and nvcc).
+"""Plant faults in the port's flash-attention and composite-backward
+kernels and check that `chip_smoke.py`'s tolerances catch them (needs one
+NVIDIA GPU and nvcc).
 
     python3 tools/torch_flash_mutants.py [--out results.json]
 
@@ -8,7 +9,9 @@ Each forward mutant is `csrc/flash_attention_fwd.cu` with one textual
 change on the PV side of the kernel, where a fault can leave the LSE
 untouched, so only the O check can see it; each backward mutant is
 `csrc/flash_attention_bwd.cu` with δ dropped or the dK/dV kernel's last
-query tile skipped.  The mutated sources are written to and built in a
+query tile skipped, in its fp32 or its bf16 kernels; the composite
+mutant is `csrc/rasterize_bwd.cu` with the T_final cotangent dropped (the
+g_T·T_N term of every dα).  The mutated sources are written to and built in a
 fresh temporary directory (the checkout is not touched), one nvcc each, all
 at once.  Every library — the unchanged sources first — is loaded in place
 of the kernel's own and driven through the wrappers on the same seeded
@@ -17,10 +20,15 @@ inputs: the forward mutants at the bf16 cases of `chip_smoke.py`, judged by
 output's std plus `O_RTOL` of itself, LSE within `LSE_ATOL`) and, for
 comparison, by the fixed O limit of 2e-2 that the script used before; the
 backward mutants at fp32 cases, judged by `chip_smoke.compare_f32_case`
-(O, LSE and the three gradients against the `F32_*` limits).  The script
-fails unless the unchanged kernels pass every case, every forward mutant
-fails the scaled limit on the natural (head_dim 128) cases and every
-backward mutant fails every fp32 case.
+(O, LSE and the three gradients against the `F32_*` limits); the bf16
+backward mutants at bf16 cases (head_dim 64 and 128), judged by
+`chip_smoke.compare_bf16_bwd_case` (`GRAD_ATOL_STD`, `GRAD_RTOL`); the
+composite mutant on a random 448² scene at the reward's pair budget with a
+random cotangent, judged by `chip_smoke.compare_composite_bwd`
+(`RASTER_BWD_*`).  The script fails unless the unchanged kernels pass
+every case, every forward mutant fails the scaled limit on the natural
+(head_dim 128) cases and every backward mutant fails every case of its
+kind.
 """
 
 from __future__ import annotations
@@ -50,6 +58,23 @@ BWD_MUTANTS = {
     "dkv_skips_last_query_tile": [
         ("const int n_tiles = (p.n_q + kTile - 1) / kTile;",
          "const int n_tiles = (p.n_q + kTile - 1) / kTile - 1;")],
+}
+# bf16 backward mutants (the same two faults in the bf16 kernels)
+BF16_BWD_MUTANTS = {
+    "bf16_delta_dropped": [
+        ("dl_s[tid] = live ? delta_b[q0 + tid] : 0.f;", "dl_s[tid] = 0.f;"),
+        ("const float dl0 = qrow < p.n_q ? p.delta[bh * p.n_q + qrow] : 0.f;",
+         "const float dl0 = 0.f;"),
+        ("const float dl1 = qrow + 8 < p.n_q ? p.delta[bh * p.n_q + qrow + 8]"
+         " : 0.f;", "const float dl1 = 0.f;")],
+    "bf16_dkv_skips_last_query_tile": [
+        ("const int n_qtiles = (p.n_q + kTile - 1) / kTile;",
+         "const int n_qtiles = (p.n_q + kTile - 1) / kTile - 1;")],
+}
+# composite backward mutant: dα without the T_final cotangent
+RASTER_MUTANTS = {
+    "composite_bwd_tn_cotangent_dropped": [
+        ("g_tn = g[5] * out[5 * plane + p];", "g_tn = 0.f;")],
 }
 # forward mutants: name → (text of the unchanged source, its replacement)
 MUTANTS = {
@@ -101,6 +126,17 @@ def f32_cases():
             ("f32_short", (1, 45, 3, 64))]
 
 
+def bf16_cases():
+    """bf16 (name, shape) cases for the bf16 backward mutants: the VDM
+    step's ViT/frame shape, a DiT-like D = 128 one, ragged at both head dims
+    and short."""
+    return [("bf16_vit_frame", (13, 1029, 16, 64)),
+            ("bf16_4096_d128", (1, 4096, 4, 128)),
+            ("bf16_ragged_d64", (2, 1100, 2, 64)),
+            ("bf16_ragged_d128", (2, 333, 3, 128)),
+            ("bf16_short", (1, 45, 3, 64))]
+
+
 def _mutate(text: str, name: str, edits) -> str:
     for old, new in edits:
         if text.count(old) != 1:
@@ -113,10 +149,13 @@ def _mutate(text: str, name: str, edits) -> str:
 def build_mutants(build, workdir: Path) -> dict[str, Path]:
     fwd = (build.CSRC_DIR / "flash_attention_fwd.cu").read_text()
     bwd = (build.CSRC_DIR / "flash_attention_bwd.cu").read_text()
+    raster = (build.CSRC_DIR / "rasterize_bwd.cu").read_text()
     sources = {}
     for name, edits, text in (
             *((n, [e], fwd) for n, e in MUTANTS.items()),
-            *((n, e, bwd) for n, e in BWD_MUTANTS.items())):
+            *((n, e, bwd) for n, e in BWD_MUTANTS.items()),
+            *((n, e, bwd) for n, e in BF16_BWD_MUTANTS.items()),
+            *((n, e, raster) for n, e in RASTER_MUTANTS.items())):
         src = workdir / f"{name}.cu"
         src.write_text(_mutate(text, name, edits))
         sources[name] = src
@@ -155,6 +194,40 @@ def run_f32_cases(cs, fa, torch) -> list[dict]:
     return rows
 
 
+def run_bf16_cases(cs, fa, torch) -> list[dict]:
+    rows = []
+    for i, (name, shape) in enumerate(bf16_cases()):
+        gen = torch.Generator(device="cuda").manual_seed(300 + i)
+        res, passed, _ = cs.compare_bf16_bwd_case(fa, name, shape, gen)
+        rows.append({**res, "passes": passed})
+    return rows
+
+
+def run_raster_case(cs, tr, torch) -> list[dict]:
+    """One random scene at 448² (200,000 splats before an identity camera,
+    opacities up to 0.99), the reward's pair budget, a random cotangent."""
+    gen = torch.Generator(device="cuda").manual_seed(400)
+    g, w = 200_000, cs.IMAGE
+    means = torch.randn(g, 3, generator=gen, device="cuda") * 0.6
+    means[:, 2] += 4.0
+    a = torch.randn(g, 3, 3, generator=gen, device="cuda") * 0.03
+    covars = a @ a.transpose(1, 2) + 1e-4 * torch.eye(3, device="cuda")
+    harm = torch.randn(g, 3, 16, generator=gen, device="cuda") * 0.3
+    op = torch.rand(g, generator=gen, device="cuda") * 0.69 + 0.3
+    K = torch.tensor([[0.9 * w, 0, w / 2], [0, 0.9 * w, w / 2], [0, 0, 1]],
+                     device="cuda")
+    table, pairs = tr.view_pairs(means, covars, harm, op,
+                                 torch.eye(4, device="cuda"), K, w, w,
+                                 13 * w * w)
+    ntx = w // tr.TILE
+    out = tr.composite(pairs.gid, pairs.bounds, table, ntx, w, w)
+    gout = torch.randn(out.shape, generator=gen, device="cuda")
+    res, passed, _ = cs.compare_composite_bwd(
+        tr, pairs.gid, pairs.bounds, table, out, gout, ntx, w, w)
+    return [{"case": "random_448", "pairs": pairs.gid.numel(), **res,
+             "passes": passed}]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -170,28 +243,51 @@ def main(argv=None) -> int:
     import chip_smoke as cs
     from vist3a_tpu_torch.kernels import build
     from vist3a_tpu_torch.kernels import flash_attention as fa
+    from vist3a_tpu_torch.kernels import rasterizer as tr
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(f"nvidia-smi: {smi}", flush=True)
-    results, f32_results = {}, {}
+    results, f32_results, bf16_results, raster_results = {}, {}, {}, {}
     with tempfile.TemporaryDirectory(prefix="flash_mutants_") as tmp:
         t0 = time.perf_counter()
         fa._lib()                                   # the unchanged kernels
         fa._bwd_lib()
+        tr._bwd_lib()
         built = build_mutants(build, Path(tmp))
         print(f"built {len(built)} mutants in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         own = build._loaded[fa.SOURCE]
         own_bwd = build._loaded[fa.BWD_SOURCE]
+        own_raster = build._loaded[tr.BWD_SOURCE]
         try:
             for name, path in {"unchanged": None, **built}.items():
                 lib = None if path is None else ctypes.CDLL(str(path))
-                if name in BWD_MUTANTS:
+                if name in BWD_MUTANTS or name in BF16_BWD_MUTANTS:
                     build._loaded[fa.BWD_SOURCE] = lib
+                elif name in RASTER_MUTANTS:
+                    build._loaded[tr.BWD_SOURCE] = lib
                 elif lib is not None:
                     build._loaded[fa.SOURCE] = lib
+                if name == "unchanged" or name in BF16_BWD_MUTANTS:
+                    bf16_results[name] = run_bf16_cases(cs, fa, torch)
+                    for r in bf16_results[name]:
+                        print(f"{name:34s} {r['case']:17s} excess dQ "
+                              f"{r['excess_dq']:.3g} dK {r['excess_dk']:.3g}"
+                              f" dV {r['excess_dv']:.3g} passes "
+                              f"{r['passes']}", flush=True)
+                if name == "unchanged" or name in RASTER_MUTANTS:
+                    raster_results[name] = run_raster_case(cs, tr, torch)
+                    for r in raster_results[name]:
+                        print(f"{name:34s} {r['case']:17s} off share "
+                              f"{r['off_share']:.3g} max rel by column "
+                              f"{r['max_rel_err_by_column']} passes "
+                              f"{r['passes']}", flush=True)
+                if name in BF16_BWD_MUTANTS or name in RASTER_MUTANTS:
+                    build._loaded[fa.BWD_SOURCE] = own_bwd
+                    build._loaded[tr.BWD_SOURCE] = own_raster
+                    continue
                 if name not in BWD_MUTANTS:
                     results[name] = run_cases(cs, fa, torch)
                     for r in results[name]:
@@ -214,22 +310,34 @@ def main(argv=None) -> int:
         finally:
             build._loaded[fa.SOURCE] = own
             build._loaded[fa.BWD_SOURCE] = own_bwd
+            build._loaded[tr.BWD_SOURCE] = own_raster
     summary = {"device": smi, "o_atol_std": cs.O_ATOL_STD,
                "o_rtol": cs.O_RTOL, "old_o_atol": OLD_O_ATOL,
                "f32_limits": {"o_rtol": cs.F32_O_RTOL,
                               "grad_rtol": cs.F32_GRAD_RTOL,
                               "lse_atol": cs.F32_LSE_ATOL},
-               "results": results, "f32_results": f32_results}
+               "grad_limits": {"atol_std": cs.GRAD_ATOL_STD,
+                               "rtol": cs.GRAD_RTOL},
+               "raster_bwd_limits": {"rtol": cs.RASTER_BWD_RTOL,
+                                     "max_off_share":
+                                         cs.RASTER_BWD_MAX_OFF_SHARE},
+               "results": results, "f32_results": f32_results,
+               "bf16_results": bf16_results,
+               "raster_results": raster_results}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(summary, indent=1))
     bad = [r["case"] for rows in (results["unchanged"],
-                                  f32_results["unchanged"])
+                                  f32_results["unchanged"],
+                                  bf16_results["unchanged"],
+                                  raster_results["unchanged"])
            for r in rows if not r["passes"]]
     missed = [f"{name}/{r['case']}" for name, rows in results.items()
               if name != "unchanged" for r in rows
               if r["natural"] and r["passes"]]
-    missed += [f"{name}/{r['case']}" for name, rows in f32_results.items()
+    missed += [f"{name}/{r['case']}"
+               for kind in (f32_results, bf16_results, raster_results)
+               for name, rows in kind.items()
                if name != "unchanged" for r in rows if r["passes"]]
     print(json.dumps({"unchanged_fails": bad,
                       "mutant_cases_passed": missed}))

@@ -8,9 +8,9 @@ of batches {"vae_image_tensor", "feedforward_image_tensor"}, each (B, 3, T,
 H, W) in [−1, 1].
 
 Not here yet: the DL3DV / ScanNet loaders, checkpoint save and resume
-(`io/checkpoints.py`) and the metric stream — slice 5, once the data and
+(`io/checkpoints.py`) and the metric stream — slice 6, once the data and
 weights are in the repository — and the data-parallel mesh (DDP, also
-slice 5).
+slice 6).
 """
 
 from __future__ import annotations
@@ -42,7 +42,7 @@ def run(params: dict[str, nn.Module], scfg: StitchedConfig, loader, *,
     if save_path is not None or resume_path is not None:
         raise NotImplementedError(
             "stitching checkpoints (save_path / resume_path) come with "
-            "io/checkpoints.py in slice 5")
+            "io/checkpoints.py in slice 6")
     teacher, vae = params["encoder"], params["vae"]
     device = next(teacher.parameters()).device
     gen = torch.Generator(device=device).manual_seed(seed)

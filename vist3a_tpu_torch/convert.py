@@ -48,6 +48,14 @@ followed by this converter's weight layout.  Both drop what the student
 does not hold: rows [0, k) of the ViT blocks, the mask token, and the patch
 embedding's factor and bias (no student path reads them; the JAX step
 leaves the first two at their init and weight-decays the last).
+
+For the VDM trainer: `dit_lora_from_jax(tree)` carries the DiT's stacked
+LoRA tree (`init_lora` on `dit["blocks"]`) over to factors keyed
+`blocks.<i>.<site>`; `vdm_state_from_jax(jax_state, state)` loads a JAX
+`VDMTrainState` (its LoRA, both AdamW moments and their count, and the EMA
+shadow) into the port's `VDMTrainState`; `load_jax_clip_vision_params`
+loads a CLIP vision tree (`clip.init`) into a `CLIPVision` (the patch
+kernel HWIO → OIHW; `proj` keeps its (width, projection_dim) layout).
 """
 
 from __future__ import annotations
@@ -210,19 +218,26 @@ def _student_holds(name: str, k_chop: int | None) -> bool:
     return not (parts[1:3] == ["vit", "blocks"] and int(parts[3]) < k_chop)
 
 
+def _lora_factors(tree: dict, root: str, keep=lambda site: True
+                  ) -> dict[str, dict]:
+    """JAX LoRA tree rooted at `root` → {"<root>.<site>": {"a", "b"}},
+    stacked factors split per block, the sites `keep` accepts."""
+    out: dict[str, dict] = {}
+    for name, value in from_jax_params({root: tree}).items():
+        site, factor = name.rsplit(".", 1)
+        if factor == "bias":          # `_leaf` renames a bare "b" to "bias"
+            factor = "b"
+        if keep(site):
+            out.setdefault(site, {})[factor] = value
+    return out
+
+
 def lora_from_jax(tree: dict, k_chop: int | None) -> dict[str, dict]:
     """JAX LoRA tree (rooted at the encoder) → {site: {"a", "b"}} keyed by
     `encoder.<module name>`, stacked factors split per block; k_chop=None
     keeps every site (the teacher's)."""
-    flat = from_jax_params({"encoder": tree})
-    out: dict[str, dict] = {}
-    for name, value in flat.items():
-        site, factor = name.rsplit(".", 1)
-        if factor == "bias":          # `_leaf` renames a bare "b" to "bias"
-            factor = "b"
-        if _student_holds(site + ".", k_chop):
-            out.setdefault(site, {})[factor] = value
-    return out
+    return _lora_factors(tree, "encoder",
+                         lambda site: _student_holds(site + ".", k_chop))
 
 
 def trainable_from_jax(tree: dict, k_chop: int) -> dict:
@@ -232,3 +247,51 @@ def trainable_from_jax(tree: dict, k_chop: int) -> dict:
     model = {k: v for k, v in from_jax_params(tree["model"]).items()
              if _student_holds(k, k_chop)}
     return {"lora": lora_from_jax(tree["lora"], k_chop), "model": model}
+
+
+def dit_lora_from_jax(tree: dict) -> dict[str, dict]:
+    """JAX DiT LoRA tree (stacked, rooted at `blocks`) → {"blocks.<i>.<site>":
+    {"a", "b"}}."""
+    return _lora_factors(tree, "blocks")
+
+
+def _adam_state(opt_state):
+    """The optax `ScaleByAdamState` (count, mu, nu) inside a chain's
+    state."""
+    if hasattr(opt_state, "mu") and hasattr(opt_state, "nu"):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for child in opt_state:
+            found = _adam_state(child)
+            if found is not None:
+                return found
+    return None
+
+
+def vdm_state_from_jax(jax_state, state) -> None:
+    """Load a JAX `VDMTrainState` into the port's `VDMTrainState` in place:
+    the step, the LoRA factors, AdamW's first and second moments and step
+    count, and the EMA shadow."""
+    lora = dit_lora_from_jax(jax_state.lora)
+    adam = _adam_state(jax_state.opt_state)
+    mu, nu = dit_lora_from_jax(adam.mu), dit_lora_from_jax(adam.nu)
+    count = float(np.asarray(adam.count))
+    ema = dit_lora_from_jax(jax_state.ema)
+    state.step = int(np.asarray(jax_state.step))
+    with torch.no_grad():
+        for site, f in state.lora.items():
+            for k in ("a", "b"):
+                p = f[k]
+                p.copy_(lora[site][k])
+                st = state.optimizer.state[p]
+                st["step"] = torch.tensor(count)
+                st["exp_avg"] = mu[site][k].to(p.device, p.dtype).clone()
+                st["exp_avg_sq"] = nu[site][k].to(p.device, p.dtype).clone()
+                state.ema[f"{site}.{k}"].copy_(ema[site][k])
+
+
+def load_jax_clip_vision_params(module: nn.Module, tree: dict) -> nn.Module:
+    """Load a CLIP vision JAX tree (`clip.init`) into a `CLIPVision`."""
+    sd = from_jax_params({k: v for k, v in tree.items() if k != "patch"})
+    sd["patch"] = _tensor(np.asarray(tree["patch"]).transpose(3, 2, 0, 1))
+    return _load(module, sd, ())

@@ -18,8 +18,11 @@ latents' device, where the JAX package runs one `lax.scan`.  The JAX
 package's step-by-step `sample` (with `unipc_p_update` / `unipc_c_update`)
 computes the same chain; here it would be a second Python loop with no
 caller, so the port has only `sample_scan`, and its tests hold it against
-both JAX forms.  The record-and-replay forms of the training rollout
-(`sample_scan_record`, `replay_affine`) wait for the training slice.
+both JAX forms.  The training rollout's record-and-replay forms are
+`sample_scan_record` (the no-grad rollout, recording each step's model
+input and output) and `replay_affine` (the same affine chain over given
+model outputs, differentiable in them); both run the arithmetic of
+`sample_scan`, so the replay's value is the recorded rollout's.
 """
 
 from __future__ import annotations
@@ -161,6 +164,21 @@ def precompute_coeffs(cfg: UniPCConfig) -> dict[str, np.ndarray]:
             **{k: v.astype(np.float32) for k, v in c.items()}}
 
 
+def _device_coeffs(cfg: UniPCConfig, device) -> dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(v).to(device)
+            for k, v in precompute_coeffs(cfg).items()}
+
+
+def _step(per: dict, v: torch.Tensor, x, last, m1, m2):
+    """One affine update of the chain → (x_next, x_c, m_this)."""
+    m_this = x - per["sigmas"] * v
+    x_c = (per["C_cx"] * last - per["C_cm0"] * m1
+           - per["C_hist"] * (m2 - m1) - per["C_new"] * (m_this - m1))
+    x_next = (per["P_cx"] * x_c - per["P_cm0"] * m_this
+              - per["P_cd1"] * (m1 - m_this))
+    return x_next, x_c, m_this
+
+
 def sample_scan(model_fn: Callable, latents: torch.Tensor,
                 cfg: UniPCConfig = UniPCConfig()) -> torch.Tensor:
     """The denoise loop from the precomputed coefficients.  model_fn(x, t)
@@ -168,17 +186,48 @@ def sample_scan(model_fn: Callable, latents: torch.Tensor,
     returns the final latent.  The update of every step is the same affine
     body, its fp32 coefficients one tensor per name on the latents' device
     (copied there once, read without a host sync)."""
-    coeffs = {k: torch.from_numpy(v).to(latents.device)
-              for k, v in precompute_coeffs(cfg).items()}
+    coeffs = _device_coeffs(cfg, latents.device)
     x, last = latents, latents
     m1 = m2 = torch.zeros_like(latents)
     for i in range(cfg.num_steps):
         per = {k: v[i] for k, v in coeffs.items()}
         v = model_fn(x, per["timesteps"])
-        m_this = x - per["sigmas"] * v
-        x_c = (per["C_cx"] * last - per["C_cm0"] * m1
-               - per["C_hist"] * (m2 - m1) - per["C_new"] * (m_this - m1))
-        x_next = (per["P_cx"] * x_c - per["P_cm0"] * m_this
-                  - per["P_cd1"] * (m1 - m_this))
-        x, last, m1, m2 = x_next, x_c, m_this, m1
+        x_next, last, m_this = _step(per, v, x, last, m1, m2)
+        x, m1, m2 = x_next, m_this, m1
+    return x
+
+
+@torch.no_grad()
+def sample_scan_record(model_fn: Callable, latents: torch.Tensor,
+                       cfg: UniPCConfig = UniPCConfig()):
+    """`sample_scan` without grad, recording every step's model input and
+    output → (x_final, x_stack, v_stack), the stacks (num_steps,
+    *latents.shape)."""
+    coeffs = _device_coeffs(cfg, latents.device)
+    x, last = latents, latents
+    m1 = m2 = torch.zeros_like(latents)
+    xs, vs = [], []
+    for i in range(cfg.num_steps):
+        per = {k: v[i] for k, v in coeffs.items()}
+        v = model_fn(x, per["timesteps"])
+        xs.append(x)
+        vs.append(v)
+        x_next, last, m_this = _step(per, v, x, last, m1, m2)
+        x, m1, m2 = x_next, m_this, m1
+    return x, torch.stack(xs), torch.stack(vs)
+
+
+def replay_affine(v_stack: torch.Tensor, latents: torch.Tensor,
+                  cfg: UniPCConfig = UniPCConfig()) -> torch.Tensor:
+    """The chain of `sample_scan` with the model outputs given (v_stack
+    (num_steps, *latents.shape), some rows differentiable): the same
+    arithmetic, so the value is the recorded rollout's, and the gradient
+    flows through v_stack and the affine chain."""
+    coeffs = _device_coeffs(cfg, latents.device)
+    x, last = latents, latents
+    m1 = m2 = torch.zeros_like(latents)
+    for i in range(cfg.num_steps):
+        per = {k: v[i] for k, v in coeffs.items()}
+        x_next, last, m_this = _step(per, v_stack[i], x, last, m1, m2)
+        x, m1, m2 = x_next, m_this, m1
     return x

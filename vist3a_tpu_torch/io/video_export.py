@@ -109,7 +109,7 @@ def save_interpolated_video(extrinsics_c2w, intrinsics_norm, gaussians,
     with record_function("export.cameras"):
         ex, kk = interpolate_cameras(_host(extrinsics_c2w),
                                      _host(intrinsics_norm), t)
-    with record_function("export.render"):
+    with record_function("export.render"), torch.inference_mode():
         out = render(gaussians, torch.from_numpy(ex), torch.from_numpy(kk),
                      image_shape, device=device)
     with record_function("export.frames_to_host"):

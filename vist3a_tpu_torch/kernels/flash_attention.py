@@ -4,20 +4,23 @@ Counterpart of `vist3a_tpu/kernels/flash_attention.py`'s forward entries
 `flash_attention` (transposed layout, `_fwd_kernel_t` and its online-max
 fallback), `flash_attention_masked`, and `flash_attention` in the natural
 layout (`_fwd_kernel`, which the JAX package runs for an unmasked call with
-head_dim 128: the Wan DiT's self-attention), and of the transposed layout's
-VJP (`_dq_kernel_t` and `_dkv_kernel_t`).  One CUDA source,
+head_dim 128: the Wan DiT's self-attention), and of both layouts' VJPs
+(`_dq_kernel_t` / `_dkv_kernel_t` and `_dq_kernel` / `_dkv_kernel`).  One
+CUDA source,
 `csrc/flash_attention_fwd.cu`, and one entry serve the three forwards: the
 key-validity pointer is null for an unmasked call, head_dim 128 selects its
 DP = 128 instantiation, and fp32 inputs its fp32 instantiation (head_dim
-≤ 64, the training step's).  `csrc/flash_attention_bwd.cu` is the backward,
-fp32 at head_dim ≤ 64.  See those files for the designs and their bounds.
+≤ 64, the distillation step's).  `csrc/flash_attention_bwd.cu` is the
+backward: fp32 at head_dim ≤ 64, and bf16 at head_dim ≤ 64 (the transposed
+entry's, the VDM step's stitched decoder) and ≤ 128 (the natural entry's,
+the Wan DiT's self-attention).  See those files for the designs and their
+bounds.
 
 `FlashAttention` is the autograd function the attention dispatch calls on
 the card: its forward saves q, k, v, O and the LSE, its backward calls
-`flash_attention_bwd`.  A backward the port has no kernel for raises
-`NotImplementedError` — a masked call (the JAX package has no masked VJP),
-head_dim 128 or bf16 on the card — and never falls back to plain math, so a
-gradient is never silently dropped.
+`flash_attention_bwd`.  A masked call has no backward (the JAX package has
+no masked VJP) and raises `NotImplementedError`; nothing falls back to
+plain math, so a gradient is never silently dropped.
 
 Semantics, shared by kernel and plain version:
   * q (B, N_q, H, D), k and v (B, N_k, H, D), non-causal, scale D^-1/2 by
@@ -37,7 +40,9 @@ A wrapper call on CPU tensors runs the plain version (`flash_attention_ref`,
 Each forward launch adds one to a counter by the TPU entry it stands for:
 `launches_masked` (key_valid given), `launches_natural` (unmasked, head_dim
 128) or `launches_unmasked` (bf16 or fp32); each backward launch (its two
-kernels) adds one to `launches_backward`.
+kernels) adds one to `launches_backward` (fp32), `launches_backward_bf16`
+(bf16, head_dim ≤ 64: the transposed entry's VJP) or
+`launches_backward_natural` (bf16, head_dim 128: the natural entry's).
 """
 
 from __future__ import annotations
@@ -52,7 +57,7 @@ from vist3a_tpu_torch.kernels import build
 SOURCE = "flash_attention_fwd.cu"
 BWD_SOURCE = "flash_attention_bwd.cu"
 MAX_HEAD_DIM = 128
-MAX_HEAD_DIM_F32 = 64          # the fp32 forward's and the backward's
+MAX_HEAD_DIM_F32 = 64          # the fp32 forward's and backward's
 NATURAL_HEAD_DIM = 128
 _NEG_BIG = -1e30
 _LOG2E = 1.4426950408889634
@@ -61,15 +66,20 @@ launches_unmasked = 0
 launches_masked = 0
 launches_natural = 0
 launches_backward = 0
+launches_backward_bf16 = 0
+launches_backward_natural = 0
 
 
 def reset_launch_counts() -> None:
     global launches_unmasked, launches_masked, launches_natural
-    global launches_backward
+    global launches_backward, launches_backward_bf16
+    global launches_backward_natural
     launches_unmasked = 0
     launches_masked = 0
     launches_natural = 0
     launches_backward = 0
+    launches_backward_bf16 = 0
+    launches_backward_natural = 0
 
 
 def _compute_dtype(x: torch.Tensor) -> torch.dtype:
@@ -109,10 +119,12 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                             scale: float | None = None
                             ) -> tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]:
-    """Plain PyTorch version of the backward kernel: (dQ, dK, dV) in the
+    """Plain PyTorch version of the backward kernels: (dQ, dK, dV) in the
     input dtype, computed in fp32 from the forward's O and LSE:
     δ = rowsum(dO∘O), P = exp(scale·qkᵀ − LSE), dV = PᵀdO,
-    dS = P∘(dO·Vᵀ − δ), dQ = scale·dS·K, dK = scale·dSᵀ·Q."""
+    dS = P∘(dO·Vᵀ − δ), dQ = scale·dS·K, dK = scale·dSᵀ·Q.  For bf16
+    inputs it keeps P and dS in fp32, where the bf16 kernel (like the TPU
+    kernels) rounds them to bf16 before the products."""
     d = q.shape[-1]
     scale = d ** -0.5 if scale is None else scale
     ct = _compute_dtype(q)
@@ -141,12 +153,12 @@ def _lib() -> ctypes.CDLL:
 
 def _bwd_lib() -> ctypes.CDLL:
     lib = build.load(BWD_SOURCE)
-    fn = lib.flash_attention_bwd_f32
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
-                       + [ctypes.c_longlong] * 21
-                       + [ctypes.c_float, ctypes.c_void_p])
+    for fn in (lib.flash_attention_bwd_f32, lib.flash_attention_bwd_bf16):
+        if fn.argtypes is None:
+            fn.restype = ctypes.c_int
+            fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+                           + [ctypes.c_longlong] * 21
+                           + [ctypes.c_float, ctypes.c_void_p])
     return lib
 
 
@@ -239,10 +251,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         key_valid: torch.Tensor | None = None,
                         scale: float | None = None
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dQ, dK, dV) — the backward kernel on CUDA tensors, the plain version
-    on CPU.  Raises `NotImplementedError` where the port has no backward
-    kernel: a masked call (anywhere), head_dim 128 or bf16 on the card."""
-    global launches_backward
+    """(dQ, dK, dV) — the backward kernels on CUDA tensors, the plain
+    version on CPU.  A masked call raises `NotImplementedError`."""
+    global launches_backward, launches_backward_bf16
+    global launches_backward_natural
     if key_valid is not None:
         raise NotImplementedError(
             "flash attention with key_valid has no backward: the JAX "
@@ -253,14 +265,6 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"no flash-attention kernel for {q.device}")
     d = q.shape[-1]
-    if d == NATURAL_HEAD_DIM:
-        raise NotImplementedError(
-            "the natural-layout (head_dim 128) flash backward, kernel 5 of "
-            "the kernel table, is not ported yet")
-    if q.dtype != torch.float32:
-        raise NotImplementedError(
-            f"the flash backward takes fp32; its {q.dtype} instantiation is "
-            "not ported yet")
     _check(q, k, v, None)
     if do.shape != q.shape:
         raise ValueError(f"dO {tuple(do.shape)} does not match q "
@@ -272,13 +276,15 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     n_k = k.shape[1]
     scale = d ** -0.5 if scale is None else scale
     lse = lse.contiguous()
-    delta = (do * o).sum(-1).transpose(1, 2).contiguous()      # (B, H, N_q)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
     dq, dk, dv = (torch.empty_like(x, memory_format=torch.contiguous_format)
                   for x in (q, k, v))
+    f32 = q.dtype == torch.float32
     lib = _bwd_lib()
+    fn = lib.flash_attention_bwd_f32 if f32 else lib.flash_attention_bwd_bf16
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.flash_attention_bwd_f32(
+        err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), b, n_q, n_k, h, d,
@@ -286,9 +292,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             *do.stride()[:3], *dq.stride()[:3], *dk.stride()[:3],
             *dv.stride()[:3], float(scale), stream)
     if err:
-        raise RuntimeError(f"flash_attention_bwd_f32 launch failed: "
+        raise RuntimeError(f"flash_attention_bwd launch failed ({q.dtype}): "
                            f"cudaError {err}")
-    launches_backward += 1
+    if f32:
+        launches_backward += 1
+    elif d == NATURAL_HEAD_DIM:
+        launches_backward_natural += 1
+    else:
+        launches_backward_bf16 += 1
     return dq, dk, dv
 
 

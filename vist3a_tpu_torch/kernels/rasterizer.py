@@ -1,8 +1,9 @@
-"""3D Gaussian-splat rasterizer forward: projection, SH, pairs, composite.
+"""3D Gaussian-splat rasterizer: projection, SH, pairs, composite and its
+backward.
 
-Port of the forward half of `vist3a_tpu/kernels/rasterizer.py` (the deployed
-gsplat "classic" call: RGB+D, explicit covariances, 0.3-px dilation,
-near 1e-10, radius clip 0.1, background colour, alpha output).
+Port of `vist3a_tpu/kernels/rasterizer.py` (the deployed gsplat "classic"
+call: RGB+D, explicit covariances, 0.3-px dilation, near 1e-10, radius clip
+0.1, background colour, alpha output), differentiable.
 
   1. `project_gaussians` and `eval_sh` (degrees 0-4): plain PyTorch, fp32
      throughout.  The camera-space covariance is summed elementwise, so no
@@ -20,14 +21,21 @@ near 1e-10, radius clip 0.1, background colour, alpha output).
   3. `composite`: the alpha composite over each 16×16 tile's segment —
      the Hopper kernel `csrc/rasterize_fwd.cu` on CUDA tensors, its plain
      version `composite_ref` on CPU tensors.  `launches` counts the kernel.
+  4. `Composite`, the autograd function `rasterize` calls: its backward is
+     `composite_bwd` — the Hopper kernel `csrc/rasterize_bwd.cu` on CUDA
+     tensors (`launches_backward` counts it), the explicit plain version
+     `composite_bwd_ref` on CPU tensors — giving each pair's gradient row,
+     and `pair_rows_to_gaussians`, which sums the rows per Gaussian (the
+     JAX `_gather_pair_rows_bwd`).  Autograd then carries the (G, 10)
+     table's gradient through the projection and SH to the Gaussians.
 
 Composite rules (kernel and plain version): pixel centres at +0.5;
 σ = ½(a·dx² + c·dy²) + b·dx·dy and a_raw = o·e^(−σ); a pair is skipped when
 σ < 0 or a_raw < 1/255, before the clamp α = min(0.999, a_raw); a pixel
 stops for good at the first pair with T·(1−α) < 1e-4, which is not
 composited.  Outputs per pixel: RGB Σw·c, depth Σw·z, alpha Σw and T_final
-(w = α·T).  The backward and the multi-view remat wait for the training
-slice.
+(w = α·T).  The backward reproduces the forward's stopping set and masks,
+and gives α no gradient where a_raw ≥ 0.999 (the clamp).
 """
 
 from __future__ import annotations
@@ -38,10 +46,12 @@ from typing import NamedTuple
 
 import torch
 from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint
 
 from vist3a_tpu_torch.kernels import build
 
 SOURCE = "rasterize_fwd.cu"
+BWD_SOURCE = "rasterize_bwd.cu"
 TILE = 16
 PIX = TILE * TILE
 CHUNK = 128          # the JAX package rounds the pair budget up to this
@@ -59,11 +69,13 @@ RADIUS_CLIP = 0.1
 REF_CHUNK = 4096     # pairs per step of the plain composite
 
 launches = 0
+launches_backward = 0
 
 
 def reset_launch_counts() -> None:
-    global launches
+    global launches, launches_backward
     launches = 0
+    launches_backward = 0
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -295,6 +307,105 @@ def composite_ref(gid: torch.Tensor, bounds: torch.Tensor,
     return img, image(n_eval)[0], image(n_comp)[0]
 
 
+def composite_bwd_ref(gid: torch.Tensor, bounds: torch.Tensor,
+                      table: torch.Tensor, out: torch.Tensor,
+                      gout: torch.Tensor, ntx: int, width: int,
+                      height: int) -> torch.Tensor:
+    """Plain PyTorch version of the composite backward kernel: the gradient
+    (P, 10) of every pair's table row, given the forward's output `out` and
+    its cotangent `gout` (each (6, H, W)), computed explicitly, without
+    autograd.
+
+    Tile by tile over chunks of `REF_CHUNK` pairs, as `composite_ref`, with
+    T, the stop flag and the prefix Σ w·gp carried between chunks; the
+    suffix that dα needs is the total Σ_c g_c·out_c less the prefix, plus
+    the T_final cotangent g_T·T_N (the TPU kernel's form)."""
+    device = table.device
+    n_tiles = bounds.numel() - 1
+    nty = n_tiles // ntx
+    hp, wp = nty * TILE, ntx * TILE
+
+    def tiles(img):            # (C, H, W) → (n_tiles, PIX, C), zero padded
+        x = torch.zeros(img.shape[0], hp, wp, device=device)
+        x[:, :height, :width] = img
+        x = x.reshape(-1, nty, TILE, ntx, TILE).permute(1, 3, 2, 4, 0)
+        return x.reshape(n_tiles, PIX, -1)
+
+    g_t, o_t = tiles(gout.float()), tiles(out.float())
+    dpair = torch.zeros(gid.numel(), N_ATTR, device=device)
+    p = torch.arange(PIX, device=device)
+    lx = (p % TILE).float() + 0.5
+    ly = torch.div(p, TILE, rounding_mode="floor").float() + 0.5
+    starts = bounds.tolist()
+    for t in range(n_tiles):
+        s, e = starts[t], starts[t + 1]
+        if s == e:
+            continue
+        ty, tx = divmod(t, ntx)
+        px, py = (tx * TILE + lx)[:, None], (ty * TILE + ly)[:, None]
+        inside = ((px < width) & (py < height))                  # (PIX, 1)
+        g = g_t[t]                                               # (PIX, 6)
+        o_total = (g[:, :5] * o_t[t, :, :5]).sum(1, keepdim=True)
+        g_tn = g[:, 5:6] * o_t[t, :, 5:6]
+        trans = torch.ones(PIX, 1, device=device)
+        prefix = torch.zeros(PIX, 1, device=device)
+        done = ~inside
+        for c0 in range(s, e, REF_CHUNK):
+            c1 = min(c0 + REF_CHUNK, e)
+            a = table[gid[c0:c1].long()].float()                 # (K, 10)
+            dx, dy = px - a[:, 0], py - a[:, 1]
+            sigma = 0.5 * (a[:, 2] * dx * dx + a[:, 4] * dy * dy) \
+                + a[:, 3] * dx * dy
+            a_raw = a[:, 5] * torch.exp(-sigma)
+            ok = (sigma >= 0) & (a_raw >= ALPHA_MIN)
+            alpha = torch.where(ok, torch.clamp_max(a_raw, ALPHA_CLAMP), 0.0)
+            t_incl = torch.cumprod(torch.cat([trans, 1.0 - alpha], 1), 1)
+            t_excl, t_incl = t_incl[:, :-1], t_incl[:, 1:]
+            live = (t_incl >= T_EPS) & ~done
+            w = torch.where(live, alpha * t_excl, 0.0)
+            gp = g[:, :4] @ a[:, 6:10].T + g[:, 4:5]             # (PIX, K)
+            q_incl = torch.cumsum(w * gp, 1) + prefix
+            mask = live & ok & (a_raw < ALPHA_CLAMP)
+            dalpha = torch.where(
+                mask, gp * t_excl - (o_total - q_incl + g_tn) / (1.0 - alpha),
+                0.0)
+            dsig = -alpha * dalpha
+            inv_o = 1.0 / torch.clamp_min(a[:, 5], 1e-12)
+            d = torch.stack([
+                -(dsig * (a[:, 2] * dx + a[:, 3] * dy)).sum(0),
+                -(dsig * (a[:, 4] * dy + a[:, 3] * dx)).sum(0),
+                0.5 * (dsig * dx * dx).sum(0),
+                (dsig * dx * dy).sum(0),
+                0.5 * (dsig * dy * dy).sum(0),
+                (alpha * inv_o * dalpha).sum(0)], 1)             # (K, 6)
+            dpair[c0:c1] = torch.cat([d, w.T @ g[:, :4]], 1)
+            n_live = live.sum(1, keepdim=True)
+            last = torch.gather(t_incl, 1, (n_live - 1).clamp_min(0))
+            stops = (n_live < t_incl.shape[1]) & ~done
+            trans = torch.where(n_live > 0, last, trans)
+            prefix = q_incl[:, -1:]
+            done = done | stops
+            if bool(done.all()):
+                break
+    return dpair
+
+
+def pair_rows_to_gaussians(dpair: torch.Tensor, gid: torch.Tensor,
+                           n_gauss: int) -> torch.Tensor:
+    """(P, 10) per-pair gradient rows → (G, 10) per-Gaussian sums, the JAX
+    `_gather_pair_rows_bwd` (`rasterizer.py:784-797`): the rows sorted by
+    Gaussian id (a stable sort) and summed per Gaussian's segment
+    (`torch.segment_reduce` over the integer bincount's lengths).  Each
+    segment is summed in pair order by one thread, so the result is the
+    same bits on every run (no atomics, no floating-point scan), and exact
+    up to fp32 rounding, where the JAX package's prefix-sum difference
+    loses up to 1.8e-4 to cancellation."""
+    order = torch.sort(gid, stable=True).indices
+    counts = torch.bincount(gid.long(), minlength=n_gauss)
+    return torch.segment_reduce(dpair[order], "sum", lengths=counts,
+                                axis=0, unsafe=True)
+
+
 def _lib() -> ctypes.CDLL:
     lib = build.load(SOURCE)
     fn = lib.rasterize_composite_fwd
@@ -350,6 +461,71 @@ def composite(gid: torch.Tensor, bounds: torch.Tensor, table: torch.Tensor,
     return out
 
 
+def _bwd_lib() -> ctypes.CDLL:
+    lib = build.load(BWD_SOURCE)
+    fn = lib.rasterize_composite_bwd
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 \
+            + [ctypes.c_void_p]
+    return lib
+
+
+def composite_bwd(gid: torch.Tensor, bounds: torch.Tensor,
+                  table: torch.Tensor, out: torch.Tensor, gout: torch.Tensor,
+                  ntx: int, width: int, height: int) -> torch.Tensor:
+    """(P, 10) per-pair gradient rows — the backward kernel on CUDA
+    tensors, the plain version on CPU tensors."""
+    global launches_backward
+    if table.device.type == "cpu":
+        return composite_bwd_ref(gid, bounds, table, out, gout, ntx, width,
+                                 height)
+    if table.device.type != "cuda":
+        raise ValueError(f"no composite kernel for {table.device}")
+    _check(gid, bounds, table, ntx, width, height)
+    planes = (N_OUT, height, width)
+    for name, x in (("out", out), ("gout", gout)):
+        if x.device != table.device or x.dtype != torch.float32 \
+                or tuple(x.shape) != planes:
+            raise ValueError(f"{name} must be fp32 {planes} on "
+                             f"{table.device}, got {x.dtype} "
+                             f"{tuple(x.shape)} on {x.device}")
+    out, gout = out.contiguous(), gout.contiguous()
+    dpair = torch.zeros(gid.numel(), N_ATTR, dtype=torch.float32,
+                        device=table.device)
+    lib = _bwd_lib()
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.rasterize_composite_bwd(
+            gid.data_ptr(), bounds.data_ptr(), table.data_ptr(),
+            out.data_ptr(), gout.data_ptr(), dpair.data_ptr(),
+            bounds.numel() - 1, ntx, width, height, stream)
+    if err:
+        raise RuntimeError(f"rasterize_composite_bwd launch failed: "
+                           f"cudaError {err}")
+    launches_backward += 1
+    return dpair
+
+
+class Composite(torch.autograd.Function):
+    """The composite of a (G, 10) table over a pair stream, differentiable
+    in the table: the forward saves its output for `composite_bwd`."""
+
+    @staticmethod
+    def forward(ctx, table, gid, bounds, ntx, width, height):
+        out = composite(gid, bounds, table, ntx, width, height)
+        ctx.save_for_backward(table, gid, bounds, out)
+        ctx.dims = (ntx, width, height)
+        return out
+
+    @staticmethod
+    def backward(ctx, gout):
+        table, gid, bounds, out = ctx.saved_tensors
+        dpair = composite_bwd(gid, bounds, table, out, gout, *ctx.dims)
+        return (pair_rows_to_gaussians(dpair, gid, table.shape[0]),
+                None, None, None, None, None)
+
+
 def attribute_table(proj: Projected, colors: torch.Tensor,
                     opacities: torch.Tensor) -> torch.Tensor:
     """(G, 10) per-Gaussian rows the composite gathers: mean, conic,
@@ -386,34 +562,51 @@ def default_pair_budget(n_gaussians: int) -> int:
     return _cdiv(max(4 * n_gaussians, 1024), CHUNK) * CHUNK
 
 
+def _render_view(means, covars, harmonics, opacities, viewmat, K,
+                 width: int, height: int, budget: int, bg: torch.Tensor):
+    """One view → (rgb (3, H, W), depth (H, W), alpha (H, W)),
+    differentiable through `Composite`."""
+    table, pairs = view_pairs(means, covars, harmonics, opacities, viewmat,
+                              K, width, height, budget)
+    with record_function("render.composite"):
+        img = Composite.apply(table, pairs.gid, pairs.bounds,
+                              _cdiv(width, TILE), width, height)
+    with record_function("render.background"):
+        return img[:3] + img[5] * bg[:, None, None], img[3], img[4]
+
+
 def rasterize(means, covars, harmonics, opacities, viewmats, Ks,
               width: int, height: int, *,
-              background: torch.Tensor | None = None):
-    """Multi-view 3DGS rasterization, one composite launch per view.
+              background: torch.Tensor | None = None,
+              pair_budget: int | None = None, remat_views: bool = False):
+    """Multi-view 3DGS rasterization, one composite launch per view,
+    differentiable in the Gaussians.
 
     means (G, 3), covars (G, 3, 3), harmonics (G, 3, d_sh), opacities (G,),
     viewmats (V, 4, 4) world→camera, Ks (V, 3, 3) in pixels.  Returns
     (rgb (V, H, W, 3), depth (V, H, W), alpha (V, H, W)); rgb has the
     background composited through T_final and is not clamped.  The stages
-    of a view are `torch.profiler` ranges named `render.*`."""
+    of a view are `torch.profiler` ranges named `render.*`.
+
+    pair_budget: pairs kept per view (rounded up to a multiple of 128; the
+    deepest are cut first); None takes `default_pair_budget`.
+    remat_views: each view recomputed in the backward (its pairs, table and
+    composite: one more forward launch a view), so that one view's
+    residuals live at a time, not all of them (the JAX package's per-view
+    `jax.checkpoint`)."""
     device = means.device
     bg = torch.zeros(3, device=device) if background is None \
         else torch.as_tensor(background, dtype=torch.float32, device=device)
-    budget = default_pair_budget(means.shape[0])
-    ntx = _cdiv(width, TILE)
-    n_views = viewmats.shape[0]
-    rgb = torch.empty(n_views, 3, height, width, device=device)
-    depth = torch.empty(n_views, height, width, device=device)
-    alpha = torch.empty_like(depth)
-    for v in range(n_views):
-        table, pairs = view_pairs(
-            means, covars, harmonics, opacities, viewmats[v].float(),
-            Ks[v].float(), width, height, budget)
-        with record_function("render.composite"):
-            img = composite(pairs.gid, pairs.bounds, table, ntx, width,
-                            height)
-        with record_function("render.background"):
-            rgb[v] = img[:3] + img[5] * bg[:, None, None]
-            depth[v] = img[3]
-            alpha[v] = img[4]
+    budget = default_pair_budget(means.shape[0]) if pair_budget is None \
+        else _cdiv(pair_budget, CHUNK) * CHUNK
+    views = []
+    for v in range(viewmats.shape[0]):
+        args = (means, covars, harmonics, opacities, viewmats[v].float(),
+                Ks[v].float(), width, height, budget, bg)
+        if remat_views and torch.is_grad_enabled():
+            views.append(checkpoint(_render_view, *args,
+                                    use_reentrant=False))
+        else:
+            views.append(_render_view(*args))
+    rgb, depth, alpha = (torch.stack(x) for x in zip(*views))
     return rgb.permute(0, 2, 3, 1), depth, alpha

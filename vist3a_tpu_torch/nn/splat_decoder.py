@@ -5,7 +5,9 @@ inverted to w2c view matrices in fp32, width/height-normalised intrinsics
 are scaled back to pixels, every view goes through the rasterizer with
 near plane 1e-10 and radius clip 0.1 on a black background, and the
 colour is clipped to [0, 1].
-The batch is a loop (B = 1 wherever this runs).
+The batch is a loop (B = 1 wherever this runs).  `render` runs in the
+caller's grad mode: differentiable in the Gaussians (the reward path), or
+under `torch.inference_mode` (the export).
 """
 
 from __future__ import annotations
@@ -24,12 +26,13 @@ class DecoderOutput(NamedTuple):
     alpha: torch.Tensor   # (B, V, H, W)
 
 
-@torch.inference_mode()
 def render(gaussians: Gaussians, extrinsics_c2w: torch.Tensor,
            intrinsics_norm: torch.Tensor, image_shape: tuple[int, int], *,
+           pair_budget: int | None = None, remat_views: bool = False,
            device: torch.device | str = "cuda") -> DecoderOutput:
     """extrinsics_c2w (B, V, 4, 4), intrinsics_norm (B, V, 3, 3) with the
-    first row divided by W and the second by H; computed on `device`."""
+    first row divided by W and the second by H; computed on `device`.
+    pair_budget and remat_views go to `rasterize`."""
     h, w = image_shape
     device = torch.device(device)
     scale = torch.tensor([[w], [h], [1.0]], device=device)
@@ -40,7 +43,8 @@ def render(gaussians: Gaussians, extrinsics_c2w: torch.Tensor,
         rgb, dep, alp = rasterize(
             *(x[b].to(device) for x in (
                 gaussians.means, gaussians.covariances, gaussians.harmonics,
-                gaussians.opacities)), viewmats, ks, w, h)
+                gaussians.opacities)), viewmats, ks, w, h,
+            pair_budget=pair_budget, remat_views=remat_views)
         outs.append((torch.clamp(rgb, 0.0, 1.0).permute(0, 3, 1, 2), dep,
                      alp))
     color, depth, alpha = (torch.stack(x) for x in zip(*outs))

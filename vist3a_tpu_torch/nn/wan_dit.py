@@ -26,6 +26,14 @@ The RoPE tables are built on the host in float64, as in the JAX package,
 but once per (grid, device) and kept on the model: the denoise calls the
 DiT 50 times on one grid.
 
+`forward(remat=False)` is the inference entry, run in inference mode.
+`forward(remat=True)` is the training entry, in the caller's grad mode:
+each block is recomputed in the backward, and `lora` (factors keyed
+`blocks.<i>.<site>`, from `stitch.lora.init_lora` on the DiT) is merged
+into the block's weights inside that recompute, so merged q/k/v/o weights
+live for one block at a time (the JAX `lora_blocks` / `merge_fn` of
+`wan_dit.forward`).
+
 Weights: `convert.load_jax_dit_params` (the patch kernel is DHWIO there,
 OIDHW here; linear weights (in, out) there, (out, in) here), or `init`,
 which draws them from the JAX `init` distributions on the device.
@@ -40,9 +48,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from vist3a_tpu_torch.nn.layers import build_random, rms_norm
 from vist3a_tpu_torch.ops.attention import dot_product_attention
+from vist3a_tpu_torch.stitch import lora as lora_mod
 
 
 @dataclasses.dataclass(frozen=True)
@@ -309,12 +320,37 @@ def init(cfg: WanDiTConfig, generator: torch.Generator,
     return build_random(lambda: WanDiT(cfg), generator, device, dtype)
 
 
-@torch.inference_mode()
+def _block_fn(blk: WanBlock, text, temb6, rope, factors: dict | None,
+              lora_cfg):
+    """x → the block on x, its weights merged with `factors` if given."""
+    if not factors:
+        return lambda x: blk(x, text, temb6, rope)
+
+    def run(x):
+        merged = lora_mod.merge_lora(dict(blk.named_parameters()), factors,
+                                     lora_cfg)
+        return functional_call(blk, merged, (x, text, temb6, rope))
+    return run
+
+
 def forward(model: WanDiT, latent: torch.Tensor, timestep: torch.Tensor,
-            text_embeds: torch.Tensor) -> torch.Tensor:
+            text_embeds: torch.Tensor, *, remat: bool = False,
+            lora: dict | None = None,
+            lora_cfg: "lora_mod.LoraConfig | None" = None) -> torch.Tensor:
     """latent (B, 16, T, H, W) in the activation dtype; timestep (B,) float
     (σ·1000); text_embeds (B, L, text_dim).  Returns the predicted velocity
-    (B, 16, T, H, W) in latent's dtype."""
+    (B, 16, T, H, W) in latent's dtype.  remat: the training entry (each
+    block recomputed in the backward, with grad enabled); lora: factors
+    merged per block (see the module docstring)."""
+    if not remat:
+        with torch.inference_mode():
+            return _forward(model, latent, timestep, text_embeds, False,
+                            lora, lora_cfg)
+    return _forward(model, latent, timestep, text_embeds, True, lora,
+                    lora_cfg)
+
+
+def _forward(model, latent, timestep, text_embeds, remat, lora, lora_cfg):
     cfg = model.cfg
     b, _, t, hh, ww = latent.shape
     pt, ph, pw = cfg.patch_size
@@ -334,8 +370,11 @@ def forward(model: WanDiT, latent: torch.Tensor, timestep: torch.Tensor,
         model.text_embedder.fc1(text_embeds.to(dtype)), approximate="tanh"))
 
     rope = model.rope(grid, x.device)
-    for blk in model.blocks:
-        x = blk(x, text, temb6, rope)
+    per_block = lora_mod.factors_by_block(lora or {}, len(model.blocks))
+    for blk, factors in zip(model.blocks, per_block):
+        fn = _block_fn(blk, text, temb6, rope, factors, lora_cfg)
+        x = checkpoint(fn, x, use_reentrant=False) \
+            if remat and torch.is_grad_enabled() else fn(x)
 
     mods = model.scale_shift_table.float()[None] + temb.float()[:, None]
     shift, scale = mods[:, 0][:, None], mods[:, 1][:, None]

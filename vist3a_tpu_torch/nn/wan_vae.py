@@ -20,9 +20,16 @@ conv casts its weight to the activation dtype and adds the bias after the
 product, in that dtype, as the JAX package does.
 
 Weights come from `convert.load_jax_vae_params` or from `init_decoder` /
-`init_encoder`, which draw them from the JAX `init` distributions.  The
-VAE's remat (the reward-training decode's) waits for the slice that trains
-through it.
+`init_encoder`, which draw them from the JAX `init` distributions.
+
+`decode(remat=True)` recomputes each residual block, the mid block's
+attention and the finest-resolution tail in the backward, as the JAX
+package's `jax.checkpoint`s do (`wan_vae.py:230-237`, `:371-398`): the VDM
+step's reward path decodes with grad through 13 frames of 512², in bf16
+activations over fp32 weights (each conv casts its weight to the
+activation dtype).  The JAX encoder's remat (`:329-343`) has no
+counterpart: the port's encode of the frozen VAE runs without grad, so a
+recompute would have nothing to save.
 """
 
 from __future__ import annotations
@@ -34,7 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vist3a_tpu_torch.nn.layers import build_random
+from vist3a_tpu_torch.nn.layers import build_random, recompute
 from vist3a_tpu_torch.ops.attention import plain_attention
 
 LATENTS_MEAN = (
@@ -185,10 +192,20 @@ class MidBlock(nn.Module):
                                       ResidualBlock(dim, dim)])
         self.attentions = nn.ModuleList([AttentionBlock(dim)])
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.resnets[0](x)
-        x = self.attentions[0](x)
-        return self.resnets[1](x)
+    def forward(self, x: torch.Tensor, remat: bool = False) -> torch.Tensor:
+        for blk in (self.resnets[0], self.attentions[0], self.resnets[1]):
+            x = _maybe_recompute(blk, x, remat)
+        return x
+
+
+def _call(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    return module(x)
+
+
+def _maybe_recompute(module: nn.Module, x: torch.Tensor,
+                     remat: bool) -> torch.Tensor:
+    """module(x), recomputed in the backward when remat."""
+    return recompute(_call, module, x) if remat else module(x)
 
 
 def _interleave_time(x: torch.Tensor) -> torch.Tensor:
@@ -246,9 +263,9 @@ class UpBlock(nn.Module):
         self.upsamplers = nn.ModuleList(
             [] if mode is None else [Resample(co, mode)])
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, remat: bool = False) -> torch.Tensor:
         for blk in self.resnets:
-            x = blk(x)
+            x = _maybe_recompute(blk, x, remat)
         for up in self.upsamplers:
             x = up(x)
         return x
@@ -273,12 +290,19 @@ class WanDecoder3d(nn.Module):
         self.norm_out = RMSNorm(dims[-1])
         self.conv_out = CausalConv3d(dims[-1], 3)
 
-    def forward(self, z: torch.Tensor) -> torch.Tensor:
-        x = self.mid_block(self.conv_in(z))
+    def forward(self, z: torch.Tensor, remat: bool = False) -> torch.Tensor:
+        x = self.mid_block(self.conv_in(z), remat)
         for blk in self.up_blocks:
-            x = blk(x)
-        x = self.conv_out(F.silu(self.norm_out(x)))
-        return torch.clamp(x, -1.0, 1.0)
+            x = blk(x, remat)
+        # the tail runs at the finest resolution: recomputed with remat, so
+        # its norm and SiLU outputs are not held through the backward
+        return recompute(_decoder_tail, self, x) if remat \
+            else _decoder_tail(self, x)
+
+
+def _decoder_tail(dec: "WanDecoder3d", x: torch.Tensor) -> torch.Tensor:
+    x = dec.conv_out(F.silu(dec.norm_out(x)))
+    return torch.clamp(x, -1.0, 1.0)
 
 
 def encoder_plan(cfg: WanVAEConfig) -> list[tuple[str, int, int]]:
@@ -381,11 +405,24 @@ def init_decoder(cfg: WanVAEConfig, generator: torch.Generator,
     return build_random(lambda: WanVAEDecoder(cfg), generator, device, dtype)
 
 
-@torch.inference_mode()
-def decode(model: WanVAEDecoder, z: torch.Tensor) -> torch.Tensor:
+def decode(model: WanVAEDecoder, z: torch.Tensor, *,
+           remat: bool = False) -> torch.Tensor:
     """z (B, z_dim, T', h, w), un-normalised → video (B, 3, 1+(T'−1)·4,
-    8h, 8w) in [−1, 1], in z's dtype."""
-    return model.decoder(model.post_quant_conv(z))
+    8h, 8w) in [−1, 1], in z's dtype.  remat=False is the inference entry,
+    run in inference mode; remat=True the training entry, differentiable in
+    z in the caller's grad mode, each residual block, the mid block's
+    attention and the tail recomputed in the backward."""
+    if not remat:
+        with torch.inference_mode():
+            return model.decoder(model.post_quant_conv(z))
+    return model.decoder(model.post_quant_conv(z), True)
+
+
+def normalize_latents(z: torch.Tensor) -> torch.Tensor:
+    """The VAE's latent z → pipeline space (z − mean) / std."""
+    mean = z.new_tensor(LATENTS_MEAN).reshape(1, -1, 1, 1, 1)
+    std = z.new_tensor(LATENTS_STD).reshape(1, -1, 1, 1, 1)
+    return (z - mean) / std
 
 
 def unnormalize_latents(z_norm: torch.Tensor) -> torch.Tensor:

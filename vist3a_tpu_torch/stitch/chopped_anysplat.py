@@ -42,6 +42,7 @@ class StitchedConfig:
     stitch_layer_index: int = 16         # "enc_blocks_16" → chop blocks [0,16)
     conv_spec: str = CANONICAL_CONV_SPEC
     latent_channels: int = 16            # Wan z dim
+    latent_t: int = 13                   # frames after the pre-upsample
 
     @property
     def conv(self) -> ConvSpec:

@@ -161,3 +161,15 @@ def lora_bias_predicate(model: nn.Module,
     (`utils/lora_util/utils.py:27-31`): the bias of every site."""
     biases = {f"{site}.bias" for site in lora_sites(model, cfg)}
     return biases.__contains__
+
+
+def factors_by_block(lora: dict[str, dict],
+                     n_blocks: int) -> list[dict[str, dict]]:
+    """The factors of the sites `blocks.<i>.<site>` for each block i, keyed
+    by the site's name inside the block (the DiT merges them per block,
+    inside its recompute)."""
+    out: list[dict[str, dict]] = [{} for _ in range(n_blocks)]
+    for site, f in lora.items():
+        _, i, name = site.split(".", 2)
+        out[int(i)][name] = f
+    return out
