@@ -114,7 +114,11 @@ Phases, each of which passes or raises (any failure exits non-zero):
                launches against `vdm_launches` (56 kernel-4b, 60 kernel-5
                and 13 composite backward launches); prints ms per step,
                peak memory, a profile of one more step with a 10-step
-               rollout, and compares a narrow step card vs host CPU.
+               rollout, and compares a narrow step card vs host CPU (the
+               SFT gradients and the losses) and its reward branch alone,
+               in fp32 and in bf16, with the host's render inputs and the
+               render's cotangents pinned to the card's (the gradients
+               with respect to the latent and the decoded clip).
                Cut: B = 1, two steps, random weights and data.
 The line before the last lists the kernels as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -123,6 +127,7 @@ The line before the last lists the kernels as JSON; the last line is
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
 import json
 import math
@@ -221,9 +226,31 @@ RASTER_BWD_MAX_REL = 1e-2
 # moves a loss or a gradient by O(1).
 VDM_REF_LOSS_RTOL = 2e-2
 VDM_REF_GRAD_RTOL = 1e-2
+# The narrow reward branch alone (`narrow_reward_grads`), card against
+# host, the host's render inputs and the render's cotangents pinned to the
+# card's: its gradients (‖Δ‖/‖g‖) with respect to the latent through the
+# stitched decoder, to the decoded clip, and to the latent through both
+# (the decode's backward too), with the stitched trunk and the VAE
+# activations in fp32 and in the deployed bf16.  Unpinned, rounding moves
+# pixels across the render's thresholds and the gradients by ~0.1 in fp32
+# and ~1 in bf16 (`tools/torch_reward_sensitivity.py`); pinned, what is
+# left is the decoder's and the decode's rounding, where a dropped or
+# misrouted gradient moves them by O(1).  In bf16 the whole latent's
+# gradient carries the bf16 VAE decode's backward, cuDNN's convolutions
+# against the host's, whose forward already differs by a few per cent.
+# `render`: the cotangents that the render and the CLIP towers hand the
+# Gaussians and cameras, card vs host from the same inputs — the render's
+# thresholds under other rounding move them by ~0.1, a lost or misrouted
+# render gradient by 1 (pinned, the held gradients above cannot see it).
+VDM_REF_REWARD_GRAD_RTOL = {
+    "fp32": {"stitched": 1e-3, "video": 1e-3, "latent": 1e-3,
+             "render": 0.3},
+    "bf16": {"stitched": 0.1, "video": 1e-3, "latent": 0.2, "render": 0.3}}
 # pairs a view of the narrow step renders: the host's plain composite,
 # forward, recompute and backward over 5 views, is its slowest part
 VDM_REF_PAIRS = 1 << 16
+# views the narrow reward branch renders when it runs alone, of the step's 5
+VDM_REF_REWARD_VIEWS = 2
 # Composite kernel vs its plain version, both fp32: each plane within
 # 1e-4 of its own scale (1 for colour, alpha, T; the largest depth for
 # depth), on all but 0.1 % of the pixels — the 1e-4 stop can fire one pair
@@ -238,10 +265,15 @@ RASTER_MAX_OFF_SHARE = 1e-3
 OPS_PER_EVAL = 14
 OPS_PER_COMPOSITE = 13
 # fp32 operations of the backward per composited (pixel, pair), beyond the
-# forward's: w, gp (8), the prefix (2), dα (5), dσ (2), the mean, conic and
-# opacity gradients (21), the colour and depth gradients (4), and the sum
-# over the tile's pixels of the 10 values (10)
-OPS_BWD_PER_COMPOSITE = OPS_PER_COMPOSITE + 52
+# evaluation's (OPS_PER_EVAL): of the forward's step only min, 1−α,
+# T·(1−α) and w = α·T (4; colour, depth and alpha are read from the saved
+# output), then gp (8), the prefix (2), dα (5), dσ (2), the mean, conic
+# and opacity gradients (21), the colour and depth gradients (4), and the
+# sum over the tile's pixels of the 10 values (10).  A pair whose α was
+# clamped has no dα: it skips dα, dσ, the 6 geometry gradients and their
+# sums (34).
+OPS_BWD_PER_COMPOSITE = 4 + 52
+OPS_BWD_CLAMP_SKIPS = 5 + 2 + 21 + 6
 IMAGE = 448
 ORBIT_T = 10
 ORBIT_VIEWS = (13 - 1) * (ORBIT_T + 1) + 1       # 133
@@ -1197,7 +1229,7 @@ def raster_view(g, cams, view: int) -> dict:
     args = (pairs.gid, pairs.bounds, table, ntx, IMAGE, IMAGE)
     img = tr.composite(*args)
     torch.cuda.synchronize()
-    ref, n_eval, n_comp = tr.composite_ref(*args, return_work=True)
+    ref, n_eval, n_comp, _ = tr.composite_ref(*args, return_work=True)
     check(bool(torch.isfinite(img).all()), "non-finite composite output")
     diff = (img - ref).abs()
     scale = ref.abs().flatten(1).amax(1).clamp_min(1.0)[:, None, None]
@@ -1258,16 +1290,18 @@ def compare_composite_bwd(tr, gid, bounds, table, out, gout, ntx: int,
     return res, passed, got
 
 
-def composite_bwd_bound(tr, pairs, n_eval, n_comp) -> dict:
+def composite_bwd_bound(tr, pairs, n_eval, n_comp, n_clamp) -> dict:
     """The least time the card needs for this view's composite backward:
     the fp32 operations of the evaluations and compositions this data needs
-    (the forward's, recomputed, and the gradients'), and the bytes: the
+    (each (pixel, pair) evaluation's, then per composited pair the
+    transmittance step and the gradients, fewer where α was clamped), and
+    the bytes: the
     ids, rows and gradient rows of the pairs walked, each Gaussian's row
     once, the bounds, and the saved output and its cotangent (6 planes
     each)."""
     fwd = composite_bound(pairs, n_eval, n_comp)
     ops = OPS_PER_EVAL * int(n_eval.sum()) + OPS_BWD_PER_COMPOSITE * int(
-        n_comp.sum())
+        n_comp.sum()) - OPS_BWD_CLAMP_SKIPS * int(n_clamp.sum())
     n_bytes = fwd["bytes"] + 4 * tr.N_OUT * IMAGE * IMAGE \
         + 4 * tr.N_ATTR * fwd["pairs_walked"]
     ops_ms = ops / PEAK_FP32_FLOPS * 1e3
@@ -1298,15 +1332,15 @@ def raster_view_backward(g, cams, view: int) -> dict:
     check(passed, f"composite backward disagrees with composite_bwd_ref on "
           f"view {view}: {res} (limits {RASTER_BWD_RTOL}, "
           f"{RASTER_BWD_MAX_OFF_SHARE}, {RASTER_BWD_MAX_REL})")
-    _, n_eval, n_comp = tr.composite_ref(pairs.gid, pairs.bounds, table,
-                                         ntx, IMAGE, IMAGE, return_work=True)
+    _, n_eval, n_comp, n_clamp = tr.composite_ref(
+        pairs.gid, pairs.bounds, table, ntx, IMAGE, IMAGE, return_work=True)
     kernel_ms = cuda_events_ms(lambda: tr.composite_bwd(*args), iters=10)
     plain_ms = cuda_events_ms(lambda: tr.composite_bwd_ref(*args), iters=1,
                               warmup=0)
     res.update(view=view, pair_budget=budget, pairs=pairs.gid.numel(),
                pairs_total=pairs.total, kernel_ms=kernel_ms,
-               plain_ms=plain_ms,
-               **composite_bwd_bound(tr, pairs, n_eval, n_comp))
+               plain_ms=plain_ms, clamped=int(n_clamp.sum()),
+               **composite_bwd_bound(tr, pairs, n_eval, n_comp, n_clamp))
     log(f"raster: backward {json.dumps(res)}")
     return res
 
@@ -1971,28 +2005,18 @@ def phase_vdm() -> dict:
             "reference": vdm_reference()}
 
 
-def vdm_reference() -> dict:
-    """One narrow VDM step on the card (the kernels) and on the host CPU
-    (plain attention and composite), from the same weights, LoRA state and
-    draws: a DiT of 2 layers with 2 heads of 128 at 2048 tokens, a Wan VAE
-    of base width 8 on 5 frames of 512², the narrow stitched decoder
-    (`narrow_config()`, P = 1029), 5 views rendered at 448² with the
-    nearest `VDM_REF_PAIRS` pairs of each, CLIP towers of
-    width 64 at 224² and 378², a 3-step rollout; the LoRA B factors random
-    and nonzero so that every factor has a gradient.  The deployed dtypes on
-    both sides (DiT and stitched trunk bf16, VAE activations bf16).  The
-    whole step's losses are compared, and the gradients of the step
-    without its reward (the SFT branch: the VAE encode, the LoRA'd DiT and
-    kernel 5): the reward's gradient passes thresholds — the decoder's 10 %
-    confidence quantile, each pixel's 1e-4 stop — where the two sides'
-    rounding takes other branches, so it is logged, not held to a limit
-    (two host runs from LoRA states one Adam step apart gave gradients
-    0.72 apart at losses 4e-4 apart)."""
+def narrow_vdm_setup() -> dict:
+    """The narrow VDM models, LoRA state, inputs and draws, on the host,
+    from one seed: a DiT of 2 layers with 2 heads of 128 at 2048 tokens, a
+    Wan VAE of base width 8 on 5 frames of 512², the narrow stitched
+    decoder (`narrow_config()`, P = 1029) in bf16, CLIP towers of width 64
+    at 224² and 378², a 3-step rollout; the LoRA B factors random and
+    nonzero so that every factor has a gradient."""
     import torch
 
     from vist3a_tpu_torch.nn import clip, wan_dit, wan_vae
     from vist3a_tpu_torch.stitch import chopped_anysplat as ca
-    from vist3a_tpu_torch.train import ema, reward, vdm
+    from vist3a_tpu_torch.train import reward, vdm
 
     gen = torch.Generator().manual_seed(14)
     dcfg = wan_dit.WanDiTConfig(dim=256, ffn_dim=512, num_layers=2,
@@ -2028,6 +2052,128 @@ def vdm_reference() -> dict:
              "flow_sigma": torch.tensor([0.4]),
              "latents0": torch.randn(lat, generator=gen),
              "perm": torch.arange(5), "frame": 2}
+    return {"dcfg": dcfg, "scfg": scfg, "vcfg": vcfg, "models": models,
+            "lora": lora, "inputs": inputs, "draws": draws, "lat": lat,
+            "rcfg": reward.RewardConfig(pick_cfg=ccfg[224],
+                                        pe_cfg=ccfg[378])}
+
+
+def _pinned(x, value):
+    """x's value replaced by `value`, x's gradient path kept."""
+    return x + (value.to(x) - x).detach()
+
+
+def narrow_reward_grads(setup: dict, device, stitched, vae_dtype, *,
+                        noise: float = 0.0, pin: dict | None = None
+                        ) -> tuple:
+    """The reward branch of the narrow step alone, from one latent (the
+    un-normalised `latents0`, times 1 + noise·N(0, 1) with a fixed seed):
+    the differentiable VAE decode in `vae_dtype` activations, then
+    `calculate_reward` through `stitched`, rendering the first
+    `VDM_REF_REWARD_VIEWS` views.  `pin`, what another run
+    returned: the decoded clip and the Gaussians and cameras that the
+    stitched decoder hands to the render take that run's values, their
+    gradients still flowing through this run's graph, so the render's
+    thresholds (the 1e-4 stop, α ≥ 1/255, the pair budget's cut) see the
+    same inputs on both sides; with pin["cotangents"], the gradients that
+    reach those Gaussians and cameras from the render are that run's too.
+    → (loss, gradients: `stitched` with respect to the latent through the
+    stitched decoder alone, `video` with respect to the decoded clip,
+    `latent` the whole, through the decode too; the values and cotangents
+    to pin another run to)."""
+    import torch
+
+    from vist3a_tpu_torch.nn import wan_vae
+    from vist3a_tpu_torch.train import reward
+
+    ms, draws = setup["models"], setup["draws"]
+    dec, st = ms["dec"].to(device), stitched.to(device)
+    loss_fn = reward.make_loss_fn(ms["pick"].to(device), ms["pe"].to(device),
+                                  logit_scale=100.0, cfg=setup["rcfg"])
+    lat_un = wan_vae.unnormalize_latents(draws["latents0"])
+    if noise:
+        gen = torch.Generator().manual_seed(99)
+        lat_un = lat_un * (1 + noise * torch.randn(lat_un.shape,
+                                                   generator=gen))
+    lat_un = lat_un.to(device).requires_grad_()
+    decoded = wan_vae.decode(dec, lat_un.to(vae_dtype), remat=True).float()
+    video = decoded.detach().requires_grad_()
+    values = {"video": video.detach().cpu(), "cotangents": {}}
+    cot = (pin or {}).get("cotangents")
+
+    def tap(name, x):
+        """Records the gradient reaching x; hands on the pinned one."""
+        def hook(grad):
+            values["cotangents"][name] = grad.detach().cpu()
+            return None if cot is None else cot[name].to(grad)
+        x.register_hook(hook)
+        return x
+
+    def stitched_hook(module, args, out):
+        fields = dict(zip(out.gaussians._fields, out.gaussians))
+        fields.update(c2w=out.extrinsic_c2w, intr=out.intrinsic_norm)
+        if pin is not None:
+            fields = {k: _pinned(x, pin["values"][k])
+                      for k, x in fields.items()}
+        values["values"] = {k: x.detach().cpu() for k, x in fields.items()}
+        # a fresh node each, so a hook sees only the render's gradient (the
+        # decoder's own covariances are made from its scales and rotations)
+        fields = {k: tap(k, x.view_as(x)) if x.requires_grad else x
+                  for k, x in fields.items()}
+        return out._replace(
+            gaussians=type(out.gaussians)(
+                *(fields[k] for k in out.gaussians._fields)),
+            extrinsic_c2w=fields["c2w"], intrinsic_norm=fields["intr"])
+
+    handle = st.register_forward_hook(stitched_hook)
+    feat = setup["inputs"]["feat"].to(device)
+    try:
+        loss, _ = reward.calculate_reward(
+            lat_un, video if pin is None else _pinned(video, pin["video"]),
+            st, setup["scfg"], loss_fn, perm=draws["perm"].to(device),
+            frame=draws["frame"], num_render_views=VDM_REF_REWARD_VIEWS,
+            render_size=IMAGE, pair_budget=VDM_REF_PAIRS,
+            text_feats=(feat, feat))
+    finally:
+        handle.remove()
+    g_st, g_video = torch.autograd.grad(loss, (lat_un, video))
+    g_dec, = torch.autograd.grad(decoded, lat_un, g_video)
+    return float(loss.detach()), {"stitched": g_st.cpu(),
+                                  "video": g_video.cpu(),
+                                  "latent": (g_st + g_dec).cpu()}, values
+
+
+def rel_dist(a, b) -> float:
+    """‖a − b‖ / ‖b‖ over the tensors of two dicts with b's keys."""
+    num = sum(((a[k] - g) ** 2).sum() for k, g in b.items())
+    return (num / sum((g ** 2).sum() for g in b.values())).sqrt().item()
+
+
+def vdm_reference() -> dict:
+    """One narrow VDM step (`narrow_vdm_setup`) on the card (the kernels)
+    and on the host CPU (plain attention and composite), from the same
+    weights, LoRA state and draws, in the deployed dtypes on both sides
+    (DiT and stitched trunk bf16, VAE activations bf16): the whole step's
+    losses, and the gradients of the step without its reward (the SFT
+    branch: the VAE encode, the LoRA'd DiT and kernel 5).  Then the reward
+    branch alone from one latent (`narrow_reward_grads`), in fp32 (the
+    stitched trunk and the VAE activations; kernels 1 and 4 in fp32, 6 and
+    7) and in the deployed bf16 (kernel 4b), the host's render inputs and
+    the render's cotangents pinned to the card's values: its gradients
+    with respect to the latent, through the stitched decoder and through
+    the decode, and to the decoded clip, and apart the render's cotangents
+    from the same inputs.  The whole step's gradient is logged, not held:
+    unpinned, the reward's gradient moves by O(1) under input changes of
+    1e-6 on the host alone (`tools/torch_reward_sensitivity.py`)."""
+    import torch
+
+    from vist3a_tpu_torch.train import ema, reward, vdm
+
+    setup = narrow_vdm_setup()
+    models, lora, draws = setup["models"], setup["lora"], setup["draws"]
+    dcfg, vcfg = setup["dcfg"], setup["vcfg"]
+    # the stitched decoder in fp32 with the bf16 model's values
+    stitched32 = copy.deepcopy(models["stitched"]).float()
 
     def step(device, rl: bool):
         ms = {k: v.to(device) for k, v in models.items()}
@@ -2035,27 +2181,23 @@ def vdm_reference() -> dict:
                   for k, v in f.items()} for s, f in lora.items()}
         state = vdm.VDMTrainState(0, lo, vdm.build_optimizer(lo, vcfg),
                                   ema.init_ema(vdm.flat_lora(lo)))
-        x = {k: v.to(device) for k, v in inputs.items()}
-        loss_fn = reward.make_loss_fn(
-            ms["pick"], ms["pe"], logit_scale=100.0,
-            cfg=reward.RewardConfig(pick_cfg=ccfg[224], pe_cfg=ccfg[378]))
+        x = {k: v.to(device) for k, v in setup["inputs"].items()}
+        loss_fn = reward.make_loss_fn(ms["pick"], ms["pe"], logit_scale=100.0,
+                                      cfg=setup["rcfg"])
         met = vdm.vdm_train_step(
             state, ms["dit"], ms["enc"], ms["dec"], ms["stitched"],
             video=x["video"], sft_text=x["text"], rl_cond=x["text"],
             rl_uncond=torch.zeros_like(x["text"]),
             reward_loss_fn=loss_fn if rl else None,
-            seed=0, scfg=scfg, cfg=vcfg, latent_shape=lat, render_size=IMAGE,
-            pair_budget=VDM_REF_PAIRS, reward_text=(x["feat"], x["feat"]),
+            seed=0, scfg=setup["scfg"], cfg=vcfg, latent_shape=setup["lat"],
+            render_size=IMAGE, pair_budget=VDM_REF_PAIRS,
+            reward_text=(x["feat"], x["feat"]),
             draws={k: v.to(device) if isinstance(v, torch.Tensor) else v
                    for k, v in draws.items()})
         grads = {f"{s}.{k}": state.optimizer.state[f[k]]["exp_avg"].cpu()
                  for s, f in lo.items() for k in "ab"}
         return {k: float(met[k]) for k in ("diffusion_loss", "reward_loss",
                                            "grad_norm")}, grads
-
-    def grad_err(a, b):
-        num = sum(((a[k] - g) ** 2).sum() for k, g in b.items())
-        return (num / sum((g ** 2).sum() for g in b.values())).sqrt().item()
 
     res = {}
     for rl in (False, True):
@@ -2074,17 +2216,53 @@ def vdm_reference() -> dict:
         res[f"{tag}_loss_rel_err"] = {
             k: abs(loss_card[k] - v) / max(abs(v), 1e-30)
             for k, v in loss_cpu.items() if k != "grad_norm"}
-        res[f"{tag}_grad_rel_err"] = grad_err(g_card, g_cpu)
+        res[f"{tag}_grad_rel_err"] = rel_dist(g_card, g_cpu)
         log(f"vdm reference: narrow {tag}, card vs host CPU ({cpu_s:.1f} s "
             f"there), launches {grew}: losses {loss_card} vs {loss_cpu}; "
             f"loss rel err {res[f'{tag}_loss_rel_err']}, gradients ‖Δ‖/‖g‖ "
             f"{res[f'{tag}_grad_rel_err']:.4g}")
+
+    for name, stitched, vae_dtype in (
+            ("fp32", stitched32, torch.float32),
+            ("bf16", models["stitched"], torch.bfloat16)):
+        _reset_counts()
+        r_card, g_card, values = narrow_reward_grads(setup, "cuda", stitched,
+                                                     vae_dtype)
+        torch.cuda.synchronize()
+        grew = _vdm_counts()
+        kernel = "backward" if name == "fp32" else "backward_bf16"
+        other = "backward_bf16" if name == "fp32" else "backward"
+        check(grew[kernel] > 0 and grew[other] == 0
+              and grew["composite_backward"] == VDM_REF_REWARD_VIEWS,
+              f"the narrow {name} reward branch launched {grew}")
+        t0 = time.perf_counter()
+        r_cpu, g_cpu, host = narrow_reward_grads(setup, "cpu", stitched,
+                                                 vae_dtype, pin=values)
+        cpu_s = time.perf_counter() - t0
+        res[f"reward_{name}_loss_rel_err"] = abs(r_card - r_cpu) / abs(r_cpu)
+        res[f"reward_{name}_grad_rel_err"] = {
+            k: rel_dist({k: g_card[k]}, {k: g}) for k, g in g_cpu.items()}
+        res[f"reward_{name}_grad_rel_err"]["render"] = rel_dist(
+            values["cotangents"], host["cotangents"])
+        res[f"reward_{name}_decoded_rel_err"] = rel_dist(
+            {"clip": values["video"]}, {"clip": host["video"]})
+        log(f"vdm reference: narrow reward branch in {name}, card vs host "
+            f"CPU pinned to the card's render inputs and cotangents "
+            f"({cpu_s:.1f} s there), launches {grew}: loss {r_card} vs "
+            f"{r_cpu}; gradients ‖Δ‖/‖g‖ "
+            f"{res[f'reward_{name}_grad_rel_err']}; the decoded clip "
+            f"(logged) {res[f'reward_{name}_decoded_rel_err']:.4g}")
     # bf16 DiT and stitched trunk, bf16 VAE activations, rounded at other
     # places on the two sides (kernels vs plain math, cuBLAS/cuDNN vs CPU),
     # through a 3-step rollout, the decode and the render
-    losses = {**res["sft_loss_rel_err"], **res["step_loss_rel_err"]}
+    losses = {**res["sft_loss_rel_err"], **res["step_loss_rel_err"],
+              "reward_fp32": res["reward_fp32_loss_rel_err"],
+              "reward_bf16": res["reward_bf16_loss_rel_err"]}
     check(max(losses.values()) <= VDM_REF_LOSS_RTOL
-          and res["sft_grad_rel_err"] <= VDM_REF_GRAD_RTOL,
+          and res["sft_grad_rel_err"] <= VDM_REF_GRAD_RTOL
+          and all(err <= VDM_REF_REWARD_GRAD_RTOL[name][k]
+                  for name in ("fp32", "bf16")
+                  for k, err in res[f"reward_{name}_grad_rel_err"].items()),
           f"narrow VDM step: card and host CPU disagree: {res}")
     return res
 
@@ -2166,7 +2344,6 @@ def _kernel_entries(timed: dict, raster: list | None,
                     "plain_fwd_bwd_ms", f"library_{pre}_ms", "rel_err_o",
                     "rel_err_dq", "rel_err_dk", "rel_err_dv")}
                     for x in f32]})
-    bwd16 = [timed[c] for c in BF16_BWD_TIMED if c in timed]
     for kname, counter, line, cases in (
             ("flash_attention_bwd_bf16", "backward_bf16", 397,
              ("bf16_global_s13", "bf16_vit_frame")),
@@ -2181,7 +2358,7 @@ def _kernel_entries(timed: dict, raster: list | None,
             "name": kname, "route": "cuda", "source": BWD_SOURCE,
             "replaces": f"vist3a_tpu/kernels/flash_attention.py:{line}",
             "launches": main, "launches_by_path": by_path,
-            "max_abs_err": max(x[f"max_abs_err_d{g}"] for x in bwd16
+            "max_abs_err": max(x[f"max_abs_err_d{g}"] for x in rs
                                for g in "qkv"),
             "ms": r["bwd_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

@@ -197,13 +197,14 @@ def test_opaque_scene_hits_the_stop(rng):
     # the stop fired: pixels whose walk ended before their tile's pairs did
     table, pairs = tr.view_pairs(T(means), T(covars), T(harm), T(op), T(vm),
                                  T(K), W, H, tr.default_pair_budget(96))
-    img, n_eval, n_comp = tr.composite_ref(pairs.gid, pairs.bounds, table,
-                                           4, W, H, return_work=True)
+    img, n_eval, n_comp, n_clamp = tr.composite_ref(
+        pairs.gid, pairs.bounds, table, 4, W, H, return_work=True)
     per_tile = (pairs.bounds[1:] - pairs.bounds[:-1]).reshape(4, 4)
     tile_pairs = per_tile.repeat_interleave(16, 0).repeat_interleave(16, 1)
     stopped = n_eval < tile_pairs
     assert stopped.float().mean() > 0.3
     assert (n_comp <= n_eval).all()
+    assert (n_clamp <= n_comp).all()
     # a pixel stops at T·(1−α) < 1e-4 with α ≤ 0.999, so T_final < 0.1
     assert float(img[5][stopped].max()) < 0.1
 

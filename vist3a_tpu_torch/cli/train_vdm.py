@@ -35,8 +35,8 @@ def run(state: vdm.VDMTrainState, dit: wan_dit.WanDiT,
         reward_loss_fn: Callable | None, scfg: ca.StitchedConfig,
         cfg: vdm.VDMTrainConfig, num_steps: int, save_path=None,
         seed: int = 23, latent_shape=(1, 16, 4, 64, 64),
-        render_size: int = 448, pair_budget: int | None = None,
-        on_metrics=None, uncond_embeds: torch.Tensor | None = None,
+        render_size: int = 448, on_metrics=None,
+        uncond_embeds: torch.Tensor | None = None,
         reward_text_fn: Callable | None = None):
     """The VDM loop until `state.step == num_steps`.  embed_text(list[str])
     → (B, L, text_dim) on the models' device; reward_text_fn(prompt) →
@@ -74,7 +74,7 @@ def run(state: vdm.VDMTrainState, dit: wan_dit.WanDiT,
                 sft_text=sft_text, rl_cond=rl_cond, rl_uncond=rl_uncond,
                 reward_loss_fn=reward_loss_fn, seed=seed, scfg=scfg, cfg=cfg,
                 latent_shape=latent_shape, render_size=render_size,
-                pair_budget=pair_budget, reward_text=reward_text)
+                reward_text=reward_text)
             history.append({
                 "step": state.step, "prompt": prompt,
                 "rl_prompt": rl_prompt,

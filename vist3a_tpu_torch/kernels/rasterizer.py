@@ -248,7 +248,8 @@ def composite_ref(gid: torch.Tensor, bounds: torch.Tensor,
     them; the transmittance is a running product in pair order (a
     sequential `cumprod` on the CPU, as the kernel multiplies).  With
     `return_work`, also returns per-pixel counts (pairs evaluated up to and
-    including the stopping pair, pairs composited), each (H, W) int64."""
+    including the stopping pair, pairs composited, and of those the pairs
+    whose α was clamped at `ALPHA_CLAMP`), each (H, W) int64."""
     device = table.device
     n_tiles = bounds.numel() - 1
     nty = n_tiles // ntx
@@ -257,6 +258,7 @@ def composite_ref(gid: torch.Tensor, bounds: torch.Tensor,
     out[5] = 1.0
     n_eval = torch.zeros(nty, ntx, PIX, dtype=torch.long, device=device)
     n_comp = torch.zeros_like(n_eval)
+    n_clamp = torch.zeros_like(n_eval)
     p = torch.arange(PIX, device=device)
     lx = (p % TILE).float() + 0.5
     ly = torch.div(p, TILE, rounding_mode="floor").float() + 0.5
@@ -290,6 +292,7 @@ def composite_ref(gid: torch.Tensor, bounds: torch.Tensor,
             stops = (n_live < t_incl.shape[1]) & ~done
             n_eval[ty, tx] += (n_live + stops.long()).squeeze(1)
             n_comp[ty, tx] += (live & ok).sum(1)
+            n_clamp[ty, tx] += (live & ok & (a_raw >= ALPHA_CLAMP)).sum(1)
             trans = torch.where(n_live > 0, last, trans)
             done = done | stops
             if bool(done.all()):
@@ -304,7 +307,7 @@ def composite_ref(gid: torch.Tensor, bounds: torch.Tensor,
     img = image(out)
     if not return_work:
         return img
-    return img, image(n_eval)[0], image(n_comp)[0]
+    return img, image(n_eval)[0], image(n_comp)[0], image(n_clamp)[0]
 
 
 def composite_bwd_ref(gid: torch.Tensor, bounds: torch.Tensor,
