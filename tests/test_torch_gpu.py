@@ -299,6 +299,47 @@ def test_bf16_backward_matches_plain_on_card(cuda, b, n, h, d):
     assert all(torch.equal(x, y) for x, y in zip(got, again))
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n,h,strided", [
+    (2, 1100, 2, False), (1, 45, 3, False), (1, 4096, 2, False),
+    (2, 1100, 4, True)])
+def test_wgmma_kernels_match_plain_on_card(cuda, b, n, h, strided):
+    """The wgmma + TMA forward and backward (bf16, unmasked, head_dim 128)
+    against the plain versions: ragged N (1100 is no multiple of the
+    128-row tiles), N below one tile, and q, k, v as views into one
+    (B, N, 3, H, 128) tensor, read in place.  O and LSE within the limits
+    of the other forward cases, each gradient within the `GRAD_*` limit,
+    the backward the same bits twice; each call counts as the natural
+    entry."""
+    gen = torch.Generator(device=cuda).manual_seed(n + h)
+    if strided:
+        qkv = torch.randn(b, n, 3, h, 128, generator=gen, device=cuda
+                          ).to(torch.bfloat16)
+        q, k, v = qkv.unbind(2)
+    else:
+        q, k, v = (torch.randn(b, n, h, 128, generator=gen, device=cuda)
+                   .to(torch.bfloat16) for _ in range(3))
+    do = torch.randn(b, n, h, 128, generator=gen, device=cuda
+                     ).to(torch.bfloat16)
+    assert fa.route(q.dtype, 128, False) == "wgmma"
+    before = (fa.launches_natural, fa.launches_backward_natural)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    assert (fa.launches_natural, fa.launches_backward_natural) == (
+        before[0] + 1, before[1] + 1)
+    o_ref, lse_ref = fa.flash_attention_ref(q, k, v)
+    assert _o_ok(o, o_ref)
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+    want = fa.flash_attention_bwd_ref(q, k, v, o, lse, do)
+    for g, w in zip(got, want):
+        w = w.float()
+        limit = GRAD_ATOL_STD * w.std() + GRAD_RTOL * w.abs()
+        assert bool(((g.float() - w).abs() <= limit).all())
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
 def _card_scene(device, g=2000, seed=5):
     gen = torch.Generator().manual_seed(seed)
     means = torch.randn(g, 3, generator=gen) * 0.6

@@ -5,30 +5,40 @@ NVIDIA GPU and nvcc).
 
     python3 tools/torch_flash_mutants.py [--out results.json]
 
-Each forward mutant is `csrc/flash_attention_fwd.cu` with one textual
-change on the PV side of the kernel, where a fault can leave the LSE
-untouched, so only the O check can see it; each backward mutant is
-`csrc/flash_attention_bwd.cu` with δ dropped or the dK/dV kernel's last
-query tile skipped, in its fp32 or its bf16 kernels; the composite
-mutant is `csrc/rasterize_bwd.cu` with the T_final cotangent dropped (the
-g_T·T_N term of every dα).  The mutated sources are written to and built in a
-fresh temporary directory (the checkout is not touched), one nvcc each, all
-at once.  Every library — the unchanged sources first — is loaded in place
-of the kernel's own and driven through the wrappers on the same seeded
-inputs: the forward mutants at the bf16 cases of `chip_smoke.py`, judged by
-`chip_smoke.compare_case` (each |ΔO| within `O_ATOL_STD` of the plain
-output's std plus `O_RTOL` of itself, LSE within `LSE_ATOL`) and, for
-comparison, by the fixed O limit of 2e-2 that the script used before; the
-backward mutants at fp32 cases, judged by `chip_smoke.compare_f32_case`
-(O, LSE and the three gradients against the `F32_*` limits); the bf16
-backward mutants at bf16 cases (head_dim 64 and 128), judged by
-`chip_smoke.compare_bf16_bwd_case` (`GRAD_ATOL_STD`, `GRAD_RTOL`); the
-composite mutant on a random 448² scene at the reward's pair budget with a
-random cotangent, judged by `chip_smoke.compare_composite_bwd`
-(`RASTER_BWD_*`).  The script fails unless the unchanged kernels pass
-every case, every forward mutant fails the scaled limit on the natural
-(head_dim 128) cases and every backward mutant fails every case of its
-kind.
+Each mutant is one kernel source with one fault planted by textual
+replacement (`MUTANTS`: the source, the edits, the kind of check and the
+cases it is judged on):
+  * `csrc/flash_attention_fwd.cu` (the mma.sync forward, which serves
+    head_dim ≤ 64 and the masked head_dim-128 calls): five faults on the PV
+    side of the kernel, where a fault can leave the LSE untouched, so only
+    the O check can see it, judged on the head_dim-64 cases it serves;
+  * `csrc/flash_attention_fwd_sm90.cu` (the wgmma forward of the bf16,
+    unmasked, head_dim-128 calls): the last key tile's P·V skipped, the O
+    accumulators not rescaled on a new max (judged where there is more
+    than one key tile) and the keys beyond N_k left unmasked (TMA fills
+    them with zeros, whose scores are 0, not −∞; judged on the ragged
+    cases);
+  * `csrc/flash_attention_bwd.cu`: δ dropped and the dK/dV kernel's last
+    query tile skipped, in its fp32 kernels (judged at fp32 cases) and in
+    its bf16 kernels (judged at the head_dim 64 and 96 cases they serve);
+  * `csrc/flash_attention_bwd_sm90.cu` (the wgmma backward at head_dim
+    128): the same two faults, judged at head_dim-128 cases;
+  * `csrc/rasterize_bwd.cu`: the T_final cotangent dropped (the g_T·T_N
+    term of every dα), judged on a random 448² scene at the reward's pair
+    budget with a random cotangent.
+The mutated sources are written to and built in a fresh temporary
+directory (the checkout is not touched; the shared `csrc/` headers are
+found through `-I`), one nvcc each, all at once.  Every library — the
+unchanged sources first — is loaded in place of the kernel's own and
+driven through the wrappers on the same seeded inputs, judged by
+`chip_smoke`'s own comparisons: `compare_case` for the forward (each |ΔO|
+within `O_ATOL_STD` of the plain output's std plus `O_RTOL` of itself,
+LSE within `LSE_ATOL`; also, for comparison, the fixed O limit of 2e-2
+that the script used before), `compare_f32_case` (the `F32_*` limits),
+`compare_bf16_bwd_case` (`GRAD_ATOL_STD`, `GRAD_RTOL`, the same bits
+twice) and `compare_composite_bwd` (`RASTER_BWD_*`).  The script fails
+unless the unchanged kernels pass every case and every mutant fails every
+case it is judged on.
 """
 
 from __future__ import annotations
@@ -45,96 +55,138 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 OLD_O_ATOL = 2e-2
-# backward mutants: name → [(text of the unchanged source, its
-# replacement), ...]
-BWD_MUTANTS = {
-    # δ = rowsum(dO∘O) read as 0 in both kernels: dS = P∘dP
-    "delta_dropped": [
+FWD = "flash_attention_fwd.cu"
+FWD_SM90 = "flash_attention_fwd_sm90.cu"
+BWD = "flash_attention_bwd.cu"
+BWD_SM90 = "flash_attention_bwd_sm90.cu"
+RASTER_BWD = "rasterize_bwd.cu"
+
+# forward cases (chip_smoke.Case arguments: name, B, N, H, D, pad keys,
+# frame length): the natural (bf16, unmasked, head_dim 128) ones take the
+# wgmma kernel, the rest the mma.sync kernel
+FWD_CASES = (("dit_1_3b", 2, 4096, 12, 128, 0),
+             ("dit_14b", 2, 4096, 40, 128, 0),
+             ("natural_ragged", 2, 1100, 2, 128, 0),
+             ("natural_short", 1, 45, 3, 128, 0),
+             ("vit", 13, 1029, 16, 64, 0),
+             ("frame", 13, 1040, 16, 64, 11),
+             ("global", 1, 13520, 16, 64, 11, 1040),
+             ("ragged_d128", 2, 333, 3, 128, 7))
+MMA_FWD_CASES = ("vit", "frame", "global")
+# fp32 (name, shape): the training step's ViT/frame shape, a 4096-token
+# global-like one, ragged and short
+F32_CASES = (("f32_vit_frame", (13, 1029, 16, 64)),
+             ("f32_4096", (1, 4096, 4, 64)),
+             ("f32_ragged", (2, 1100, 2, 64)),
+             ("f32_short", (1, 45, 3, 64)))
+# bf16 backward (name, shape): head_dim 64 and 96 take the mma.sync
+# kernels, 128 the wgmma kernels
+BF16_CASES = (("bf16_vit_frame", (13, 1029, 16, 64)),
+              ("bf16_ragged_d64", (2, 1100, 2, 64)),
+              ("bf16_short", (1, 45, 3, 64)),
+              ("bf16_ragged_d96", (2, 333, 3, 96)),
+              ("bf16_4096_d128", (1, 4096, 4, 128)),
+              ("bf16_ragged_d128", (2, 333, 3, 128)),
+              ("bf16_short_d128", (1, 45, 3, 128)))
+MMA_BF16_CASES = ("bf16_vit_frame", "bf16_ragged_d64", "bf16_short",
+                  "bf16_ragged_d96")
+SM90_BF16_CASES = ("bf16_4096_d128", "bf16_ragged_d128", "bf16_short_d128")
+
+
+def _mutant(source, kind, cases, *edits):
+    return {"source": source, "kind": kind, "cases": cases,
+            "edits": list(edits)}
+
+
+# name → the source, the kind of check, the cases it is judged on, and its
+# edits [(text of the unchanged source, its replacement), ...]
+MUTANTS = {
+    # the last key tile's P·V product is skipped; its keys stay in the sum l
+    "pv_skips_last_tile": _mutant(
+        FWD, "fwd", MMA_FWD_CASES,
+        ("        mma_16816(acc[n], a0, a1, a2, a3, b0, b1);",
+         "        if (tile + 1 < n_tiles) "
+         "mma_16816(acc[n], a0, a1, a2, a3, b0, b1);")),
+    # the first key of every tile is dropped from P·V only
+    "pv_drops_a_key_per_tile": _mutant(
+        FWD, "fwd", MMA_FWD_CASES,
+        ("const uint32_t a0 = pack_bf16(s[2 * kk][0], s[2 * kk][1]);",
+         "const uint32_t a0 = pack_bf16(kk == 0 && t == 0 ? 0.f : "
+         "s[2 * kk][0], s[2 * kk][1]);")),
+    # the O accumulators are not rescaled when the running max grows
+    "acc_not_rescaled": _mutant(
+        FWD, "fwd", MMA_FWD_CASES,
+        ("      acc[n][0] *= alpha0;\n      acc[n][1] *= alpha0;\n"
+         "      acc[n][2] *= alpha1;\n      acc[n][3] *= alpha1;\n", "")),
+    # each key's V row lands in the next key's column of the Vᵀ tile
+    "v_tile_shifted_one_key": _mutant(
+        FWD, "fwd", MMA_FWD_CASES,
+        ("vt_s[(col + j) * VS + r] = e[j];",
+         "vt_s[(col + j) * VS + (r + 1) % kBlockK] = e[j];")),
+    # V's last 8 feature columns are never loaded
+    "v_last_chunk_zero": _mutant(
+        FWD, "fwd", MMA_FWD_CASES,
+        ("if (key0 + r < p.n_k && col < p.d)\n        val = "
+         "*reinterpret_cast<const uint4*>(vb",
+         "if (key0 + r < p.n_k && col + 8 < p.d)\n        val = "
+         "*reinterpret_cast<const uint4*>(vb")),
+    # wgmma forward: the last key tile's P·V is skipped (its keys stay in l)
+    "sm90_pv_skips_last_tile": _mutant(
+        FWD_SM90, "fwd",
+        ("dit_1_3b", "dit_14b", "natural_ragged", "natural_short"),
+        ("        wgmma_rs_n128(o, pf[kk],",
+         "        if (j + 1 < n_tiles) wgmma_rs_n128(o, pf[kk],")),
+    # wgmma forward: O not rescaled on a new max (live from the second tile)
+    "sm90_acc_not_rescaled": _mutant(
+        FWD_SM90, "fwd", ("dit_1_3b", "dit_14b", "natural_ragged"),
+        ("        o[i] *= alpha0;\n        o[i + 1] *= alpha0;\n"
+         "        o[i + 2] *= alpha1;\n        o[i + 3] *= alpha1;\n", "")),
+    # wgmma forward: TMA's zero-filled keys beyond N_k keep their score 0
+    "sm90_keys_beyond_n_unmasked": _mutant(
+        FWD_SM90, "fwd", ("natural_ragged", "natural_short"),
+        ("if (key0 + 8 * (i / 4) + 2 * t + (i & 1) >= p.n_k) "
+         "sacc[i] = -INFINITY;", ";")),
+    # δ = rowsum(dO∘O) read as 0 in both fp32 kernels: dS = P∘dP
+    "delta_dropped": _mutant(
+        BWD, "f32", tuple(n for n, _ in F32_CASES),
         ("delta_s[tid] = live ? delta_b[q0 + tid] : 0.f;",
          "delta_s[tid] = 0.f;"),
         ("delta[r] = row < p.n_q ? p.delta[bh * p.n_q + row] : 0.f;",
-         "delta[r] = 0.f;")],
-    # the dK/dV kernel never visits its last query tile
-    "dkv_skips_last_query_tile": [
+         "delta[r] = 0.f;")),
+    # the fp32 dK/dV kernel never visits its last query tile
+    "dkv_skips_last_query_tile": _mutant(
+        BWD, "f32", tuple(n for n, _ in F32_CASES),
         ("const int n_tiles = (p.n_q + kTile - 1) / kTile;",
-         "const int n_tiles = (p.n_q + kTile - 1) / kTile - 1;")],
-}
-# bf16 backward mutants (the same two faults in the bf16 kernels)
-BF16_BWD_MUTANTS = {
-    "bf16_delta_dropped": [
+         "const int n_tiles = (p.n_q + kTile - 1) / kTile - 1;")),
+    # the same two faults in the bf16 mma.sync kernels
+    "bf16_delta_dropped": _mutant(
+        BWD, "bf16", MMA_BF16_CASES,
         ("dl_s[tid] = live ? delta_b[q0 + tid] : 0.f;", "dl_s[tid] = 0.f;"),
         ("const float dl0 = qrow < p.n_q ? p.delta[bh * p.n_q + qrow] : 0.f;",
          "const float dl0 = 0.f;"),
         ("const float dl1 = qrow + 8 < p.n_q ? p.delta[bh * p.n_q + qrow + 8]"
-         " : 0.f;", "const float dl1 = 0.f;")],
-    "bf16_dkv_skips_last_query_tile": [
+         " : 0.f;", "const float dl1 = 0.f;")),
+    "bf16_dkv_skips_last_query_tile": _mutant(
+        BWD, "bf16", MMA_BF16_CASES,
         ("const int n_qtiles = (p.n_q + kTile - 1) / kTile;",
-         "const int n_qtiles = (p.n_q + kTile - 1) / kTile - 1;")],
+         "const int n_qtiles = (p.n_q + kTile - 1) / kTile - 1;")),
+    # and in the wgmma kernels: δ dropped from both
+    "sm90_delta_dropped": _mutant(
+        BWD_SM90, "bf16", SM90_BF16_CASES,
+        ("dpt[i] = st[i] * (dpt[i] - dl_t[col]);", "dpt[i] = st[i] * dpt[i];"),
+        ("dp[i] = pr * (dp[i] - (hi ? dl1 : dl0));", "dp[i] = pr * dp[i];")),
+    # the wgmma dK/dV kernel releases its last query tile unused
+    "sm90_dkv_skips_last_query_tile": _mutant(
+        BWD_SM90, "bf16", SM90_BF16_CASES,
+        ("      mbar_wait(&full[s], (it / kStages) & 1);\n",
+         "      mbar_wait(&full[s], (it / kStages) & 1);\n"
+         "      if (it + 1 == n_qtiles) { mbar_arrive(&empty[s]); continue; }\n"
+         )),
+    # composite backward: dα without the T_final cotangent
+    "composite_bwd_tn_cotangent_dropped": _mutant(
+        RASTER_BWD, "raster", ("random_448",),
+        ("g_tn = g[5] * out[5 * plane + p];", "g_tn = 0.f;")),
 }
-# composite backward mutant: dα without the T_final cotangent
-RASTER_MUTANTS = {
-    "composite_bwd_tn_cotangent_dropped": [
-        ("g_tn = g[5] * out[5 * plane + p];", "g_tn = 0.f;")],
-}
-# forward mutants: name → (text of the unchanged source, its replacement)
-MUTANTS = {
-    # the last key tile's P·V product is skipped; its keys stay in the sum l
-    "pv_skips_last_tile": (
-        "        mma_16816(acc[n], a0, a1, a2, a3, b0, b1);",
-        "        if (tile + 1 < n_tiles) "
-        "mma_16816(acc[n], a0, a1, a2, a3, b0, b1);"),
-    # the first key of every tile is dropped from P·V only
-    "pv_drops_a_key_per_tile": (
-        "const uint32_t a0 = pack_bf16(s[2 * kk][0], s[2 * kk][1]);",
-        "const uint32_t a0 = pack_bf16(kk == 0 && t == 0 ? 0.f : s[2 * kk][0],"
-        " s[2 * kk][1]);"),
-    # the O accumulators are not rescaled when the running max grows
-    "acc_not_rescaled": (
-        "      acc[n][0] *= alpha0;\n      acc[n][1] *= alpha0;\n"
-        "      acc[n][2] *= alpha1;\n      acc[n][3] *= alpha1;\n", ""),
-    # each key's V row lands in the next key's column of the Vᵀ tile
-    "v_tile_shifted_one_key": (
-        "vt_s[(col + j) * VS + r] = e[j];",
-        "vt_s[(col + j) * VS + (r + 1) % kBlockK] = e[j];"),
-    # V's last 8 feature columns are never loaded
-    "v_last_chunk_zero": (
-        "if (key0 + r < p.n_k && col < p.d)\n        val = "
-        "*reinterpret_cast<const uint4*>(vb",
-        "if (key0 + r < p.n_k && col + 8 < p.d)\n        val = "
-        "*reinterpret_cast<const uint4*>(vb"),
-}
-
-
-def cases(cs):
-    """chip_smoke's cases, natural (D = 128, unmasked) ones first."""
-    return [cs.Case("dit_1_3b", 2, 4096, 12, 128, 0),
-            cs.Case("dit_14b", 2, 4096, 40, 128, 0),
-            cs.Case("natural_ragged", 2, 1100, 2, 128, 0),
-            cs.Case("vit", 13, 1029, 16, 64, 0),
-            cs.Case("frame", 13, 1040, 16, 64, 11),
-            cs.Case("global", 1, 13520, 16, 64, 11, frame_len=1040),
-            cs.Case("ragged_d128", 2, 333, 3, 128, 7)]
-
-
-def f32_cases():
-    """fp32 (name, shape) cases for the backward mutants: the training
-    step's ViT/frame shape, a 4096-token global-like one, ragged and
-    short."""
-    return [("f32_vit_frame", (13, 1029, 16, 64)),
-            ("f32_4096", (1, 4096, 4, 64)),
-            ("f32_ragged", (2, 1100, 2, 64)),
-            ("f32_short", (1, 45, 3, 64))]
-
-
-def bf16_cases():
-    """bf16 (name, shape) cases for the bf16 backward mutants: the VDM
-    step's ViT/frame shape, a DiT-like D = 128 one, ragged at both head dims
-    and short."""
-    return [("bf16_vit_frame", (13, 1029, 16, 64)),
-            ("bf16_4096_d128", (1, 4096, 4, 128)),
-            ("bf16_ragged_d64", (2, 1100, 2, 64)),
-            ("bf16_ragged_d128", (2, 333, 3, 128)),
-            ("bf16_short", (1, 45, 3, 64))]
 
 
 def _mutate(text: str, name: str, edits) -> str:
@@ -147,25 +199,19 @@ def _mutate(text: str, name: str, edits) -> str:
 
 
 def build_mutants(build, workdir: Path) -> dict[str, Path]:
-    fwd = (build.CSRC_DIR / "flash_attention_fwd.cu").read_text()
-    bwd = (build.CSRC_DIR / "flash_attention_bwd.cu").read_text()
-    raster = (build.CSRC_DIR / "rasterize_bwd.cu").read_text()
     sources = {}
-    for name, edits, text in (
-            *((n, [e], fwd) for n, e in MUTANTS.items()),
-            *((n, e, bwd) for n, e in BWD_MUTANTS.items()),
-            *((n, e, bwd) for n, e in BF16_BWD_MUTANTS.items()),
-            *((n, e, raster) for n, e in RASTER_MUTANTS.items())):
+    for name, m in MUTANTS.items():
+        text = (build.CSRC_DIR / m["source"]).read_text()
         src = workdir / f"{name}.cu"
-        src.write_text(_mutate(text, name, edits))
+        src.write_text(_mutate(text, name, m["edits"]))
         sources[name] = src
 
     def nvcc(item):
         name, src = item
         lib = src.with_suffix(".so")
-        proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o",
-                               str(lib), str(src)], capture_output=True,
-                              text=True)
+        proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-I",
+                               str(build.CSRC_DIR), "-o", str(lib), str(src)],
+                              capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on mutant {name}:\n"
                                f"{proc.stdout}{proc.stderr}")
@@ -174,36 +220,40 @@ def build_mutants(build, workdir: Path) -> dict[str, Path]:
         return dict(pool.map(nvcc, sources.items()))
 
 
-def run_cases(cs, fa, torch) -> list[dict]:
+def run_fwd(cs, fa, torch, names) -> list[dict]:
     rows = []
-    for i, case in enumerate(cases(cs)):
+    for i, args in enumerate(FWD_CASES):
+        if args[0] not in names:
+            continue
         gen = torch.Generator(device="cuda").manual_seed(100 + i)
-        res, passed, _ = cs.compare_case(fa, case, gen)
+        res, passed, _ = cs.compare_case(fa, cs.Case(*args), gen)
         rows.append({**res, "passes": passed,
                      "passes_old_limit": res["max_abs_err_o"] <= OLD_O_ATOL
                      and res["max_abs_err_lse"] <= cs.LSE_ATOL})
     return rows
 
 
-def run_f32_cases(cs, fa, torch) -> list[dict]:
+def run_f32(cs, fa, torch, names) -> list[dict]:
     rows = []
-    for i, (name, shape) in enumerate(f32_cases()):
-        gen = torch.Generator(device="cuda").manual_seed(200 + i)
-        res, passed, _ = cs.compare_f32_case(fa, name, shape, gen)
-        rows.append({**res, "passes": passed})
+    for i, (name, shape) in enumerate(F32_CASES):
+        if name in names:
+            gen = torch.Generator(device="cuda").manual_seed(200 + i)
+            res, passed, _ = cs.compare_f32_case(fa, name, shape, gen)
+            rows.append({**res, "passes": passed})
     return rows
 
 
-def run_bf16_cases(cs, fa, torch) -> list[dict]:
+def run_bf16(cs, fa, torch, names) -> list[dict]:
     rows = []
-    for i, (name, shape) in enumerate(bf16_cases()):
-        gen = torch.Generator(device="cuda").manual_seed(300 + i)
-        res, passed, _ = cs.compare_bf16_bwd_case(fa, name, shape, gen)
-        rows.append({**res, "passes": passed})
+    for i, (name, shape) in enumerate(BF16_CASES):
+        if name in names:
+            gen = torch.Generator(device="cuda").manual_seed(300 + i)
+            res, passed, _ = cs.compare_bf16_bwd_case(fa, name, shape, gen)
+            rows.append({**res, "passes": passed})
     return rows
 
 
-def run_raster_case(cs, tr, torch) -> list[dict]:
+def run_raster(cs, tr, torch, names) -> list[dict]:
     """One random scene at 448² (200,000 splats before an identity camera,
     opacities up to 0.99), the reward's pair budget, a random cotangent."""
     gen = torch.Generator(device="cuda").manual_seed(400)
@@ -228,6 +278,22 @@ def run_raster_case(cs, tr, torch) -> list[dict]:
              "passes": passed}]
 
 
+def describe(kind: str, r: dict) -> str:
+    if kind == "fwd":
+        return (f"max|ΔO| {r['max_abs_err_o']:.6g} o_excess "
+                f"{r['o_excess']:.6g} max|ΔLSE| {r['max_abs_err_lse']:.6g} "
+                f"(old 2e-2 limit passes: {r['passes_old_limit']})")
+    if kind == "f32":
+        return (f"rel|Δ| O {r['rel_err_o']:.3g} dQ {r['rel_err_dq']:.3g} "
+                f"dK {r['rel_err_dk']:.3g} dV {r['rel_err_dv']:.3g}")
+    if kind == "bf16":
+        return (f"excess dQ {r['excess_dq']:.3g} dK {r['excess_dk']:.3g} "
+                f"dV {r['excess_dv']:.3g} repeatable "
+                f"{r['bitwise_repeatable']}")
+    return (f"off share {r['off_share']:.3g} max rel by column "
+            f"{r['max_rel_err_by_column']}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -245,72 +311,52 @@ def main(argv=None) -> int:
     from vist3a_tpu_torch.kernels import flash_attention as fa
     from vist3a_tpu_torch.kernels import rasterizer as tr
 
+    runners = {"fwd": lambda names: run_fwd(cs, fa, torch, names),
+               "f32": lambda names: run_f32(cs, fa, torch, names),
+               "bf16": lambda names: run_bf16(cs, fa, torch, names),
+               "raster": lambda names: run_raster(cs, tr, torch, names)}
+    all_cases = {"fwd": [c[0] for c in FWD_CASES],
+                 "f32": [n for n, _ in F32_CASES],
+                 "bf16": [n for n, _ in BF16_CASES],
+                 "raster": ["random_448"]}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(f"nvidia-smi: {smi}", flush=True)
-    results, f32_results, bf16_results, raster_results = {}, {}, {}, {}
+    results = {}
     with tempfile.TemporaryDirectory(prefix="flash_mutants_") as tmp:
         t0 = time.perf_counter()
-        fa._lib()                                   # the unchanged kernels
-        fa._bwd_lib()
-        tr._bwd_lib()
+        for load in (fa._lib, fa._bwd_lib, fa._sm90_lib, fa._sm90_bwd_lib,
+                     tr._bwd_lib):                  # the unchanged kernels
+            load()
         built = build_mutants(build, Path(tmp))
         print(f"built {len(built)} mutants in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
-        own = build._loaded[fa.SOURCE]
-        own_bwd = build._loaded[fa.BWD_SOURCE]
-        own_raster = build._loaded[tr.BWD_SOURCE]
+        own = dict(build._loaded)
         try:
-            for name, path in {"unchanged": None, **built}.items():
-                lib = None if path is None else ctypes.CDLL(str(path))
-                if name in BWD_MUTANTS or name in BF16_BWD_MUTANTS:
-                    build._loaded[fa.BWD_SOURCE] = lib
-                elif name in RASTER_MUTANTS:
-                    build._loaded[tr.BWD_SOURCE] = lib
-                elif lib is not None:
-                    build._loaded[fa.SOURCE] = lib
-                if name == "unchanged" or name in BF16_BWD_MUTANTS:
-                    bf16_results[name] = run_bf16_cases(cs, fa, torch)
-                    for r in bf16_results[name]:
-                        print(f"{name:34s} {r['case']:17s} excess dQ "
-                              f"{r['excess_dq']:.3g} dK {r['excess_dk']:.3g}"
-                              f" dV {r['excess_dv']:.3g} passes "
-                              f"{r['passes']}", flush=True)
-                if name == "unchanged" or name in RASTER_MUTANTS:
-                    raster_results[name] = run_raster_case(cs, tr, torch)
-                    for r in raster_results[name]:
-                        print(f"{name:34s} {r['case']:17s} off share "
-                              f"{r['off_share']:.3g} max rel by column "
-                              f"{r['max_rel_err_by_column']} passes "
-                              f"{r['passes']}", flush=True)
-                if name in BF16_BWD_MUTANTS or name in RASTER_MUTANTS:
-                    build._loaded[fa.BWD_SOURCE] = own_bwd
-                    build._loaded[tr.BWD_SOURCE] = own_raster
-                    continue
-                if name not in BWD_MUTANTS:
-                    results[name] = run_cases(cs, fa, torch)
-                    for r in results[name]:
-                        print(f"{name:26s} {r['case']:15s} max|ΔO| "
-                              f"{r['max_abs_err_o']:.6g} o_excess "
-                              f"{r['o_excess']:.6g} "
-                              f"max|ΔLSE| {r['max_abs_err_lse']:.6g} passes "
-                              f"{r['passes']} (old 2e-2 limit: "
-                              f"{r['passes_old_limit']})", flush=True)
-                if name == "unchanged" or name in BWD_MUTANTS:
-                    f32_results[name] = run_f32_cases(cs, fa, torch)
-                    for r in f32_results[name]:
-                        print(f"{name:26s} {r['case']:15s} rel|Δ| O "
-                              f"{r['rel_err_o']:.3g} dQ {r['rel_err_dq']:.3g}"
-                              f" dK {r['rel_err_dk']:.3g} dV "
-                              f"{r['rel_err_dv']:.3g} passes {r['passes']}",
-                              flush=True)
-                build._loaded[fa.SOURCE] = own
-                build._loaded[fa.BWD_SOURCE] = own_bwd
+            results["unchanged"] = {
+                kind: run(all_cases[kind]) for kind, run in runners.items()}
+            for name, path in built.items():
+                m = MUTANTS[name]
+                build._loaded[m["source"]] = ctypes.CDLL(str(path))
+                try:
+                    results[name] = {m["kind"]: runners[m["kind"]](
+                        m["cases"])}
+                finally:
+                    build._loaded[m["source"]] = own[m["source"]]
         finally:
-            build._loaded[fa.SOURCE] = own
-            build._loaded[fa.BWD_SOURCE] = own_bwd
-            build._loaded[tr.BWD_SOURCE] = own_raster
+            build._loaded.update(own)
+    for name, by_kind in results.items():
+        for kind, rows in by_kind.items():
+            for r in rows:
+                print(f"{name:36s} {r['case']:17s} {describe(kind, r)} "
+                      f"passes {r['passes']}", flush=True)
+    bad = [f"{kind}/{r['case']}"
+           for kind, rows in results["unchanged"].items() for r in rows
+           if not r["passes"]]
+    missed = [f"{name}/{r['case']}" for name, by_kind in results.items()
+              if name != "unchanged" for rows in by_kind.values()
+              for r in rows if r["passes"]]
     summary = {"device": smi, "o_atol_std": cs.O_ATOL_STD,
                "o_rtol": cs.O_RTOL, "old_o_atol": OLD_O_ATOL,
                "f32_limits": {"o_rtol": cs.F32_O_RTOL,
@@ -321,24 +367,12 @@ def main(argv=None) -> int:
                "raster_bwd_limits": {"rtol": cs.RASTER_BWD_RTOL,
                                      "max_off_share":
                                          cs.RASTER_BWD_MAX_OFF_SHARE},
-               "results": results, "f32_results": f32_results,
-               "bf16_results": bf16_results,
-               "raster_results": raster_results}
+               "mutants": {n: {k: m[k] for k in ("source", "kind", "cases")}
+                           for n, m in MUTANTS.items()},
+               "results": results}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(summary, indent=1))
-    bad = [r["case"] for rows in (results["unchanged"],
-                                  f32_results["unchanged"],
-                                  bf16_results["unchanged"],
-                                  raster_results["unchanged"])
-           for r in rows if not r["passes"]]
-    missed = [f"{name}/{r['case']}" for name, rows in results.items()
-              if name != "unchanged" for r in rows
-              if r["natural"] and r["passes"]]
-    missed += [f"{name}/{r['case']}"
-               for kind in (f32_results, bf16_results, raster_results)
-               for name, rows in kind.items()
-               if name != "unchanged" for r in rows if r["passes"]]
     print(json.dumps({"unchanged_fails": bad,
                       "mutant_cases_passed": missed}))
     return 1 if bad or missed else 0

@@ -3,8 +3,10 @@
 Each `csrc/*.cu` file exposes a plain C interface, so it compiles with
 `nvcc` alone (seconds), without PyTorch's headers, and binds with `ctypes`.
 The library goes to `vist3a_tpu_torch/_build/`, named by a hash of the
-source and the flags, so an edited source never loads a stale build.  The
-build happens at first use, never at import.
+source, of the `csrc/` headers it includes (`#include "..."`, followed
+through the headers' own includes) and of the flags, so an edited source or
+header never loads a stale build.  The build happens at first use, never at
+import.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -43,12 +46,33 @@ def _nvcc() -> str:
                        "the kernels of vist3a_tpu_torch")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def digest(src: Path) -> str:
+    """Hash of the source, of every local header it reaches and of the
+    flags."""
+    h = hashlib.sha256()
+    seen: set[Path] = set()
+
+    def add(path: Path) -> None:
+        if path in seen:
+            return
+        seen.add(path)
+        text = path.read_bytes()
+        h.update(path.name.encode() + b"\0" + text)
+        for name in _LOCAL_INCLUDE.findall(text):
+            add((path.parent / name.decode()).resolve())
+
+    add(src.resolve())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def build(source: str) -> Path:
     """Compile `csrc/<source>` for sm_90a; returns the library's path."""
     src = CSRC_DIR / source
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-                            ).hexdigest()[:16]
-    lib = BUILD_DIR / f"lib{src.stem}-{digest}.so"
+    lib = BUILD_DIR / f"lib{src.stem}-{digest(src)}.so"
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

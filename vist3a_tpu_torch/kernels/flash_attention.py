@@ -13,8 +13,11 @@ DP = 128 instantiation, and fp32 inputs its fp32 instantiation (head_dim
 ≤ 64, the distillation step's).  `csrc/flash_attention_bwd.cu` is the
 backward: fp32 at head_dim ≤ 64, and bf16 at head_dim ≤ 64 (the transposed
 entry's, the VDM step's stitched decoder) and ≤ 128 (the natural entry's,
-the Wan DiT's self-attention).  See those files for the designs and their
-bounds.
+the Wan DiT's self-attention).  A bf16, unmasked call at head_dim 128 — the
+natural entry, the Wan DiT's self-attention — goes instead to the Hopper
+wgmma + TMA kernels of `csrc/flash_attention_fwd_sm90.cu` and
+`csrc/flash_attention_bwd_sm90.cu` (`route` names the kernel a call
+takes).  See those files for the designs and their bounds.
 
 `FlashAttention` is the autograd function the attention dispatch calls on
 the card: its forward saves q, k, v, O and the LSE, its backward calls
@@ -56,6 +59,8 @@ from vist3a_tpu_torch.kernels import build
 
 SOURCE = "flash_attention_fwd.cu"
 BWD_SOURCE = "flash_attention_bwd.cu"
+SM90_SOURCE = "flash_attention_fwd_sm90.cu"
+SM90_BWD_SOURCE = "flash_attention_bwd_sm90.cu"
 MAX_HEAD_DIM = 128
 MAX_HEAD_DIM_F32 = 64          # the fp32 forward's and backward's
 NATURAL_HEAD_DIM = 128
@@ -140,26 +145,62 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.load(SOURCE)
-    fn = lib.flash_attention_fwd
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-                       + [ctypes.c_longlong] * 12
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+def route(dtype: torch.dtype, head_dim: int, masked: bool) -> str:
+    """The kernel a call on the card takes, forward and backward: "wgmma"
+    (the Hopper wgmma + TMA kernels, `SM90_SOURCE` and `SM90_BWD_SOURCE`)
+    for bf16, unmasked, head_dim 128; "fp32" (the FFMA kernels of `SOURCE`
+    and `BWD_SOURCE`) for fp32; "mma_sync" (their bf16 mma.sync kernels)
+    for every other bf16 call."""
+    if dtype == torch.float32:
+        return "fp32"
+    if dtype == torch.bfloat16 and head_dim == NATURAL_HEAD_DIM \
+            and not masked:
+        return "wgmma"
+    return "mma_sync"
+
+
+_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
+# The ctypes signature of each C entry: (source, entry) → argument types.
+ARGTYPES = {
+    (SOURCE, "flash_attention_fwd"):
+        (_P,) * 6 + (_I,) * 5 + (_L,) * 12 + (_F, _I, _P),
+    (BWD_SOURCE, "flash_attention_bwd_f32"):
+        (_P,) * 9 + (_I,) * 5 + (_L,) * 21 + (_F, _P),
+    (BWD_SOURCE, "flash_attention_bwd_bf16"):
+        (_P,) * 9 + (_I,) * 5 + (_L,) * 21 + (_F, _P),
+    (SM90_SOURCE, "flash_attention_fwd_sm90"):
+        (_P,) * 5 + (_I,) * 5 + (_L,) * 12 + (_F, _P),
+    (SM90_BWD_SOURCE, "flash_attention_bwd_sm90"):
+        (_P,) * 9 + (_I,) * 6 + (_L,) * 21 + (_F, _P),
+}
+
+
+def _bind(source: str) -> ctypes.CDLL:
+    """Build and load `source`, with the argument types of its entries."""
+    lib = build.load(source)
+    for (src, entry), argtypes in ARGTYPES.items():
+        fn = getattr(lib, entry) if src == source else None
+        if fn is not None and fn.argtypes is None:
+            fn.restype = ctypes.c_int
+            fn.argtypes = list(argtypes)
     return lib
+
+
+def _lib() -> ctypes.CDLL:
+    return _bind(SOURCE)
 
 
 def _bwd_lib() -> ctypes.CDLL:
-    lib = build.load(BWD_SOURCE)
-    for fn in (lib.flash_attention_bwd_f32, lib.flash_attention_bwd_bf16):
-        if fn.argtypes is None:
-            fn.restype = ctypes.c_int
-            fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
-                           + [ctypes.c_longlong] * 21
-                           + [ctypes.c_float, ctypes.c_void_p])
-    return lib
+    return _bind(BWD_SOURCE)
+
+
+def _sm90_lib() -> ctypes.CDLL:
+    return _bind(SM90_SOURCE)
+
+
+def _sm90_bwd_lib() -> ctypes.CDLL:
+    return _bind(SM90_BWD_SOURCE)
 
 
 def _loadable(x: torch.Tensor) -> bool:
@@ -224,19 +265,25 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = d ** -0.5 if scale is None else scale
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((b, h, n_q), dtype=torch.float32, device=q.device)
-    lib = _lib()
+    path = route(q.dtype, d, key_valid is not None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if key_valid is None else key_valid.data_ptr(),
-            o.data_ptr(), lse.data_ptr(), b, n_q, k.shape[1], h, d,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *o.stride()[:3], float(scale), int(q.dtype == torch.float32),
-            stream)
+        if path == "wgmma":
+            err = _sm90_lib().flash_attention_fwd_sm90(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                lse.data_ptr(), b, n_q, k.shape[1], h, d, *q.stride()[:3],
+                *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+                float(scale), stream)
+        else:
+            err = _lib().flash_attention_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                None if key_valid is None else key_valid.data_ptr(),
+                o.data_ptr(), lse.data_ptr(), b, n_q, k.shape[1], h, d,
+                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                *o.stride()[:3], float(scale), int(path == "fp32"), stream)
     if err:
-        raise RuntimeError(f"flash_attention_fwd launch failed: "
-                           f"cudaError {err}")
+        raise RuntimeError(f"flash_attention_fwd launch failed ({path}): "
+                           f"error {err}")
     if key_valid is not None:
         launches_masked += 1
     elif d == NATURAL_HEAD_DIM:
@@ -280,20 +327,36 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq, dk, dv = (torch.empty_like(x, memory_format=torch.contiguous_format)
                   for x in (q, k, v))
     f32 = q.dtype == torch.float32
-    lib = _bwd_lib()
-    fn = lib.flash_attention_bwd_f32 if f32 else lib.flash_attention_bwd_bf16
+    path = route(q.dtype, d, False)
+    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+               *do.stride()[:3], *dq.stride()[:3], *dk.stride()[:3],
+               *dv.stride()[:3])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), b, n_q, n_k, h, d,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *do.stride()[:3], *dq.stride()[:3], *dk.stride()[:3],
-            *dv.stride()[:3], float(scale), stream)
+        if path == "wgmma":
+            # LSE·log2(e) and δ padded to whole 128-row tiles: +∞ and 0 give
+            # a padded query row P = 0 and dS = 0
+            n_pad = -(-n_q // 128) * 128
+            lse2 = torch.full((b, h, n_pad), math.inf, device=q.device)
+            lse2[..., :n_q] = lse * _LOG2E
+            delta_p = torch.zeros((b, h, n_pad), device=q.device)
+            delta_p[..., :n_q] = delta
+            err = _sm90_bwd_lib().flash_attention_bwd_sm90(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse2.data_ptr(), delta_p.data_ptr(), dq.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), b, n_q, n_k, h, d, n_pad,
+                *strides, float(scale), stream)
+        else:
+            lib = _bwd_lib()
+            fn = lib.flash_attention_bwd_f32 if f32 \
+                else lib.flash_attention_bwd_bf16
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                     lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                     dk.data_ptr(), dv.data_ptr(), b, n_q, n_k, h, d,
+                     *strides, float(scale), stream)
     if err:
-        raise RuntimeError(f"flash_attention_bwd launch failed ({q.dtype}): "
-                           f"cudaError {err}")
+        raise RuntimeError(f"flash_attention_bwd launch failed ({path}): "
+                           f"error {err}")
     if f32:
         launches_backward += 1
     elif d == NATURAL_HEAD_DIM:
