@@ -13,22 +13,25 @@ Phases, each of which passes or raises (any failure exits non-zero):
                `csrc/flash_attention_fwd_sm90.cu` and
                `csrc/flash_attention_bwd_sm90.cu`, `csrc/rasterize_fwd.cu`
                and `csrc/rasterize_bwd.cu` for sm_90a, one nvcc each, at
-               once, and prints ptxas's registers / shared memory / spills.
+               once, and prints ptxas's registers / shared memory / spills
+               and the wgmma kernels' dynamic shared memory a block.
   3. kernels — holds the flash-attention kernels against their plain
                PyTorch version at the three shapes of the decode (ViT
-               blocks, frame attention, global attention) and at the Wan
-               DiT's self-attention (2, 4096, 12, 128) and (2, 4096, 40,
-               128) (1.3B and 14B heads; unmasked bf16 head_dim 128, the
-               natural-layout entry, which the wgmma kernel takes), plus a
-               ragged (2, 1100, 2, 128) and a short (1, 45, 3, 128)
-               natural, a fully masked, a ragged masked D = 128 (the
-               mma.sync kernel) and strided cases at D = 64 and 128 (the
-               latter forward and backward), each within a limit scaled to
-               its output (`O_ATOL_STD`, `O_RTOL`), and
-               times it beside the plain version and
-               `F.scaled_dot_product_attention` (a yardstick the port never
-               calls).  Then the fp32 forward and the backward (kernel 4)
-               on fp32 inputs at the training step's shapes — (13, 1029,
+               blocks, frame attention, global attention), at the VDM
+               step's unmasked global attention (1, 13377, 16, 64) and at
+               the Wan DiT's self-attention (2, 4096, 12, 128) and (2,
+               4096, 40, 128) (1.3B and 14B heads) — every bf16 call at
+               head_dim 64 and 128, masked or not, takes the wgmma kernel —
+               plus a ragged (2, 1100, 2, D) and a short (1, 45, 3, D) at
+               both head dims, a fully masked, a ragged masked D = 128,
+               the mma.sync kernel at D = 40 and 96 (several key tiles, the
+               latter masked) and strided cases at D = 64 and 128 (forward
+               and backward), each within a limit scaled to its output
+               (`O_ATOL_STD`, `O_RTOL`), and times it beside the plain
+               version and `F.scaled_dot_product_attention` (a yardstick
+               the port never calls).  Then the fp32 forward and the
+               backward (kernel 4) on fp32 inputs at the training step's
+               shapes — (13, 1029,
                16, 64), (1, 13377, 16, 64), (1, 21609, 16, 64) — a ragged
                (2, 1100, 2, 64) and a short (1, 45, 3, 64): O, LSE and the
                three gradients against the plain versions (`F32_*`
@@ -36,10 +39,12 @@ Phases, each of which passes or raises (any failure exits non-zero):
                the plain versions, SDPA's memory-efficient fp32 backward
                and the bounds.  Then the bf16 backward (kernels 4b and 5)
                at the VDM step's shapes — (13, 1029, 16, 64),
-               (1, 13377, 16, 64), (1, 4096, 12, 128), (6, 4096, 12, 128)
-               — a ragged (2, 1100, 2, 64) and (2, 333, 3, 128), a short
-               (1, 45, 3, 64) and (1, 45, 3, 128) and a ragged head_dim-96
-               (2, 333, 3, 96): each gradient within `GRAD_ATOL_STD` of its
+               (1, 13377, 16, 64), (1, 4096, 12, 128), (6, 4096, 12, 128),
+               the wgmma kernels — a ragged (2, 1100, 2, 64) and (2, 333,
+               3, 128), a short (1, 45, 3, 64) and (1, 45, 3, 128), and
+               ragged head_dim-96 (2, 333, 3, 96) and head_dim-48 (2, 333,
+               3, 48), the mma.sync kernels: each gradient within
+               `GRAD_ATOL_STD` of its
                std plus `GRAD_RTOL` of itself, bit for bit repeatable;
                timed beside the plain version, SDPA's bf16 backward (a
                yardstick) and the bound.
@@ -153,8 +158,8 @@ PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 (data sheet)
 PEAK_FP32_FLOPS = 67e12       # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
 KERNEL_SOURCE = "vist3a_tpu_torch/csrc/flash_attention_fwd.cu"
-# the wgmma + TMA kernels of the bf16, unmasked, head_dim-128 calls (row 3
-# and kernel 5)
+# the wgmma + TMA kernels of the bf16 calls at head_dim 64 and 128, masked
+# or not (rows 1 bf16, 2 and 3, kernels 4b and 5)
 SM90_SOURCE = "vist3a_tpu_torch/csrc/flash_attention_fwd_sm90.cu"
 SM90_BWD_SOURCE = "vist3a_tpu_torch/csrc/flash_attention_bwd_sm90.cu"
 RASTER_SOURCE = "vist3a_tpu_torch/csrc/rasterize_fwd.cu"
@@ -203,11 +208,11 @@ BWD_SOURCE = "vist3a_tpu_torch/csrc/flash_attention_bwd.cu"
 GRAD_ATOL_STD = 0.05
 GRAD_RTOL = 2 ** -6
 # (name, (B, N, H, D)): the VDM step's stitched-decoder ViT/frame and global
-# attention (kernel 4b), its DiT self-attention in the SFT branch and in
-# the rollout's re-evaluation (kernel 5, the wgmma kernels), ragged N at
-# both head dims, N below one tile at both, and head_dim 96 (the mma.sync
-# D = 128 instantiation, which the wgmma kernels left to the other head
-# dims above 64)
+# attention (kernel 4b) and its DiT self-attention in the SFT branch and in
+# the rollout's re-evaluation (kernel 5), all on the wgmma kernels; ragged
+# N at both head dims, N below one tile at both, and head_dims 96 and 48
+# (the mma.sync kernels' D = 128 and D = 64 instantiations, which the wgmma
+# kernels left to the other head dims)
 BF16_BWD_CASES = (("bf16_vit_frame", (13, 1029, 16, 64)),
                   ("bf16_global_s13", (1, 13377, 16, 64)),
                   ("bf16_dit_sft", (1, 4096, 12, 128)),
@@ -216,7 +221,8 @@ BF16_BWD_CASES = (("bf16_vit_frame", (13, 1029, 16, 64)),
                   ("bf16_ragged_d128", (2, 333, 3, 128)),
                   ("bf16_short", (1, 45, 3, 64)),
                   ("bf16_short_d128", (1, 45, 3, 128)),
-                  ("bf16_ragged_d96", (2, 333, 3, 96)))
+                  ("bf16_ragged_d96", (2, 333, 3, 96)),
+                  ("bf16_ragged_d48", (2, 333, 3, 48)))
 BF16_BWD_TIMED = ("bf16_vit_frame", "bf16_global_s13", "bf16_dit_sft",
                   "bf16_dit_reeval")
 RASTER_BWD_SOURCE = "vist3a_tpu_torch/csrc/rasterize_bwd.cu"
@@ -407,6 +413,12 @@ def phase_build() -> None:
         for line in text.splitlines():
             if any(t in line.lower() for t in ("ptxas", "spill", "error")):
                 log(f"  {source}: {line.strip()}")
+    fwd, bwd = fa._sm90_lib(), fa._sm90_bwd_lib()
+    log("  wgmma kernels' dynamic shared memory a block (bytes): " + json.dumps(
+        {f"D={d}": {"fwd": fwd.flash_attention_fwd_sm90_smem(d),
+                    "bwd_dkv": bwd.flash_attention_bwd_sm90_smem(d, 0),
+                    "bwd_dq": bwd.flash_attention_bwd_sm90_smem(d, 1)}
+         for d in (64, 128)}))
 
 
 @dataclasses.dataclass
@@ -534,6 +546,10 @@ def phase_kernels() -> dict:
                             timed=True),
         "global": check_case(fa, Case("global", 1, 13520, 16, 64, 11,
                                       frame_len=1040), gen, timed=True),
+        # the VDM step's global attention, unmasked (48 launches a step)
+        "global_unmasked": check_case(
+            fa, Case("global_unmasked", 1, 13377, 16, 64, 0), gen,
+            timed=True),
         # Wan DiT self-attention at 512² (4096 tokens), the CFG pair
         "dit_1_3b": check_case(fa, Case("dit_1_3b", 2, 4096, 12, 128, 0), gen,
                                timed=True),
@@ -543,13 +559,20 @@ def phase_kernels() -> dict:
     check_case(fa, Case("natural_ragged", 2, 1100, 2, 128, 0), gen,
                timed=False)
     check_case(fa, Case("natural_short", 1, 45, 3, 128, 0), gen, timed=False)
+    # the wgmma kernel at head_dim 64: N no multiple of the tiles, N below
+    # one tile
+    check_case(fa, Case("ragged_d64", 2, 1100, 2, 64, 0), gen, timed=False)
+    check_case(fa, Case("short_d64", 1, 45, 3, 64, 0), gen, timed=False)
     # every key masked: O = 0, LSE = the finite sentinel −1e30·ln 2
     check_case(fa, Case("all_masked", 2, 130, 4, 64, 130), gen, timed=False)
     check_case(fa, Case("ragged_d128", 2, 333, 3, 128, 7), gen, timed=False)
+    # the mma.sync kernel on the head dims it still serves, over one and
+    # over several key tiles of 64
     check_case(fa, Case("ragged_d40", 1, 77, 2, 40, 0), gen, timed=False)
+    check_case(fa, Case("mma_d40", 2, 1100, 2, 40, 0), gen, timed=False)
+    check_case(fa, Case("mma_d96", 2, 1100, 2, 96, 7), gen, timed=False)
     # strided inputs, read in place: q, k, v as views into one qkv tensor,
-    # at head_dim 64 (the mma.sync kernel) and 128 (the wgmma kernels, the
-    # backward too)
+    # at head_dim 64 and 128 (the wgmma kernels, forward and backward)
     for d in (64, 128):
         check_strided(fa, d, gen)
     # the training step's fp32 attention: forward and backward (kernel 4)
@@ -565,9 +588,9 @@ def phase_kernels() -> dict:
 
 def check_strided(fa, d: int, gen) -> None:
     """q, k, v as views into one (2, 1100, 3, 4, d) bf16 tensor, read in
-    place: O and LSE within the limits of the other cases; at head_dim 128
-    also the backward, each gradient within the `grad_excess` limit and the
-    same bits twice."""
+    place: O and LSE within the limits of the other cases, and the
+    backward, each gradient within the `grad_excess` limit and the same
+    bits twice."""
     import torch
 
     qkv = torch.randn(2, 1100, 3, 4, d, generator=gen, device="cuda"
@@ -579,19 +602,17 @@ def check_strided(fa, d: int, gen) -> None:
            "max_abs_err_o": (o.float() - o_ref.float()).abs().max().item(),
            "o_excess": o_excess(o, o_ref),
            "max_abs_err_lse": (lse - lse_ref).abs().max().item()}
-    passed = res["o_excess"] <= 1.0 and res["max_abs_err_lse"] <= LSE_ATOL
-    if d == 128:
-        do = torch.randn(q.shape, generator=gen, device="cuda"
-                         ).to(torch.bfloat16)
-        got = fa.flash_attention_bwd(q, k, v, o, lse, do)
-        ref = fa.flash_attention_bwd_ref(q, k, v, o, lse, do)
-        for x, g, r in zip("qkv", got, ref):
-            res[f"excess_d{x}"] = grad_excess(g, r)
-        again = fa.flash_attention_bwd(q, k, v, o, lse, do)
-        res["bitwise_repeatable"] = all(torch.equal(x, y)
-                                        for x, y in zip(got, again))
-        passed = passed and res["bitwise_repeatable"] and max(
-            res[f"excess_d{x}"] for x in "qkv") <= 1.0
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    ref = fa.flash_attention_bwd_ref(q, k, v, o, lse, do)
+    for x, g, r in zip("qkv", got, ref):
+        res[f"excess_d{x}"] = grad_excess(g, r)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    res["bitwise_repeatable"] = all(torch.equal(x, y)
+                                    for x, y in zip(got, again))
+    passed = (res["o_excess"] <= 1.0 and res["max_abs_err_lse"] <= LSE_ATOL
+              and res["bitwise_repeatable"]
+              and max(res[f"excess_d{x}"] for x in "qkv") <= 1.0)
     check(passed, f"strided inputs: {res}")
     log(f"kernels: strided qkv views {json.dumps(res)}")
 
@@ -927,10 +948,14 @@ def phase_slice(model, profile: bool) -> dict:
 
 def _kernel_group(name: str) -> str:
     low = name.lower()
+    d64 = any(t in low for t in ("kernel<64", "kernelili64"))
     if "flash_fwd_sm90_kernel" in low:
-        return "flash attention, natural D = 128, wgmma (this repo)"
+        return ("flash attention, bf16 D = 64, wgmma (this repo)" if d64
+                else "flash attention, natural D = 128, wgmma (this repo)")
     if "flash_bwd_dkv_sm90_kernel" in low or "flash_bwd_dq_sm90_kernel" in low:
-        return "flash attention backward, natural D = 128, wgmma (this repo)"
+        return ("flash attention backward, bf16 D = 64, wgmma (this repo)"
+                if d64 else
+                "flash attention backward, natural D = 128, wgmma (this repo)")
     if "flash_fwd_kernel<128>" in low or "flash_fwd_kernelili128" in low:
         return "flash attention, natural D = 128 (this repo)"
     if "flash_bwd_dkv_bf16_kernel<128>" in low \
@@ -2449,9 +2474,9 @@ def _kernel_entries(timed: dict, raster: list | None,
                   "max_abs_err_lse")
     entries = []
     for kname, counter, line, source, cases in (
-            ("flash_attention_fwd", "unmasked", 187, KERNEL_SOURCE,
-             ("vit",)),
-            ("flash_attention_fwd_masked", "masked", 756, KERNEL_SOURCE,
+            ("flash_attention_fwd", "unmasked", 187, SM90_SOURCE,
+             ("vit", "global_unmasked")),
+            ("flash_attention_fwd_masked", "masked", 756, SM90_SOURCE,
              ("global", "frame")),
             ("flash_attention_fwd_natural", "natural", 78, SM90_SOURCE,
              ("dit_1_3b", "dit_14b"))):
@@ -2499,8 +2524,8 @@ def _kernel_entries(timed: dict, raster: list | None,
                     "rel_err_dq", "rel_err_dk", "rel_err_dv")}
                     for x in f32]})
     for kname, counter, line, source, cases in (
-            ("flash_attention_bwd_bf16", "backward_bf16", 397, BWD_SOURCE,
-             ("bf16_global_s13", "bf16_vit_frame")),
+            ("flash_attention_bwd_bf16", "backward_bf16", 397,
+             SM90_BWD_SOURCE, ("bf16_global_s13", "bf16_vit_frame")),
             # `_dq_kernel` (:571) and `_dkv_kernel` (:608)
             ("flash_attention_bwd_natural", "backward_natural", 571,
              SM90_BWD_SOURCE, ("bf16_dit_reeval", "bf16_dit_sft"))):

@@ -45,7 +45,8 @@ def cuda():
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,n,h,d,n_pad", [
     (2, 1029, 4, 64, 0), (2, 1040, 4, 64, 11), (1, 333, 3, 128, 7),
-    (1, 77, 2, 40, 0), (2, 130, 2, 64, 130)])
+    (1, 77, 2, 40, 0), (2, 130, 2, 64, 130), (2, 1100, 2, 40, 0),
+    (2, 1100, 2, 96, 7)])
 def test_kernel_matches_ref_on_card(cuda, b, n, h, d, n_pad):
     """bf16 kernel against the fp32 plain version on the same bf16 inputs:
     O within O_ATOL_STD of its std plus O_RTOL of itself (P is rounded to
@@ -276,7 +277,8 @@ GRAD_RTOL = 2 ** -6
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,n,h,d", [(2, 1100, 2, 64), (1, 45, 3, 64),
-                                     (1, 4096, 2, 128), (2, 333, 3, 128)])
+                                     (1, 4096, 2, 128), (2, 333, 3, 128),
+                                     (2, 333, 3, 48)])
 def test_bf16_backward_matches_plain_on_card(cuda, b, n, h, d):
     """The bf16 backward kernel against the plain version on the card, bit
     for bit repeatable, counted by head dim."""
@@ -331,6 +333,69 @@ def test_wgmma_kernels_match_plain_on_card(cuda, b, n, h, strided):
     o_ref, lse_ref = fa.flash_attention_ref(q, k, v)
     assert _o_ok(o, o_ref)
     assert (lse - lse_ref).abs().max().item() <= 1e-3
+    want = fa.flash_attention_bwd_ref(q, k, v, o, lse, do)
+    for g, w in zip(got, want):
+        w = w.float()
+        limit = GRAD_ATOL_STD * w.std() + GRAD_RTOL * w.abs()
+        assert bool(((g.float() - w).abs() <= limit).all())
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+def _frame_mask(n: int, kind: str, device):
+    """Key validity: `frame` 11 dead keys ending each 1,040-key frame (the
+    stitched decoder's padded layout), `all` none live."""
+    idx = torch.arange(n, device=device)
+    return idx % 1040 < 1029 if kind == "frame" else idx < 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n,h,mask,strided", [
+    (2, 1100, 2, None, False), (1, 45, 3, None, False),
+    (2, 1040, 4, "frame", False), (1, 4160, 2, "frame", False),
+    (2, 130, 2, "all", False), (2, 1100, 4, None, True),
+    (2, 1040, 4, "frame", True)])
+def test_wgmma_d64_kernels_match_plain_on_card(cuda, b, n, h, mask, strided):
+    """The wgmma + TMA forward at head_dim 64, masked and unmasked, and its
+    backward (unmasked calls only: a masked call has none) against the
+    plain versions: ragged N (1100 is no multiple of the 128-row tiles), N
+    below one tile, dead keys inside tiles (four 1,040-key frames hold 11
+    dead keys each), every key dead (O = 0, LSE the sentinel), and q, k, v
+    as views into one (B, N, 3, H, 64) tensor, read in place.  O and LSE
+    within the limits of the other forward cases, each gradient within the
+    `GRAD_*` limit, the backward the same bits twice; the forward counts
+    as the masked or the unmasked entry, the backward as kernel 4b."""
+    gen = torch.Generator(device=cuda).manual_seed(n + h)
+    if strided:
+        qkv = torch.randn(b, n, 3, h, 64, generator=gen, device=cuda
+                          ).to(torch.bfloat16)
+        q, k, v = qkv.unbind(2)
+    else:
+        q, k, v = (torch.randn(b, n, h, 64, generator=gen, device=cuda)
+                   .to(torch.bfloat16) for _ in range(3))
+    kv = None if mask is None else _frame_mask(n, mask, cuda)
+    assert fa.route(q.dtype, 64, kv is not None) == "wgmma"
+    before = (fa.launches_unmasked, fa.launches_masked,
+              fa.launches_backward_bf16)
+    o, lse = fa.flash_attention_fwd(q, k, v, kv)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = fa.flash_attention_ref(q, k, v, kv)
+    assert _o_ok(o, o_ref)
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+    if mask == "all":
+        assert not bool(o.any())
+    if kv is not None:
+        assert (fa.launches_unmasked, fa.launches_masked,
+                fa.launches_backward_bf16) == (
+            before[0], before[1] + 1, before[2])
+        return
+    do = torch.randn(b, n, h, 64, generator=gen, device=cuda
+                     ).to(torch.bfloat16)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    assert (fa.launches_unmasked, fa.launches_masked,
+            fa.launches_backward_bf16) == (before[0] + 1, before[1],
+                                           before[2] + 1)
     want = fa.flash_attention_bwd_ref(q, k, v, o, lse, do)
     for g, w in zip(got, want):
         w = w.float()

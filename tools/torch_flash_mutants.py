@@ -8,21 +8,27 @@ NVIDIA GPU and nvcc).
 Each mutant is one kernel source with one fault planted by textual
 replacement (`MUTANTS`: the source, the edits, the kind of check and the
 cases it is judged on):
-  * `csrc/flash_attention_fwd.cu` (the mma.sync forward, which serves
-    head_dim ≤ 64 and the masked head_dim-128 calls): five faults on the PV
-    side of the kernel, where a fault can leave the LSE untouched, so only
-    the O check can see it, judged on the head_dim-64 cases it serves;
-  * `csrc/flash_attention_fwd_sm90.cu` (the wgmma forward of the bf16,
-    unmasked, head_dim-128 calls): the last key tile's P·V skipped, the O
-    accumulators not rescaled on a new max (judged where there is more
-    than one key tile) and the keys beyond N_k left unmasked (TMA fills
-    them with zeros, whose scores are 0, not −∞; judged on the ragged
-    cases);
+  * `csrc/flash_attention_fwd.cu` (the mma.sync forward, which serves the
+    bf16 head dims other than 64 and 128): five faults on the PV side of
+    the kernel, where a fault can leave the LSE untouched, so only the O
+    check can see it, judged on the head_dim-40 and 96 cases it serves;
+  * `csrc/flash_attention_fwd_sm90.cu` (the wgmma forward of the bf16
+    calls at head_dim 64 and 128, masked or not): the last key tile's P·V
+    skipped, in both instantiations (judged at head_dim 128) and in the
+    D = 64 ones alone (judged at head_dim 64), the O accumulators not
+    rescaled on a new max (judged where there is more than one key tile),
+    the keys beyond N_k left unmasked (TMA fills them with zeros, whose
+    scores are 0, not −∞; judged on the ragged cases), and two faults of
+    the mask: the dead keys among each tile's first 16 left live (judged
+    on the frame and global attention, whose dead keys sit inside tiles)
+    and the bias added on the last tile only (judged on the global
+    attention);
   * `csrc/flash_attention_bwd.cu`: δ dropped and the dK/dV kernel's last
     query tile skipped, in its fp32 kernels (judged at fp32 cases) and in
-    its bf16 kernels (judged at the head_dim 64 and 96 cases they serve);
-  * `csrc/flash_attention_bwd_sm90.cu` (the wgmma backward at head_dim
-    128): the same two faults, judged at head_dim-128 cases;
+    its bf16 kernels (judged at the head_dim 48 and 96 cases they serve);
+  * `csrc/flash_attention_bwd_sm90.cu` (the wgmma backward at head_dim 64
+    and 128): the same two faults, in both instantiations (judged at
+    head_dim 128) and in the D = 64 ones alone (judged at head_dim 64);
   * `csrc/rasterize_bwd.cu`: the T_final cotangent dropped (the g_T·T_N
     term of every dα), judged on a random 448² scene at the reward's pair
     budget with a random cotangent.
@@ -62,8 +68,8 @@ BWD_SM90 = "flash_attention_bwd_sm90.cu"
 RASTER_BWD = "rasterize_bwd.cu"
 
 # forward cases (chip_smoke.Case arguments: name, B, N, H, D, pad keys,
-# frame length): the natural (bf16, unmasked, head_dim 128) ones take the
-# wgmma kernel, the rest the mma.sync kernel
+# frame length): head_dim 64 and 128 take the wgmma kernel, 40 and 96 the
+# mma.sync kernel (over 18 key tiles of 64; the last holds live keys)
 FWD_CASES = (("dit_1_3b", 2, 4096, 12, 128, 0),
              ("dit_14b", 2, 4096, 40, 128, 0),
              ("natural_ragged", 2, 1100, 2, 128, 0),
@@ -71,26 +77,33 @@ FWD_CASES = (("dit_1_3b", 2, 4096, 12, 128, 0),
              ("vit", 13, 1029, 16, 64, 0),
              ("frame", 13, 1040, 16, 64, 11),
              ("global", 1, 13520, 16, 64, 11, 1040),
-             ("ragged_d128", 2, 333, 3, 128, 7))
-MMA_FWD_CASES = ("vit", "frame", "global")
+             ("ragged_d64", 2, 1100, 2, 64, 0),
+             ("short_d64", 1, 45, 3, 64, 0),
+             ("ragged_d128", 2, 333, 3, 128, 7),
+             ("mma_d40", 2, 1100, 2, 40, 0),
+             ("mma_d96", 2, 1100, 2, 96, 7))
+MMA_FWD_CASES = ("mma_d40", "mma_d96")
+SM90_D64_FWD_CASES = ("vit", "frame", "global", "ragged_d64", "short_d64")
 # fp32 (name, shape): the training step's ViT/frame shape, a 4096-token
 # global-like one, ragged and short
 F32_CASES = (("f32_vit_frame", (13, 1029, 16, 64)),
              ("f32_4096", (1, 4096, 4, 64)),
              ("f32_ragged", (2, 1100, 2, 64)),
              ("f32_short", (1, 45, 3, 64)))
-# bf16 backward (name, shape): head_dim 64 and 96 take the mma.sync
-# kernels, 128 the wgmma kernels
+# bf16 backward (name, shape): head_dim 48 and 96 take the mma.sync
+# kernels, 64 and 128 the wgmma kernels
 BF16_CASES = (("bf16_vit_frame", (13, 1029, 16, 64)),
               ("bf16_ragged_d64", (2, 1100, 2, 64)),
               ("bf16_short", (1, 45, 3, 64)),
               ("bf16_ragged_d96", (2, 333, 3, 96)),
+              ("bf16_ragged_d48", (2, 333, 3, 48)),
+              ("bf16_d48_1100", (2, 1100, 2, 48)),
               ("bf16_4096_d128", (1, 4096, 4, 128)),
               ("bf16_ragged_d128", (2, 333, 3, 128)),
               ("bf16_short_d128", (1, 45, 3, 128)))
-MMA_BF16_CASES = ("bf16_vit_frame", "bf16_ragged_d64", "bf16_short",
-                  "bf16_ragged_d96")
+MMA_BF16_CASES = ("bf16_ragged_d96", "bf16_ragged_d48", "bf16_d48_1100")
 SM90_BF16_CASES = ("bf16_4096_d128", "bf16_ragged_d128", "bf16_short_d128")
+SM90_D64_BF16_CASES = ("bf16_vit_frame", "bf16_ragged_d64", "bf16_short")
 
 
 def _mutant(source, kind, cases, *edits):
@@ -134,8 +147,13 @@ MUTANTS = {
     "sm90_pv_skips_last_tile": _mutant(
         FWD_SM90, "fwd",
         ("dit_1_3b", "dit_14b", "natural_ragged", "natural_short"),
-        ("        wgmma_rs_n128(o, pf[kk],",
-         "        if (j + 1 < n_tiles) wgmma_rs_n128(o, pf[kk],")),
+        ("        wgmma_rs(o, pf[kk],",
+         "        if (j + 1 < n_tiles) wgmma_rs(o, pf[kk],")),
+    # the same in the D = 64 instantiations alone
+    "sm90_d64_pv_skips_last_tile": _mutant(
+        FWD_SM90, "fwd", SM90_D64_FWD_CASES,
+        ("        wgmma_rs(o, pf[kk],",
+         "        if (D != 64 || j + 1 < n_tiles) wgmma_rs(o, pf[kk],")),
     # wgmma forward: O not rescaled on a new max (live from the second tile)
     "sm90_acc_not_rescaled": _mutant(
         FWD_SM90, "fwd", ("dit_1_3b", "dit_14b", "natural_ragged"),
@@ -143,9 +161,25 @@ MUTANTS = {
          "        o[i + 2] *= alpha1;\n        o[i + 3] *= alpha1;\n", "")),
     # wgmma forward: TMA's zero-filled keys beyond N_k keep their score 0
     "sm90_keys_beyond_n_unmasked": _mutant(
-        FWD_SM90, "fwd", ("natural_ragged", "natural_short"),
-        ("if (key0 + 8 * (i / 4) + 2 * t + (i & 1) >= p.n_k) "
-         "sacc[i] = -INFINITY;", ";")),
+        FWD_SM90, "fwd",
+        ("natural_ragged", "natural_short", "ragged_d64", "short_d64"),
+        ("            if (key0 + 8 * (i / 4) + 2 * t + (i & 1) >= p.n_k)\n"
+         "              sacc[i] = -INFINITY;", "            ;")),
+    # masked wgmma forward: the bias of each tile's first 16 keys is not
+    # added, so the dead keys among them stay live (the frame's 11 dead
+    # keys, 1029-1039, are the 6th to 16th of its last tile)
+    "sm90_dead_keys_live": _mutant(
+        FWD_SM90, "fwd", ("frame", "global"),
+        ("          for (int i = 0; i < 64; i += 4) {\n"
+         "            const float2 bb =",
+         "          for (int i = 8; i < 64; i += 4) {\n"
+         "            const float2 bb =")),
+    # masked wgmma forward: the bias is added on the last tile only, as if
+    # the dead keys lay at the end of the sequence
+    "sm90_bias_last_tile_only": _mutant(
+        FWD_SM90, "fwd", ("global",),
+        ("        if (p.tile_masked[j]) {",
+         "        if (p.tile_masked[j] && j + 1 == n_tiles) {")),
     # δ = rowsum(dO∘O) read as 0 in both fp32 kernels: dS = P∘dP
     "delta_dropped": _mutant(
         BWD, "f32", tuple(n for n, _ in F32_CASES),
@@ -182,6 +216,19 @@ MUTANTS = {
          "      mbar_wait(&full[s], (it / kStages) & 1);\n"
          "      if (it + 1 == n_qtiles) { mbar_arrive(&empty[s]); continue; }\n"
          )),
+    # the same two faults in the D = 64 instantiations alone
+    "sm90_d64_delta_dropped": _mutant(
+        BWD_SM90, "bf16", SM90_D64_BF16_CASES,
+        ("dpt[i] = st[i] * (dpt[i] - dl_t[col]);",
+         "dpt[i] = st[i] * (dpt[i] - (D == 64 ? 0.f : dl_t[col]));"),
+        ("dp[i] = pr * (dp[i] - (hi ? dl1 : dl0));",
+         "dp[i] = pr * (dp[i] - (D == 64 ? 0.f : (hi ? dl1 : dl0)));")),
+    "sm90_d64_dkv_skips_last_query_tile": _mutant(
+        BWD_SM90, "bf16", SM90_D64_BF16_CASES,
+        ("      mbar_wait(&full[s], (it / kStages) & 1);\n",
+         "      mbar_wait(&full[s], (it / kStages) & 1);\n"
+         "      if (D == 64 && it + 1 == n_qtiles) {\n"
+         "        mbar_arrive(&empty[s]);\n        continue;\n      }\n")),
     # composite backward: dα without the T_final cotangent
     "composite_bwd_tn_cotangent_dropped": _mutant(
         RASTER_BWD, "raster", ("random_448",),

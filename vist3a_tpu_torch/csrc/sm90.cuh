@@ -7,16 +7,18 @@
 //
 // Shared-memory tiles are what a TMA load with CU_TENSOR_MAP_SWIZZLE_128B
 // writes: rows of 64 bf16 (128 bytes), 8-row groups of 1024 bytes, the 16-
-// byte chunks of row r XOR-permuted by r % 8; a D = 128 row is two such
-// 64-column halves, stored one after the other ([half][row][64]).  A tile's
-// base is 1024-byte aligned.  The descriptors below read such tiles:
+// byte chunks of row r XOR-permuted by r % 8; a D = 64 row is one such
+// 64-column half, a D = 128 row two, stored one after the other
+// ([half][row][64]).  A tile's base is 1024-byte aligned.  The descriptors
+// below read such tiles:
 //   * K-major (the product's depth runs along the 64 contiguous columns):
 //     SBO = 1024 bytes between 8-row groups, LBO unused; the k-th 16-deep
 //     slice of a half starts 32·k bytes in;
 //   * MN-major (the depth runs along the rows; wgmma transposes the tile,
 //     trans-b 1): SBO = 1024 bytes between groups of 8 depth rows, LBO =
-//     the distance between the two 64-column halves; the k-th 16-deep slice
-//     starts 16 rows = 2048 bytes in.
+//     the distance between the two 64-column halves (unused at N = 64,
+//     which one half spans); the k-th 16-deep slice starts 16 rows = 2048
+//     bytes in.
 
 #pragma once
 
@@ -245,6 +247,44 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
         "r"(scale_d));
 }
 
+// D[64 x 64] (+)= A[64 x 16] * B[16 x 64]: A from registers, B from shared
+// memory MN-major (trans-b 1), as wgmma_rs_n128; bf16 in, fp32 out.
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
+// The register-A product whose N is the accumulator's width: the head dim
+// (64 or 128) of an O, dQ, dK or dV accumulator of D / 2 floats a thread.
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t desc_b, int scale_d) {
+  wgmma_rs_n64(d, a, desc_b, scale_d);
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
+                                         uint64_t desc_b, int scale_d) {
+  wgmma_rs_n128(d, a, desc_b, scale_d);
+}
+
 }  // namespace sm90
 
 // ---- host: tensor maps -------------------------------------------------------
@@ -285,16 +325,18 @@ inline int encode_fn(EncodeTiledFn* out) {
   return 0;
 }
 
-// A 4-D map (d, n, h, b) over a (B, N, H, D = 128) bf16 tensor with element
-// strides (sb, sn, sh, 1), read in boxes of 64 columns × `box_rows` rows with
-// the 128-byte swizzle; rows beyond N read as zeros.  0 on success.
+// A 4-D map (d, n, h, b) over a (B, N, H, D) bf16 tensor (D = 64 or 128)
+// with element strides (sb, sn, sh, 1), read in boxes of 64 columns ×
+// `box_rows` rows with the 128-byte swizzle; rows beyond N read as zeros.
+// 0 on success.
 inline int encode_bnhd(CUtensorMap* map, const void* ptr, int batch, int n,
-                       int heads, long long sb, long long sn, long long sh,
-                       int box_rows) {
+                       int heads, int head_dim, long long sb, long long sn,
+                       long long sh, int box_rows) {
   EncodeTiledFn fn;
   const int err = encode_fn(&fn);
   if (err) return err;
-  const cuuint64_t dims[4] = {128, static_cast<cuuint64_t>(n),
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(head_dim),
+                              static_cast<cuuint64_t>(n),
                               static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(batch)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sn) * 2,

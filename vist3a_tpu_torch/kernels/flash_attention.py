@@ -5,19 +5,19 @@ Counterpart of `vist3a_tpu/kernels/flash_attention.py`'s forward entries
 fallback), `flash_attention_masked`, and `flash_attention` in the natural
 layout (`_fwd_kernel`, which the JAX package runs for an unmasked call with
 head_dim 128: the Wan DiT's self-attention), and of both layouts' VJPs
-(`_dq_kernel_t` / `_dkv_kernel_t` and `_dq_kernel` / `_dkv_kernel`).  One
-CUDA source,
-`csrc/flash_attention_fwd.cu`, and one entry serve the three forwards: the
-key-validity pointer is null for an unmasked call, head_dim 128 selects its
-DP = 128 instantiation, and fp32 inputs its fp32 instantiation (head_dim
-≤ 64, the distillation step's).  `csrc/flash_attention_bwd.cu` is the
-backward: fp32 at head_dim ≤ 64, and bf16 at head_dim ≤ 64 (the transposed
-entry's, the VDM step's stitched decoder) and ≤ 128 (the natural entry's,
-the Wan DiT's self-attention).  A bf16, unmasked call at head_dim 128 — the
-natural entry, the Wan DiT's self-attention — goes instead to the Hopper
-wgmma + TMA kernels of `csrc/flash_attention_fwd_sm90.cu` and
-`csrc/flash_attention_bwd_sm90.cu` (`route` names the kernel a call
-takes).  See those files for the designs and their bounds.
+(`_dq_kernel_t` / `_dkv_kernel_t` and `_dq_kernel` / `_dkv_kernel`).
+
+`route` names the kernel a call takes.  Every bf16 call at head_dim 64 or
+128, masked or not, goes to the Hopper wgmma + TMA kernels of
+`csrc/flash_attention_fwd_sm90.cu` and `csrc/flash_attention_bwd_sm90.cu`
+(the stitched decoder's attention at 64, the Wan DiT's at 128); a masked
+call hands them the key validity as a padded 0/−∞ bias row and a flag a
+key tile (`key_bias`).
+The mma.sync kernels of `csrc/flash_attention_fwd.cu` (one entry; the
+key-validity pointer is null for an unmasked call) and
+`csrc/flash_attention_bwd.cu` keep the other bf16 head dims (multiples of 8
+up to 128), and their FFMA instantiations fp32 at head_dim ≤ 64 (the
+distillation step's).  See those files for the designs and their bounds.
 
 `FlashAttention` is the autograd function the attention dispatch calls on
 the card: its forward saves q, k, v, O and the LSE, its backward calls
@@ -44,7 +44,7 @@ Each forward launch adds one to a counter by the TPU entry it stands for:
 `launches_masked` (key_valid given), `launches_natural` (unmasked, head_dim
 128) or `launches_unmasked` (bf16 or fp32); each backward launch (its two
 kernels) adds one to `launches_backward` (fp32), `launches_backward_bf16`
-(bf16, head_dim ≤ 64: the transposed entry's VJP) or
+(bf16, head_dim < 128: the transposed entry's VJP) or
 `launches_backward_natural` (bf16, head_dim 128: the natural entry's).
 """
 
@@ -64,6 +64,8 @@ SM90_BWD_SOURCE = "flash_attention_bwd_sm90.cu"
 MAX_HEAD_DIM = 128
 MAX_HEAD_DIM_F32 = 64          # the fp32 forward's and backward's
 NATURAL_HEAD_DIM = 128
+WGMMA_HEAD_DIMS = (64, 128)    # the bf16 head dims of the wgmma kernels
+KEY_TILE = 128                 # the wgmma forward's keys per tile
 _NEG_BIG = -1e30
 _LOG2E = 1.4426950408889634
 
@@ -148,15 +150,31 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
 def route(dtype: torch.dtype, head_dim: int, masked: bool) -> str:
     """The kernel a call on the card takes, forward and backward: "wgmma"
     (the Hopper wgmma + TMA kernels, `SM90_SOURCE` and `SM90_BWD_SOURCE`)
-    for bf16, unmasked, head_dim 128; "fp32" (the FFMA kernels of `SOURCE`
-    and `BWD_SOURCE`) for fp32; "mma_sync" (their bf16 mma.sync kernels)
-    for every other bf16 call."""
+    for bf16 at head_dim 64 or 128, masked or not; "fp32" (the FFMA kernels
+    of `SOURCE` and `BWD_SOURCE`) for fp32; "mma_sync" (their bf16 mma.sync
+    kernels) for every other bf16 head dim.  `masked` chooses no route: the
+    wgmma and mma.sync forwards take a mask, and no backward does."""
     if dtype == torch.float32:
         return "fp32"
-    if dtype == torch.bfloat16 and head_dim == NATURAL_HEAD_DIM \
-            and not masked:
+    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
         return "wgmma"
     return "mma_sync"
+
+
+def key_bias(key_valid: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The key validity as the wgmma forward reads it → (bias, tile_masked):
+    an fp32 row of 0 for a live key and −∞ for a dead one, padded with −∞
+    to whole `KEY_TILE` tiles, so that the scores plus the bias give every
+    dead key, and every key beyond N_k, a P of exactly 0; and a uint8 a
+    tile, 1 where the tile holds a −∞ (the kernel adds the bias there
+    only)."""
+    n_k = key_valid.shape[0]
+    n_pad = -(-n_k // KEY_TILE) * KEY_TILE
+    bias = torch.full((n_pad,), -math.inf, dtype=torch.float32,
+                      device=key_valid.device)
+    bias[:n_k].masked_fill_(key_valid, 0.0)
+    tile_masked = (bias.view(-1, KEY_TILE) != 0).any(1).to(torch.uint8)
+    return bias, tile_masked
 
 
 _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
@@ -170,9 +188,12 @@ ARGTYPES = {
     (BWD_SOURCE, "flash_attention_bwd_bf16"):
         (_P,) * 9 + (_I,) * 5 + (_L,) * 21 + (_F, _P),
     (SM90_SOURCE, "flash_attention_fwd_sm90"):
-        (_P,) * 5 + (_I,) * 5 + (_L,) * 12 + (_F, _P),
+        (_P,) * 7 + (_I,) * 5 + (_L,) * 12 + (_F, _P),
     (SM90_BWD_SOURCE, "flash_attention_bwd_sm90"):
         (_P,) * 9 + (_I,) * 6 + (_L,) * 21 + (_F, _P),
+    # the wgmma kernels' dynamic shared memory a block, for the build log
+    (SM90_SOURCE, "flash_attention_fwd_sm90_smem"): (_I,),
+    (SM90_BWD_SOURCE, "flash_attention_bwd_sm90_smem"): (_I, _I),
 }
 
 
@@ -269,8 +290,12 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         if path == "wgmma":
+            bias, tiles = (None, None) if key_valid is None \
+                else key_bias(key_valid)
             err = _sm90_lib().flash_attention_fwd_sm90(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                None if bias is None else bias.data_ptr(),
+                None if tiles is None else tiles.data_ptr(), o.data_ptr(),
                 lse.data_ptr(), b, n_q, k.shape[1], h, d, *q.stride()[:3],
                 *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
                 float(scale), stream)
