@@ -11,10 +11,13 @@ Phases, each of which passes or raises (any failure exits non-zero):
   2. build   — builds `vist3a_tpu_torch/csrc/flash_attention_fwd.cu`,
                `csrc/flash_attention_bwd.cu`, the wgmma + TMA kernels
                `csrc/flash_attention_fwd_sm90.cu` and
-               `csrc/flash_attention_bwd_sm90.cu`, `csrc/rasterize_fwd.cu`
-               and `csrc/rasterize_bwd.cu` for sm_90a, one nvcc each, at
-               once, and prints ptxas's registers / shared memory / spills
-               and the wgmma kernels' dynamic shared memory a block.
+               `csrc/flash_attention_bwd_sm90.cu`, their fp32 3×TF32
+               counterparts `csrc/flash_attention_fwd_f32_sm90.cu` and
+               `csrc/flash_attention_bwd_f32_sm90.cu`,
+               `csrc/rasterize_fwd.cu` and `csrc/rasterize_bwd.cu` for
+               sm_90a, one nvcc each, at once, and prints ptxas's
+               registers / shared memory / spills and the wgmma kernels'
+               dynamic shared memory a block.
   3. kernels — holds the flash-attention kernels against their plain
                PyTorch version at the three shapes of the decode (ViT
                blocks, frame attention, global attention), at the VDM
@@ -30,14 +33,15 @@ Phases, each of which passes or raises (any failure exits non-zero):
                (`O_ATOL_STD`, `O_RTOL`), and times it beside the plain
                version and `F.scaled_dot_product_attention` (a yardstick
                the port never calls).  Then the fp32 forward and the
-               backward (kernel 4) on fp32 inputs at the training step's
-               shapes — (13, 1029,
+               backward (kernel 4, both on 3×TF32 tensor cores) on fp32
+               inputs at the training step's shapes — (13, 1029,
                16, 64), (1, 13377, 16, 64), (1, 21609, 16, 64) — a ragged
                (2, 1100, 2, 64) and a short (1, 45, 3, 64): O, LSE and the
                three gradients against the plain versions (`F32_*`
                limits), the backward bit for bit repeatable; timed beside
-               the plain versions, SDPA's memory-efficient fp32 backward
-               and the bounds.  Then the bf16 backward (kernels 4b and 5)
+               the plain versions, SDPA's memory-efficient fp32 forward and
+               backward (and the names of the kernels it ran) and the
+               bounds at the 3×TF32 and the FFMA peaks.  Then the bf16 backward (kernels 4b and 5)
                at the VDM step's shapes — (13, 1029, 16, 64),
                (1, 13377, 16, 64), (1, 4096, 12, 128), (6, 4096, 12, 128),
                the wgmma kernels — a ragged (2, 1100, 2, 64) and (2, 333,
@@ -105,7 +109,9 @@ Phases, each of which passes or raises (any failure exits non-zero):
                losses and grad_norm > 0, the B factors moved after the
                step with lr > 0, the teacher's weights unchanged and the
                student's frozen tensors its own, and per step 184 unmasked
-               flash launches (fp32) and 56 backward; prints ms per step,
+               flash launches (fp32, on the 3×TF32 kernels: 112 at the
+               ViT/frame shape, 72 global) and 56 backward (32 and 24);
+               prints ms per step,
                peak memory, a profile of one more step at S = 13, and
                compares a narrow step on the card with the host CPU.
                Cut: B = 1 and two steps; random weights, no data loader.
@@ -156,12 +162,17 @@ PHASES = ("device", "build", "kernels", "raster", "slice", "profile",
           "reference", "decode", "denoise", "train", "vdm")
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 (data sheet)
 PEAK_FP32_FLOPS = 67e12       # H100 SXM fp32 outside the tensor cores
+# fp32-accurate products on the TF32 tensor cores (495 TFLOP/s dense), each
+# three TF32 products (3×TF32: big·big + big·small + small·big)
+PEAK_3XTF32_FLOPS = 495e12 / 3
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
-KERNEL_SOURCE = "vist3a_tpu_torch/csrc/flash_attention_fwd.cu"
 # the wgmma + TMA kernels of the bf16 calls at head_dim 64 and 128, masked
 # or not (rows 1 bf16, 2 and 3, kernels 4b and 5)
 SM90_SOURCE = "vist3a_tpu_torch/csrc/flash_attention_fwd_sm90.cu"
 SM90_BWD_SOURCE = "vist3a_tpu_torch/csrc/flash_attention_bwd_sm90.cu"
+# the 3×TF32 wgmma + TMA kernels of every fp32 call (row 1 fp32, kernel 4)
+F32_SOURCE = "vist3a_tpu_torch/csrc/flash_attention_fwd_f32_sm90.cu"
+F32_BWD_SOURCE = "vist3a_tpu_torch/csrc/flash_attention_bwd_f32_sm90.cu"
 RASTER_SOURCE = "vist3a_tpu_torch/csrc/rasterize_fwd.cu"
 # Flash kernel vs its plain version, elementwise:
 #   |ΔO| ≤ O_ATOL_STD · std(O_ref) + O_RTOL · |O_ref|.
@@ -180,10 +191,13 @@ O_ATOL_STD = 0.1
 O_RTOL = 2 ** -6
 LSE_ATOL = 1e-3   # fp32 statistics; only the summation order differs
 # The fp32 forward and the backward (kernel 4) against their plain versions
-# on fp32 inputs: both sides compute in fp32, in another order, summing over
-# up to 21,609 keys (the backward's gradients sum twice as many products: a
-# dS term, then a tile loop), so O within 2e-5 of its largest magnitude,
-# each gradient within 1e-4 of its, LSE within 1e-5 (values ~10).
+# on fp32 inputs: both sides compute to about fp32's accuracy (the kernels
+# as 3×TF32 products, 2⁻²¹ of each product), in another order, summing
+# over up to 21,609 keys (the backward's gradients sum twice as many
+# products: a dS term, then a tile loop), so O within 2e-5 of its largest
+# magnitude, each gradient within 1e-4 of its, LSE within 1e-5 (values
+# ~10).  One TF32 product (no corrections) misses all of them by 10× or
+# more (`tests/test_torch_tf32_split.py`).
 F32_O_RTOL = 2e-5
 F32_GRAD_RTOL = 1e-4
 F32_LSE_ATOL = 1e-5
@@ -196,7 +210,6 @@ F32_CASES = (("f32_vit_frame", (13, 1029, 16, 64)),
              ("f32_ragged", (2, 1100, 2, 64)),
              ("f32_short", (1, 45, 3, 64)))
 F32_TIMED = ("f32_vit_frame", "f32_global_s13", "f32_global_s21")
-BWD_SOURCE = "vist3a_tpu_torch/csrc/flash_attention_bwd.cu"
 # The bf16 backward (kernels 4b and 5) against the plain version, which
 # computes in fp32 from the same bf16 inputs, elementwise for each gradient:
 #   |Δ| ≤ GRAD_ATOL_STD · std(ref) + GRAD_RTOL · |ref|.
@@ -397,13 +410,15 @@ def phase_build() -> None:
     from vist3a_tpu_torch.kernels import rasterizer as tr
 
     sources = (fa.SOURCE, fa.BWD_SOURCE, fa.SM90_SOURCE, fa.SM90_BWD_SOURCE,
-               tr.SOURCE, tr.BWD_SOURCE)
+               fa.F32_SOURCE, fa.F32_BWD_SOURCE, tr.SOURCE, tr.BWD_SOURCE)
     t0 = time.perf_counter()
     build.build_all(list(sources))
     fa._lib()
     fa._bwd_lib()
     fa._sm90_lib()
     fa._sm90_bwd_lib()
+    fa._f32_lib()
+    fa._f32_bwd_lib()
     tr._lib()
     tr._bwd_lib()
     log(f"build: {', '.join(sources)} built and loaded in "
@@ -414,11 +429,17 @@ def phase_build() -> None:
             if any(t in line.lower() for t in ("ptxas", "spill", "error")):
                 log(f"  {source}: {line.strip()}")
     fwd, bwd = fa._sm90_lib(), fa._sm90_bwd_lib()
-    log("  wgmma kernels' dynamic shared memory a block (bytes): " + json.dumps(
-        {f"D={d}": {"fwd": fwd.flash_attention_fwd_sm90_smem(d),
-                    "bwd_dkv": bwd.flash_attention_bwd_sm90_smem(d, 0),
-                    "bwd_dq": bwd.flash_attention_bwd_sm90_smem(d, 1)}
-         for d in (64, 128)}))
+    fwd32, bwd32 = fa._f32_lib(), fa._f32_bwd_lib()
+    smem = {f"D={d}": {"fwd": fwd.flash_attention_fwd_sm90_smem(d),
+                       "bwd_dkv": bwd.flash_attention_bwd_sm90_smem(d, 0),
+                       "bwd_dq": bwd.flash_attention_bwd_sm90_smem(d, 1)}
+            for d in (64, 128)}
+    smem["fp32 D=64"] = {
+        "fwd": fwd32.flash_attention_fwd_f32_sm90_smem(64),
+        "bwd_dkv": bwd32.flash_attention_bwd_f32_sm90_smem(64, 0),
+        "bwd_dq": bwd32.flash_attention_bwd_f32_sm90_smem(64, 1)}
+    log("  wgmma kernels' dynamic shared memory a block (bytes): "
+        + json.dumps(smem))
 
 
 @dataclasses.dataclass
@@ -831,8 +852,10 @@ def check_f32_case(fa, name: str, shape: tuple, gen, *, timed: bool) -> dict:
         warmup=1)
     library_fwd_ms, library_ms, backend = library_fwd_bwd_ms(q, k, v, do)
 
-    def bound(flops, n_bytes):
-        ops_ms = flops / PEAK_FP32_FLOPS * 1e3
+    # the bound of the instructions the kernels run (three TF32 products
+    # for each fp32-accurate one), and, beside it, the CUDA cores' FFMA one
+    def bound(flops, n_bytes, peak=PEAK_3XTF32_FLOPS):
+        ops_ms = flops / peak * 1e3
         bytes_ms = n_bytes / PEAK_BYTES * 1e3
         return (max(ops_ms, bytes_ms),
                 "operations" if ops_ms >= bytes_ms else "bytes")
@@ -841,10 +864,16 @@ def check_f32_case(fa, name: str, shape: tuple, gen, *, timed: bool) -> dict:
     res.update(fwd_flops=fwd_flops, bwd_flops=bwd_flops, fwd_ms=fwd_ms,
                bwd_ms=bwd_ms, fwd_bound_ms=fwd_bound, fwd_bound_by=fwd_by,
                bwd_bound_ms=bwd_bound, bwd_bound_by=bwd_by,
+               fwd_bound_ffma_ms=bound(fwd_flops, fwd_bytes,
+                                       PEAK_FP32_FLOPS)[0],
+               bwd_bound_ffma_ms=bound(bwd_flops, bwd_bytes,
+                                       PEAK_FP32_FLOPS)[0],
                plain_fwd_bwd_ms=plain_ms, library_fwd_ms=library_fwd_ms,
                library_bwd_ms=library_ms, library_backend=backend,
                fwd_tflops=fwd_flops / fwd_ms / 1e9,
-               bwd_tflops=bwd_flops / bwd_ms / 1e9)
+               bwd_tflops=bwd_flops / bwd_ms / 1e9,
+               fwd_vs_library=fwd_ms / library_fwd_ms,
+               bwd_vs_library=bwd_ms / library_ms)
     log(f"kernels: fp32 {json.dumps(res)}")
     return res
 
@@ -949,6 +978,13 @@ def phase_slice(model, profile: bool) -> dict:
 def _kernel_group(name: str) -> str:
     low = name.lower()
     d64 = any(t in low for t in ("kernel<64", "kernelili64"))
+    if "flash_fwd_f32_sm90_kernel" in low:
+        return "flash attention forward, fp32 3×TF32 wgmma (this repo)"
+    if "flash_bwd_dkv_f32_sm90_kernel" in low \
+            or "flash_bwd_dq_f32_sm90_kernel" in low:
+        return "flash attention backward, fp32 3×TF32 wgmma (this repo)"
+    if "tf32_split_planes" in low:
+        return "flash attention fp32 split planes (this repo)"
     if "flash_fwd_sm90_kernel" in low:
         return ("flash attention, bf16 D = 64, wgmma (this repo)" if d64
                 else "flash attention, natural D = 128, wgmma (this repo)")
@@ -963,10 +999,6 @@ def _kernel_group(name: str) -> str:
         return "flash attention backward, bf16 D = 128 (this repo)"
     if "bf16_kernel" in low and "flash_bwd_" in low:
         return "flash attention backward, bf16 D = 64 (this repo)"
-    if "flash_bwd_" in low:
-        return "flash attention backward, fp32 (this repo)"
-    if "flash_fwd_f32_kernel" in low:
-        return "flash attention forward, fp32 (this repo)"
     if "flash_fwd_kernel" in low:
         return "flash attention (this repo)"
     if any(t in low for t in ("conv", "cudnn", "implicit_convolve", "wgrad",
@@ -2498,9 +2530,10 @@ def _kernel_entries(timed: dict, raster: list | None,
     if f32:
         r = f32[1] if len(f32) > 1 else f32[0]
         for kname, source, line, counter, pre in (
-                ("flash_attention_fwd_f32", KERNEL_SOURCE, 187, "unmasked",
+                ("flash_attention_fwd_f32", F32_SOURCE, 187, "unmasked",
                  "fwd"),
-                ("flash_attention_bwd", BWD_SOURCE, 397, "backward", "bwd")):
+                ("flash_attention_bwd", F32_BWD_SOURCE, 397, "backward",
+                 "bwd")):
             main, by_path = count(counter, ("train",))
             entries.append({
                 "name": kname, "route": "cuda", "source": source,
@@ -2518,8 +2551,10 @@ def _kernel_entries(timed: dict, raster: list | None,
                 "library_ms": r[f"library_{pre}_ms"],
                 "library_backend": r["library_backend"],
                 "shape": r["shape"],
+                "bound_ffma_ms": r[f"{pre}_bound_ffma_ms"],
                 "shapes": [{k: x[k] for k in (
                     "case", "shape", f"{pre}_ms", f"{pre}_bound_ms",
+                    f"{pre}_bound_ffma_ms", f"{pre}_vs_library",
                     "plain_fwd_bwd_ms", f"library_{pre}_ms", "rel_err_o",
                     "rel_err_dq", "rel_err_dk", "rel_err_dv")}
                     for x in f32]})

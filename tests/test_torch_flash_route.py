@@ -3,15 +3,17 @@ kernels, on the CPU (no card, no nvcc).
 
   * `route` sends bf16 calls at head_dim 64 and 128, masked or not (the
     stitched decoder's and the Wan DiT's attention), to the wgmma + TMA
-    kernels, fp32 to the FFMA kernels, and the other bf16 head dims to the
-    mma.sync kernels;
+    kernels, fp32 to the 3×TF32 wgmma + TMA kernels, and the other bf16
+    head dims to the mma.sync kernels;
   * `key_bias`, the key validity as the wgmma forward reads it, gives the
     plain version's masked result when added to the scores;
   * each C entry's signature, parsed from its `.cu` source, is the
     wrapper's ctypes `argtypes`, kind by kind and in order (a pointer bound
     as an int would be cut to 32 bits without a word);
   * `build.digest` follows `#include "..."` into the `csrc/` headers, so an
-    edited header never loads a stale library.
+    edited header never loads a stale library;
+  * every planted fault of `tools/torch_flash_mutants.py` still finds the
+    text it replaces, once, in its source.
 """
 
 import ctypes
@@ -73,8 +75,43 @@ def test_c_entry_signature_matches_argtypes(source, entry):
 def test_new_sources_are_the_routes_sources():
     assert fa.SM90_SOURCE == "flash_attention_fwd_sm90.cu"
     assert fa.SM90_BWD_SOURCE == "flash_attention_bwd_sm90.cu"
-    for source in (fa.SM90_SOURCE, fa.SM90_BWD_SOURCE):
+    assert fa.F32_SOURCE == "flash_attention_fwd_f32_sm90.cu"
+    assert fa.F32_BWD_SOURCE == "flash_attention_bwd_f32_sm90.cu"
+    for source in (fa.SM90_SOURCE, fa.SM90_BWD_SOURCE, fa.F32_SOURCE,
+                   fa.F32_BWD_SOURCE):
         assert '#include "sm90.cuh"' in (build.CSRC_DIR / source).read_text()
+
+
+def test_ffma_fp32_kernels_are_gone():
+    """The fp32 calls have one route: no FFMA kernel or C entry is left
+    to fall back to."""
+    for source in (fa.SOURCE, fa.BWD_SOURCE):
+        text = (build.CSRC_DIR / source).read_text()
+        for name in ("flash_fwd_f32_kernel", "launch_f32",
+                     "flash_bwd_dkv_kernel(", "flash_bwd_dq_kernel(",
+                     "flash_attention_bwd_f32("):
+            assert name not in text, (source, name)
+    assert not any(entry.endswith("_f32") for _, entry in fa.ARGTYPES)
+
+
+def _mutants():
+    import importlib.util
+
+    path = build.PACKAGE_DIR.parent / "tools" / "torch_flash_mutants.py"
+    spec = importlib.util.spec_from_file_location("torch_flash_mutants", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+_MUTANTS = _mutants()
+
+
+@pytest.mark.parametrize("name", sorted(_MUTANTS.MUTANTS))
+def test_mutant_edit_applies_once(name):
+    m = _MUTANTS.MUTANTS[name]
+    text = (build.CSRC_DIR / m["source"]).read_text()
+    assert _MUTANTS._mutate(text, name, m["edits"]) != text
 
 
 def test_digest_follows_included_headers(tmp_path):

@@ -24,8 +24,14 @@ cases it is judged on):
     and the bias added on the last tile only (judged on the global
     attention);
   * `csrc/flash_attention_bwd.cu`: δ dropped and the dK/dV kernel's last
-    query tile skipped, in its fp32 kernels (judged at fp32 cases) and in
-    its bf16 kernels (judged at the head_dim 48 and 96 cases they serve);
+    query tile skipped, in its bf16 kernels (judged at the head_dim 48 and
+    96 cases they serve);
+  * `csrc/flash_attention_fwd_f32_sm90.cu` and
+    `csrc/flash_attention_bwd_f32_sm90.cu` (the 3×TF32 kernels of every
+    fp32 call), each judged on the fp32 cases: the forward's last key tile
+    of P·V skipped; δ dropped and the dK/dV kernel's last query tile
+    skipped in the backward; and, in either, the two correction products
+    dropped (one TF32 product, ~3 digits) and one of them dropped;
   * `csrc/flash_attention_bwd_sm90.cu` (the wgmma backward at head_dim 64
     and 128): the same two faults, in both instantiations (judged at
     head_dim 128) and in the D = 64 ones alone (judged at head_dim 64);
@@ -65,6 +71,8 @@ FWD = "flash_attention_fwd.cu"
 FWD_SM90 = "flash_attention_fwd_sm90.cu"
 BWD = "flash_attention_bwd.cu"
 BWD_SM90 = "flash_attention_bwd_sm90.cu"
+FWD_F32 = "flash_attention_fwd_f32_sm90.cu"
+BWD_F32 = "flash_attention_bwd_f32_sm90.cu"
 RASTER_BWD = "rasterize_bwd.cu"
 
 # forward cases (chip_smoke.Case arguments: name, B, N, H, D, pad keys,
@@ -90,6 +98,7 @@ F32_CASES = (("f32_vit_frame", (13, 1029, 16, 64)),
              ("f32_4096", (1, 4096, 4, 64)),
              ("f32_ragged", (2, 1100, 2, 64)),
              ("f32_short", (1, 45, 3, 64)))
+F32_NAMES = tuple(n for n, _ in F32_CASES)
 # bf16 backward (name, shape): head_dim 48 and 96 take the mma.sync
 # kernels, 64 and 128 the wgmma kernels
 BF16_CASES = (("bf16_vit_frame", (13, 1029, 16, 64)),
@@ -180,18 +189,38 @@ MUTANTS = {
         FWD_SM90, "fwd", ("global",),
         ("        if (p.tile_masked[j]) {",
          "        if (p.tile_masked[j] && j + 1 == n_tiles) {")),
+    # the fp32 forward drops the last key tile's P·V (and its rescale);
+    # its keys stay in the sum l
+    "f32_pv_skips_last_tile": _mutant(
+        FWD_F32, "f32", F32_NAMES,
+        ("      add_tile(o, pv, alpha0, alpha1);",
+         "      if (j + 1 < n_tiles) add_tile(o, pv, alpha0, alpha1);")),
     # δ = rowsum(dO∘O) read as 0 in both fp32 kernels: dS = P∘dP
     "delta_dropped": _mutant(
-        BWD, "f32", tuple(n for n, _ in F32_CASES),
-        ("delta_s[tid] = live ? delta_b[q0 + tid] : 0.f;",
-         "delta_s[tid] = 0.f;"),
-        ("delta[r] = row < p.n_q ? p.delta[bh * p.n_q + row] : 0.f;",
-         "delta[r] = 0.f;")),
-    # the fp32 dK/dV kernel never visits its last query tile
+        BWD_F32, "f32", F32_NAMES,
+        ("dpt[i] = st[i] * (dpt[i] - dl_t[col]);", "dpt[i] = st[i] * dpt[i];"),
+        ("dp[i] = pr * (dp[i] - (hi ? dl1 : dl0));", "dp[i] = pr * dp[i];")),
+    # the fp32 dK/dV kernel releases its last query tile unused
     "dkv_skips_last_query_tile": _mutant(
-        BWD, "f32", tuple(n for n, _ in F32_CASES),
-        ("const int n_tiles = (p.n_q + kTile - 1) / kTile;",
-         "const int n_tiles = (p.n_q + kTile - 1) / kTile - 1;")),
+        BWD_F32, "f32", F32_NAMES,
+        ("      mbar_wait(&full[s], (it / kStages) & 1);\n",
+         "      mbar_wait(&full[s], (it / kStages) & 1);\n"
+         "      if (it + 1 == n_qtiles) { mbar_arrive(&empty[s]); continue; }\n"
+         )),
+    # single-pass TF32 (both correction products dropped), and one of them
+    # (a_small·b_big) dropped, in each fp32 kernel
+    "f32_fwd_single_tf32": _mutant(
+        FWD_F32, "f32", F32_NAMES,
+        ("constexpr int kCorrections = 2;", "constexpr int kCorrections = 0;")),
+    "f32_fwd_one_correction": _mutant(
+        FWD_F32, "f32", F32_NAMES,
+        ("constexpr int kCorrections = 2;", "constexpr int kCorrections = 1;")),
+    "f32_bwd_single_tf32": _mutant(
+        BWD_F32, "f32", F32_NAMES,
+        ("constexpr int kCorrections = 2;", "constexpr int kCorrections = 0;")),
+    "f32_bwd_one_correction": _mutant(
+        BWD_F32, "f32", F32_NAMES,
+        ("constexpr int kCorrections = 2;", "constexpr int kCorrections = 1;")),
     # the same two faults in the bf16 mma.sync kernels
     "bf16_delta_dropped": _mutant(
         BWD, "bf16", MMA_BF16_CASES,
@@ -374,6 +403,7 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(prefix="flash_mutants_") as tmp:
         t0 = time.perf_counter()
         for load in (fa._lib, fa._bwd_lib, fa._sm90_lib, fa._sm90_bwd_lib,
+                     fa._f32_lib, fa._f32_bwd_lib,
                      tr._bwd_lib):                  # the unchanged kernels
             load()
         built = build_mutants(build, Path(tmp))

@@ -1,7 +1,8 @@
 // Flash-attention forward for Hopper (sm_90a): non-causal softmax(scale·QKᵀ)·V
-// over (B, N, H, D) bf16 tensors, with an optional per-key validity vector,
-// and its fp32 instantiation (below `launch`), which the JAX training step
-// reaches with fp32 q, k and v (`_fwd_kernel_t` in fp32).
+// over (B, N, H, D) bf16 tensors, with an optional per-key validity vector.
+// It serves the bf16 head dims that the wgmma kernel
+// (flash_attention_fwd_sm90.cu) does not take; fp32 calls go to
+// flash_attention_fwd_f32_sm90.cu.
 //
 // Replaces three Pallas entries of vist3a_tpu/kernels/flash_attention.py:
 //   * flash_attention(layout="transposed") → _flash_fwd_t → _fwd_kernel_t and
@@ -44,12 +45,6 @@
 // tensor-core work (no cp.async, TMA, wgmma or warp specialisation): that is
 // where the gap to the bound lies, and it is work for a later change.
 //
-// The fp32 instantiation is bound by operations at the fp32 rate outside the
-// tensor cores (67 TFLOP/s): the training step's global attention
-// (1, 13377, 16, 64) is 7.33e11 FLOP, 10.9 ms, against 220 MB of Q, K, V,
-// O and LSE, 66 µs.  Its design (FFMA from shared-memory tiles) is described
-// beside the kernel.
-//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libflash_attention_fwd.so flash_attention_fwd.cu
 
@@ -67,13 +62,12 @@ constexpr float kNegBig = -1e30f;  // finite "minus infinity" of the running max
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <typename T>
-struct ParamsT {
-  const T* q;
-  const T* k;
-  const T* v;
+struct Params {
+  const __nv_bfloat16* q;
+  const __nv_bfloat16* k;
+  const __nv_bfloat16* v;
   const uint8_t* key_valid;  // (n_k,) 0/1, or nullptr for all keys live
-  T* o;
+  __nv_bfloat16* o;
   float* lse;                // (B, H, n_q) contiguous
   int n_q, n_k, heads, d;
   long long q_sb, q_sn, q_sh;
@@ -82,7 +76,6 @@ struct ParamsT {
   long long o_sb, o_sn, o_sh;
   float scale_log2;          // softmax scale · log2(e)
 };
-using Params = ParamsT<__nv_bfloat16>;
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -287,222 +280,18 @@ void launch(const Params& p, int batch, cudaStream_t stream) {
   flash_fwd_kernel<DP><<<grid, kThreads, 0, stream>>>(p);
 }
 
-// ---------------------------------------------------------------------------
-// The fp32 instantiation.  The same online softmax in base 2, with fp32
-// loads and every product an exact fp32 FFMA (P is not rounded).  A 64-row
-// query tile per block of 4 warps, 64-key tiles of K and V in shared memory,
-// as above; thread (ty, tx) = (tid / 16, tid % 16) holds the scores of rows
-// ty + 8r (r < 8) against keys tx + 16c (c < 4) of a tile, and columns
-// 4tx .. 4tx+3 of those rows of O.  A row's 64 scores lie in the 16 lanes of
-// one half-warp, so its max is four shuffles; P goes through shared memory
-// (P[key][8ty + r]) to the P·V product, read back only by the warp that
-// wrote it.  Rows are padded by 4 floats: the float4 reads of 16 rows then
-// cover all 32 banks twice, the least for 256 bytes.  Head dims up to 64,
-// in multiples of 4 (zero-filled to 64).
-constexpr int kF32D = 64;
-constexpr int kF32Ld = kF32D + 4;       // row stride (floats) of a 64 × D tile
-constexpr int kF32LdP = kBlockK + 4;    // row stride of the P tile
-constexpr int kF32Smem = (kBlockQ + 2 * kBlockK) * kF32Ld * 4
-                         + kBlockK * kF32LdP * 4;   // 69,632 bytes
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-// Rows [row0, row0 + 64) of an (N, d) fp32 slice with row stride stride_n
-// into a 64 × kF32Ld tile, zero beyond n_rows and d; consecutive threads
-// read consecutive 16-byte chunks of a row.
-__device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
-                                              long long stride_n, int row0,
-                                              int n_rows, int d) {
-  for (int i = threadIdx.x; i < 64 * (kF32D / 4); i += kThreads) {
-    const int r = i / (kF32D / 4), c = (i % (kF32D / 4)) * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < n_rows && c < d)
-      val = ld4(src + (row0 + r) * stride_n + c);
-    *reinterpret_cast<float4*>(dst + r * kF32Ld + c) = val;
-  }
-}
-
-// s[r][c] = Σ_e a[ty + 8r][e] · b[tx + 16c][e] over the 64 (padded) columns.
-__device__ __forceinline__ void dot_rows_f32(float (&s)[8][4],
-                                             const float* a_s,
-                                             const float* b_s, int ty,
-                                             int tx) {
-#pragma unroll
-  for (int r = 0; r < 8; ++r)
-    s[r][0] = s[r][1] = s[r][2] = s[r][3] = 0.f;
-#pragma unroll 4
-  for (int e = 0; e < kF32D; e += 4) {
-    float4 bb[4];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) bb[c] = ld4(b_s + (tx + 16 * c) * kF32Ld + e);
-#pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      const float4 aa = ld4(a_s + (ty + 8 * r) * kF32Ld + e);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        s[r][c] = fmaf(aa.x, bb[c].x, s[r][c]);
-        s[r][c] = fmaf(aa.y, bb[c].y, s[r][c]);
-        s[r][c] = fmaf(aa.z, bb[c].z, s[r][c]);
-        s[r][c] = fmaf(aa.w, bb[c].w, s[r][c]);
-      }
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_f32_kernel(const ParamsT<float> p) {
-  extern __shared__ __align__(16) float smem_f32[];
-  float* q_s = smem_f32;
-  float* k_s = q_s + kBlockQ * kF32Ld;
-  float* v_s = k_s + kBlockK * kF32Ld;
-  float* p_s = v_s + kBlockK * kF32Ld;
-  __shared__ bool live_f32[kBlockK];
-
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4, tx = tid & 15;
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int q0 = blockIdx.x * kBlockQ;
-  const float* qb = p.q + b * p.q_sb + h * p.q_sh;
-  const float* kb = p.k + b * p.k_sb + h * p.k_sh;
-  const float* vb = p.v + b * p.v_sb + h * p.v_sh;
-
-  load_tile_f32(q_s, qb, p.q_sn, q0, p.n_q, p.d);
-  float acc[8][4];
-  float m[8], l[8];                   // running max (base 2), partial sums
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.f;
-    m[r] = kNegBig;
-    l[r] = 0.f;
-  }
-
-  const int n_tiles = (p.n_k + kBlockK - 1) / kBlockK;
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int key0 = tile * kBlockK;
-    load_tile_f32(k_s, kb, p.k_sn, key0, p.n_k, p.d);
-    load_tile_f32(v_s, vb, p.v_sn, key0, p.n_k, p.d);
-    if (tid < kBlockK) {
-      const int key = key0 + tid;
-      live_f32[tid] = key < p.n_k && (p.key_valid == nullptr || p.key_valid[key]);
-    }
-    __syncthreads();
-
-    float s[8][4];
-    dot_rows_f32(s, q_s, k_s, ty, tx);
-#pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        s[r][c] = live_f32[tx + 16 * c] ? s[r][c] * p.scale_log2 : -INFINITY;
-        mx = fmaxf(mx, s[r][c]);
-      }
-#pragma unroll
-      for (int o = 1; o < 16; o <<= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float mn = fmaxf(m[r], mx);
-      const float alpha = exp2f(m[r] - mn);
-      m[r] = mn;
-      float rs = 0.f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        s[r][c] = exp2f(s[r][c] - mn);   // masked: exp2(−inf) = 0
-        rs += s[r][c];
-      }
-      l[r] = l[r] * alpha + rs;
-#pragma unroll
-      for (int n = 0; n < 4; ++n) acc[r][n] *= alpha;
-    }
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      float4* row = reinterpret_cast<float4*>(p_s + (tx + 16 * c) * kF32LdP
-                                              + 8 * ty);
-      row[0] = make_float4(s[0][c], s[1][c], s[2][c], s[3][c]);
-      row[1] = make_float4(s[4][c], s[5][c], s[6][c], s[7][c]);
-    }
-    __syncwarp();
-
-    // O += P·V over the tile's keys, in key order.
-#pragma unroll 4
-    for (int j = 0; j < kBlockK; ++j) {
-      const float4 pa = ld4(p_s + j * kF32LdP + 8 * ty);
-      const float4 pb = ld4(p_s + j * kF32LdP + 8 * ty + 4);
-      const float4 vv = ld4(v_s + j * kF32Ld + 4 * tx);
-      const float pr[8] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
-#pragma unroll
-      for (int r = 0; r < 8; ++r) {
-        acc[r][0] = fmaf(pr[r], vv.x, acc[r][0]);
-        acc[r][1] = fmaf(pr[r], vv.y, acc[r][1]);
-        acc[r][2] = fmaf(pr[r], vv.z, acc[r][2]);
-        acc[r][3] = fmaf(pr[r], vv.w, acc[r][3]);
-      }
-    }
-    __syncthreads();
-  }
-
-  float* ob = p.o + b * p.o_sb + h * p.o_sh;
-  float* lb = p.lse + ((long long)b * p.heads + h) * p.n_q;
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-#pragma unroll
-    for (int o = 1; o < 16; o <<= 1)
-      l[r] += __shfl_xor_sync(0xffffffffu, l[r], o);
-    const float safe = l[r] == 0.f ? 1.f : l[r];
-    const float inv = 1.f / safe;
-    const int row = q0 + ty + 8 * r;
-    if (row < p.n_q && 4 * tx < p.d)
-      *reinterpret_cast<float4*>(ob + row * p.o_sn + 4 * tx) =
-          make_float4(acc[r][0] * inv, acc[r][1] * inv, acc[r][2] * inv,
-                      acc[r][3] * inv);
-    if (row < p.n_q && tx == 0) lb[row] = (m[r] + log2f(safe)) * kLn2;
-  }
-}
-
-int launch_f32(const ParamsT<float>& p, int batch, cudaStream_t stream) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kF32Smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((p.n_q + kBlockQ - 1) / kBlockQ, p.heads, batch);
-  flash_fwd_f32_kernel<<<grid, kThreads, kF32Smem, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
-// q, k, v and o are bf16, or fp32 when `fp32` is non-zero.  Returns
-// cudaGetLastError() after the launch (0 on success), or
-// cudaErrorInvalidValue for a head_dim the kernel does not take.
+// bf16 q, k, v and o.  Returns cudaGetLastError() after the launch (0 on
+// success), or cudaErrorInvalidValue for a head_dim the kernel does not
+// take.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, const void* key_valid,
     void* o, void* lse, int batch, int n_q, int n_k, int heads, int head_dim,
     long long q_sb, long long q_sn, long long q_sh, long long k_sb,
     long long k_sn, long long k_sh, long long v_sb, long long v_sn,
     long long v_sh, long long o_sb, long long o_sn, long long o_sh,
-    float scale, int fp32, void* stream) {
-  if (fp32) {
-    if (head_dim <= 0 || head_dim > kF32D || head_dim % 4)
-      return static_cast<int>(cudaErrorInvalidValue);
-    ParamsT<float> p;
-    p.q = static_cast<const float*>(q);
-    p.k = static_cast<const float*>(k);
-    p.v = static_cast<const float*>(v);
-    p.key_valid = static_cast<const uint8_t*>(key_valid);
-    p.o = static_cast<float*>(o);
-    p.lse = static_cast<float*>(lse);
-    p.n_q = n_q;
-    p.n_k = n_k;
-    p.heads = heads;
-    p.d = head_dim;
-    p.q_sb = q_sb; p.q_sn = q_sn; p.q_sh = q_sh;
-    p.k_sb = k_sb; p.k_sn = k_sn; p.k_sh = k_sh;
-    p.v_sb = v_sb; p.v_sn = v_sn; p.v_sh = v_sh;
-    p.o_sb = o_sb; p.o_sn = o_sn; p.o_sh = o_sh;
-    p.scale_log2 = scale * kLog2e;
-    return launch_f32(p, batch, static_cast<cudaStream_t>(stream));
-  }
+    float scale, void* stream) {
   Params p;
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = static_cast<const __nv_bfloat16*>(k);

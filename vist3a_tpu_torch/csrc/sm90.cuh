@@ -1,8 +1,11 @@
 // Hopper (sm_90a) building blocks shared by the wgmma + TMA flash-attention
-// kernels (`flash_attention_fwd_sm90.cu`, `flash_attention_bwd_sm90.cu`):
-// mbarriers, TMA tensor loads and bulk copies, wgmma descriptors and
-// products, register reallocation, and the host-side encoding of a 4-D
-// (d, n, h, b) tensor map for a (B, N, H, D) bf16 tensor with any strides.
+// kernels (`flash_attention_{fwd,bwd}_sm90.cu` in bf16,
+// `flash_attention_{fwd,bwd}_f32_sm90.cu` in fp32 on 3×TF32): mbarriers,
+// TMA tensor loads and bulk copies, wgmma descriptors and products (bf16
+// and tf32), the tf32 mma.sync product, the 3×TF32 split, the kernel that
+// writes an fp32 tensor's split planes, register reallocation, and the
+// host-side encoding of the tensor maps: a 4-D (d, n, h, b) map for a
+// (B, N, H, D) bf16 tensor with any strides, a 2-D map over fp32 planes.
 // Raw PTX, no CUTLASS, so a source that includes this builds in seconds.
 //
 // Shared-memory tiles are what a TMA load with CU_TENSOR_MAP_SWIZZLE_128B
@@ -19,6 +22,11 @@
 //     the distance between the two 64-column halves (unused at N = 64,
 //     which one half spans); the k-th 16-deep slice starts 16 rows = 2048
 //     bytes in.
+// An fp32 tile has the same bytes: rows of 32 floats (128 bytes) with the
+// same swizzle, a 64-column row as two 32-column halves ([half][row][32]).
+// tf32 wgmma has no transpose bits, so both of its shared-memory operands
+// are K-major; its k-th 8-deep slice of a half starts 32·k bytes in, as a
+// bf16 16-deep slice does.
 
 #pragma once
 
@@ -81,6 +89,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0),
          "r"(c1), "r"(c2), "r"(c3), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// A box of a 2-D tensor map at (c0 = column, c1 = row) into shared memory;
+// completion counts on `bar`.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0),
+         "r"(c1), "r"(smem_u32(bar))
       : "memory");
 }
 
@@ -285,6 +305,176 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
   wgmma_rs_n128(d, a, desc_b, scale_d);
 }
 
+// ---- 3×TF32 ----------------------------------------------------------------
+//
+// An fp32 product a·b on the TF32 tensor cores to about fp32 accuracy: each
+// operand is split as x = big + small, big = x rounded to TF32 (10 mantissa
+// bits; round to nearest, ties away from zero) and small = x − big rounded
+// the same way, and a·b ≈ a_big·b_big + a_big·b_small + a_small·b_big, the
+// three products summed in fp32.  `kernels/flash_attention.py::tf32_split`
+// is the same split in plain PyTorch.
+
+__device__ __forceinline__ float tf32_round(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r & 0xFFFFE000u);
+}
+
+// (big, small) of x as TF32 bit patterns.
+__device__ __forceinline__ void tf32_split(float x, uint32_t& big,
+                                           uint32_t& small) {
+  const float b = tf32_round(x);
+  big = __float_as_uint(b);
+  small = __float_as_uint(tf32_round(x - b));
+}
+
+// D[64 x 64] (+)= A[64 x 8] * B[8 x 64], tf32 in, fp32 out: A and B from
+// shared memory, both K-major.
+__device__ __forceinline__ void wgmma_ss_tf32(float (&d)[32], uint64_t desc_a,
+                                              uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D[64 x 64] (+)= A[64 x 8] * B[8 x 64], tf32 in, fp32 out: A from
+// registers (each warp's 16 rows: a0 (g, t), a1 (g + 8, t), a2 (g, t + 4),
+// a3 (g + 8, t + 4), g = lane / 4, t = lane % 4), B from shared memory,
+// K-major.
+__device__ __forceinline__ void wgmma_rs_tf32(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
+// C[16 x 8] += A[16 x 8] * B[8 x 8], tf32 in, fp32 out, one warp: A as for
+// wgmma_rs_tf32, b0 (k = t, n = g), b1 (k = t + 4, n = g); c0 (g, 2t),
+// c1 (g, 2t + 1), c2 (g + 8, 2t), c3 (g + 8, 2t + 1).
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// D (+)= A·B as 3×TF32 on wgmma, with `Corrections` (2; fewer only to
+// plant a fault) of the correction products; `scale_d` 0 overwrites D.  A
+// from registers (big, small) and B's planes in shared memory ...
+template <int Corrections>
+__device__ __forceinline__ void product3_rs(float (&d)[32],
+                                            const uint32_t (&a_big)[4],
+                                            const uint32_t (&a_small)[4],
+                                            uint64_t b_big, uint64_t b_small,
+                                            int scale_d) {
+  wgmma_rs_tf32(d, a_big, b_big, scale_d);
+  if (Corrections >= 1) wgmma_rs_tf32(d, a_big, b_small, 1);
+  if (Corrections >= 2) wgmma_rs_tf32(d, a_small, b_big, 1);
+}
+
+// ... or both operands' planes in shared memory.
+template <int Corrections>
+__device__ __forceinline__ void product3_ss(float (&d)[32], uint64_t a_big,
+                                            uint64_t a_small, uint64_t b_big,
+                                            uint64_t b_small, int scale_d) {
+  wgmma_ss_tf32(d, a_big, b_big, scale_d);
+  if (Corrections >= 1) wgmma_ss_tf32(d, a_big, b_small, 1);
+  if (Corrections >= 2) wgmma_ss_tf32(d, a_small, b_big, 1);
+}
+
+// The split A fragments of rows row0, row0 + 8 of an fp32 (N, d) slice
+// (row stride `sn`), zero from n_rows and from column d: k-step kk holds
+// (row0, 8kk + t), (row0 + 8, 8kk + t), (row0, 8kk + t + 4) and
+// (row0 + 8, 8kk + t + 4).  The fp32 kernels call it for every tile:
+// fragments held in registers across tiles were overwritten (ptxas gave a
+// later wgmma group's A fragments their registers).
+__device__ __forceinline__ void load_a_split(uint32_t (&big)[8][4],
+                                             uint32_t (&small)[8][4],
+                                             const float* src, long long sn,
+                                             int row0, int n_rows, int d,
+                                             int t) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = row0 + 8 * (r & 1), col = 8 * kk + t + 4 * (r >> 1);
+      const float x = row < n_rows && col < d ? src[row * sn + col] : 0.f;
+      tf32_split(x, big[kk][r], small[kk][r]);
+    }
+}
+
+// The byte offset of element (row, col) in a [half][rows][32] fp32 tile
+// with the 128-byte swizzle (`rows` rows a half; the base 1024-aligned).
+__device__ __forceinline__ uint32_t sw128_f32(int rows, int row, int col) {
+  return (col >> 5) * rows * 128 + row * 128
+         + ((((col & 31) >> 2) ^ (row & 7)) << 4) + ((col & 3) << 2);
+}
+
+// The split planes of an fp32 (B, N, H, d) tensor x with element strides
+// (sb, sn, sh, 1), d ≤ 64 a multiple of 4: planes (2, B·H, n_pad, 64),
+// plane 0 the bigs and plane 1 the smalls, row n of head (b, h) at row
+// (b·H + h)·n_pad + n; rows from N and columns from d are zeros.  One
+// thread a float4; grid (ceil(n_pad·16 / 256), B·H).
+__global__ void __launch_bounds__(256)
+    tf32_split_planes_kernel(const float* __restrict__ x, float* planes,
+                             int n, int n_pad, int heads, int d,
+                             long long sb, long long sn, long long sh,
+                             long long plane_stride) {
+  const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (i >= (long long)n_pad * 16) return;
+  const int row = static_cast<int>(i >> 4), col = static_cast<int>(i & 15) * 4;
+  const int bh = blockIdx.y, b = bh / heads, h = bh % heads;
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (row < n && col < d)
+    v = *reinterpret_cast<const float4*>(x + b * sb + row * sn + h * sh + col);
+  const float e[4] = {v.x, v.y, v.z, v.w};
+  float big[4], small[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    big[j] = tf32_round(e[j]);
+    small[j] = tf32_round(e[j] - big[j]);
+  }
+  float* dst = planes + ((long long)bh * n_pad + row) * 64 + col;
+  *reinterpret_cast<float4*>(dst) = make_float4(big[0], big[1], big[2], big[3]);
+  *reinterpret_cast<float4*>(dst + plane_stride) =
+      make_float4(small[0], small[1], small[2], small[3]);
+}
+
 }  // namespace sm90
 
 // ---- host: tensor maps -------------------------------------------------------
@@ -345,6 +535,29 @@ inline int encode_bnhd(CUtensorMap* map, const void* ptr, int batch, int n,
   const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(box_rows), 1, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                          const_cast<void*>(ptr), dims, strides, box, elem,
+                          CU_TENSOR_MAP_INTERLEAVE_NONE,
+                          CU_TENSOR_MAP_SWIZZLE_128B,
+                          CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : kTensorMapErrorBase + static_cast<int>(res);
+}
+
+
+// A 2-D map over fp32 rows of `cols` floats (`row_bytes` apart, a multiple
+// of 16), `rows` of them, read in boxes of 32 columns (128 bytes) × 64 rows
+// with the 128-byte swizzle.  0 on success.
+inline int encode_f32_rows(CUtensorMap* map, const void* ptr, long long cols,
+                           long long rows, long long row_bytes) {
+  EncodeTiledFn fn;
+  const int err = encode_fn(&fn);
+  if (err) return err;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(row_bytes)};
+  const cuuint32_t box[2] = {32, 64};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
                           const_cast<void*>(ptr), dims, strides, box, elem,
                           CU_TENSOR_MAP_INTERLEAVE_NONE,
                           CU_TENSOR_MAP_SWIZZLE_128B,

@@ -13,11 +13,15 @@ head_dim 128: the Wan DiT's self-attention), and of both layouts' VJPs
 (the stitched decoder's attention at 64, the Wan DiT's at 128); a masked
 call hands them the key validity as a padded 0/−∞ bias row and a flag a
 key tile (`key_bias`).
-The mma.sync kernels of `csrc/flash_attention_fwd.cu` (one entry; the
-key-validity pointer is null for an unmasked call) and
-`csrc/flash_attention_bwd.cu` keep the other bf16 head dims (multiples of 8
-up to 128), and their FFMA instantiations fp32 at head_dim ≤ 64 (the
-distillation step's).  See those files for the designs and their bounds.
+Every fp32 call (head_dim ≤ 64, the distillation step's) goes to
+`csrc/flash_attention_fwd_f32_sm90.cu` and
+`csrc/flash_attention_bwd_f32_sm90.cu`: wgmma + TMA (and mma.sync for the
+backward's accumulating products) on the TF32 tensor cores with the 3×TF32
+split (`tf32_split`), which keeps about fp32's accuracy.  The mma.sync
+kernels of `csrc/flash_attention_fwd.cu` (one entry; the key-validity
+pointer is null for an unmasked call) and `csrc/flash_attention_bwd.cu`
+keep the other bf16 head dims (multiples of 8 up to 128).  See those files
+for the designs and their bounds.
 
 `FlashAttention` is the autograd function the attention dispatch calls on
 the card: its forward saves q, k, v, O and the LSE, its backward calls
@@ -61,11 +65,15 @@ SOURCE = "flash_attention_fwd.cu"
 BWD_SOURCE = "flash_attention_bwd.cu"
 SM90_SOURCE = "flash_attention_fwd_sm90.cu"
 SM90_BWD_SOURCE = "flash_attention_bwd_sm90.cu"
+F32_SOURCE = "flash_attention_fwd_f32_sm90.cu"
+F32_BWD_SOURCE = "flash_attention_bwd_f32_sm90.cu"
 MAX_HEAD_DIM = 128
 MAX_HEAD_DIM_F32 = 64          # the fp32 forward's and backward's
 NATURAL_HEAD_DIM = 128
 WGMMA_HEAD_DIMS = (64, 128)    # the bf16 head dims of the wgmma kernels
 KEY_TILE = 128                 # the wgmma forward's keys per tile
+F32_KEY_TILE = 64              # the fp32 forward's keys per stage
+F32_ROW_TILE = 128             # the fp32 backward's rows per block
 _NEG_BIG = -1e30
 _LOG2E = 1.4426950408889634
 
@@ -150,15 +158,32 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
 def route(dtype: torch.dtype, head_dim: int, masked: bool) -> str:
     """The kernel a call on the card takes, forward and backward: "wgmma"
     (the Hopper wgmma + TMA kernels, `SM90_SOURCE` and `SM90_BWD_SOURCE`)
-    for bf16 at head_dim 64 or 128, masked or not; "fp32" (the FFMA kernels
-    of `SOURCE` and `BWD_SOURCE`) for fp32; "mma_sync" (their bf16 mma.sync
-    kernels) for every other bf16 head dim.  `masked` chooses no route: the
-    wgmma and mma.sync forwards take a mask, and no backward does."""
+    for bf16 at head_dim 64 or 128, masked or not; "fp32" (the 3×TF32
+    wgmma + TMA kernels of `F32_SOURCE` and `F32_BWD_SOURCE`) for fp32;
+    "mma_sync" (the mma.sync kernels of `SOURCE` and `BWD_SOURCE`) for
+    every other bf16 head dim.  `masked` chooses no route: every forward
+    takes a mask, and no backward does."""
     if dtype == torch.float32:
         return "fp32"
     if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
         return "wgmma"
     return "mma_sync"
+
+
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The 3×TF32 split of fp32 x → (big, small): big is x rounded to TF32
+    (its low 13 mantissa bits zero; to nearest, ties away from zero, as
+    `cvt.rna.tf32.f32`), small is x − big rounded the same way, so that
+    a·b ≈ a_big·b_big + a_big·b_small + a_small·b_big to about fp32's
+    accuracy (|x − big − small| ≤ 2⁻²²·|x| for normal x whose remainder is
+    normal too).  The fp32 kernels split every operand so
+    (`csrc/sm90.cuh::tf32_round`); this is their plain version."""
+    def rna(y):
+        bits = y.contiguous().view(torch.int32)
+        r = ((bits + 0x1000) & -0x2000).view(torch.float32)
+        return torch.where(torch.isnan(y), y, r)
+    big = rna(x)
+    return big, rna(x - big)
 
 
 def key_bias(key_valid: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -182,18 +207,22 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 # The ctypes signature of each C entry: (source, entry) → argument types.
 ARGTYPES = {
     (SOURCE, "flash_attention_fwd"):
-        (_P,) * 6 + (_I,) * 5 + (_L,) * 12 + (_F, _I, _P),
-    (BWD_SOURCE, "flash_attention_bwd_f32"):
-        (_P,) * 9 + (_I,) * 5 + (_L,) * 21 + (_F, _P),
+        (_P,) * 6 + (_I,) * 5 + (_L,) * 12 + (_F, _P),
     (BWD_SOURCE, "flash_attention_bwd_bf16"):
         (_P,) * 9 + (_I,) * 5 + (_L,) * 21 + (_F, _P),
     (SM90_SOURCE, "flash_attention_fwd_sm90"):
         (_P,) * 7 + (_I,) * 5 + (_L,) * 12 + (_F, _P),
     (SM90_BWD_SOURCE, "flash_attention_bwd_sm90"):
         (_P,) * 9 + (_I,) * 6 + (_L,) * 21 + (_F, _P),
+    (F32_SOURCE, "flash_attention_fwd_f32_sm90"):
+        (_P,) * 9 + (_I,) * 6 + (_L,) * 12 + (_F, _P),
+    (F32_BWD_SOURCE, "flash_attention_bwd_f32_sm90"):
+        (_P,) * 10 + (_I,) * 7 + (_L,) * 21 + (_F, _P),
     # the wgmma kernels' dynamic shared memory a block, for the build log
     (SM90_SOURCE, "flash_attention_fwd_sm90_smem"): (_I,),
     (SM90_BWD_SOURCE, "flash_attention_bwd_sm90_smem"): (_I, _I),
+    (F32_SOURCE, "flash_attention_fwd_f32_sm90_smem"): (_I,),
+    (F32_BWD_SOURCE, "flash_attention_bwd_f32_sm90_smem"): (_I, _I),
 }
 
 
@@ -222,6 +251,18 @@ def _sm90_lib() -> ctypes.CDLL:
 
 def _sm90_bwd_lib() -> ctypes.CDLL:
     return _bind(SM90_BWD_SOURCE)
+
+
+def _f32_lib() -> ctypes.CDLL:
+    return _bind(F32_SOURCE)
+
+
+def _f32_bwd_lib() -> ctypes.CDLL:
+    return _bind(F32_BWD_SOURCE)
+
+
+def _ceil_to(n: int, tile: int) -> int:
+    return -(-n // tile) * tile
 
 
 def _loadable(x: torch.Tensor) -> bool:
@@ -289,23 +330,33 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     path = route(q.dtype, d, key_valid is not None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
+        strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                   *o.stride()[:3])
+        bias, tiles = (None, None) if key_valid is None or path == "mma_sync" \
+            else key_bias(key_valid)
+        bias_ptr = None if bias is None else bias.data_ptr()
+        tiles_ptr = None if tiles is None else tiles.data_ptr()
         if path == "wgmma":
-            bias, tiles = (None, None) if key_valid is None \
-                else key_bias(key_valid)
             err = _sm90_lib().flash_attention_fwd_sm90(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                None if bias is None else bias.data_ptr(),
-                None if tiles is None else tiles.data_ptr(), o.data_ptr(),
-                lse.data_ptr(), b, n_q, k.shape[1], h, d, *q.stride()[:3],
-                *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-                float(scale), stream)
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr,
+                tiles_ptr, o.data_ptr(), lse.data_ptr(), b, n_q, k.shape[1],
+                h, d, *strides, float(scale), stream)
+        elif path == "fp32":
+            # scratch for K's and Vᵀ's split planes, which the entry fills
+            n_pad = _ceil_to(k.shape[1], F32_KEY_TILE)
+            k_planes = torch.empty((2, b * h, n_pad, 64), device=q.device)
+            vt_planes = torch.empty((2, b * h, 64, n_pad), device=q.device)
+            err = _f32_lib().flash_attention_fwd_f32_sm90(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr,
+                tiles_ptr, k_planes.data_ptr(), vt_planes.data_ptr(),
+                o.data_ptr(), lse.data_ptr(), b, n_q, k.shape[1], h, d,
+                n_pad, *strides, float(scale), stream)
         else:
             err = _lib().flash_attention_fwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 None if key_valid is None else key_valid.data_ptr(),
                 o.data_ptr(), lse.data_ptr(), b, n_q, k.shape[1], h, d,
-                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                *o.stride()[:3], float(scale), int(path == "fp32"), stream)
+                *strides, float(scale), stream)
     if err:
         raise RuntimeError(f"flash_attention_fwd launch failed ({path}): "
                            f"error {err}")
@@ -358,27 +409,36 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                *dv.stride()[:3])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if path == "wgmma":
+        if path in ("wgmma", "fp32"):
             # LSE·log2(e) and δ padded to whole 128-row tiles: +∞ and 0 give
             # a padded query row P = 0 and dS = 0
-            n_pad = -(-n_q // 128) * 128
+            n_pad = _ceil_to(n_q, 128)
             lse2 = torch.full((b, h, n_pad), math.inf, device=q.device)
             lse2[..., :n_q] = lse * _LOG2E
             delta_p = torch.zeros((b, h, n_pad), device=q.device)
             delta_p[..., :n_q] = delta
+            ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                    lse2.data_ptr(), delta_p.data_ptr())
+            outs = (dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+        if path == "wgmma":
             err = _sm90_bwd_lib().flash_attention_bwd_sm90(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                lse2.data_ptr(), delta_p.data_ptr(), dq.data_ptr(),
-                dk.data_ptr(), dv.data_ptr(), b, n_q, n_k, h, d, n_pad,
-                *strides, float(scale), stream)
+                *ptrs, *outs, b, n_q, n_k, h, d, n_pad, *strides,
+                float(scale), stream)
+        elif path == "fp32":
+            # scratch for the split planes of Q, dO, K and V, which the
+            # entry fills
+            nk_pad = _ceil_to(n_k, F32_ROW_TILE)
+            planes = torch.empty(2 * b * h * 64 * 2 * (n_pad + nk_pad),
+                                 device=q.device)
+            err = _f32_bwd_lib().flash_attention_bwd_f32_sm90(
+                *ptrs, planes.data_ptr(), *outs, b, n_q, n_k, h, d, n_pad,
+                nk_pad, *strides, float(scale), stream)
         else:
-            lib = _bwd_lib()
-            fn = lib.flash_attention_bwd_f32 if f32 \
-                else lib.flash_attention_bwd_bf16
-            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                     lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                     dk.data_ptr(), dv.data_ptr(), b, n_q, n_k, h, d,
-                     *strides, float(scale), stream)
+            err = _bwd_lib().flash_attention_bwd_bf16(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), b, n_q, n_k, h, d,
+                *strides, float(scale), stream)
     if err:
         raise RuntimeError(f"flash_attention_bwd launch failed ({path}): "
                            f"error {err}")
