@@ -14,7 +14,8 @@ Phases, each of which passes or raises (any failure exits non-zero):
                `csrc/flash_attention_bwd_sm90.cu`, their fp32 3×TF32
                counterparts `csrc/flash_attention_fwd_f32_sm90.cu` and
                `csrc/flash_attention_bwd_f32_sm90.cu`,
-               `csrc/rasterize_fwd.cu` and `csrc/rasterize_bwd.cu` for
+               `csrc/rasterize_fwd.cu` and `csrc/rasterize_bwd.cu` (which
+               share `csrc/raster_common.cuh`) for
                sm_90a, one nvcc each, at once, and prints ptxas's
                registers / shared memory / spills and the wgmma kernels'
                dynamic shared memory a block.
@@ -55,14 +56,21 @@ Phases, each of which passes or raises (any failure exits non-zero):
   4. raster  — one full-width scene: the Gaussians of one stitched-decoder
                request and its 13 context cameras interpolated to the
                133-view orbit.  Holds the composite kernel against its
-               plain version on two orbit views at 448², prints each view's
-               pair count and what the budget cut, times both, and states
-               the kernel's bound.  Then the composite backward (kernel 7)
-               against `composite_bwd_ref` on the same two views at the
-               reward's 1×G pair budget, given a random cotangent
-               (`RASTER_BWD_*` limits), bit for bit repeatable, timed with
-               its bound.  No PyTorch call computes either function, so
-               their library times are null.
+               plain version on two orbit views at 448² (`RASTER_ATOL`,
+               `RASTER_MAX_OFF_SHARE`), prints each view's pair count and
+               what the budget cut, times both, and states the kernel's
+               bound (the work of the composited (pixel, pair)s; the count
+               of every evaluation up to the stop kept as
+               `ops_all_evaluated`) and its share of it.  Then the
+               composite backward (kernel 7) against `composite_bwd_ref` on
+               the same two views at the reward's 1×G pair budget, given a
+               random cotangent (`RASTER_BWD_*` limits), bit for bit
+               repeatable, timed with its bound.  Prints, per view, the
+               share of (warp, pair)s the kernels' sub-tile cull keeps
+               (`subtile_mask_ref`), the largest and mean tile walk, and
+               ptxas's registers and spills of both composite kernels.
+               No PyTorch call computes either function, so their library
+               times are null.
   5. slice   — builds the stitched decoder at full width (VGGT-1B /
                DINOv2-L, random weights from a seed, trunk bf16, heads bf16)
                and serves 3 decode requests through `forward_with_latent`:
@@ -438,8 +446,9 @@ def phase_build() -> None:
         "fwd": fwd32.flash_attention_fwd_f32_sm90_smem(64),
         "bwd_dkv": bwd32.flash_attention_bwd_f32_sm90_smem(64, 0),
         "bwd_dq": bwd32.flash_attention_bwd_f32_sm90_smem(64, 1)}
-    log("  wgmma kernels' dynamic shared memory a block (bytes): "
-        + json.dumps(smem))
+    smem["composite bwd"] = tr.bwd_smem_bytes()
+    log("  wgmma and composite kernels' dynamic shared memory a block "
+        "(bytes): " + json.dumps(smem))
 
 
 @dataclasses.dataclass
@@ -1282,30 +1291,149 @@ def orbit_view(cams, view: int):
 
 
 def composite_bound(pairs, n_eval, n_comp) -> dict:
-    """The least time the card needs for this view's composite: fp32
-    operations of the (pixel, pair) evaluations and compositions that this
-    data needs, and the bytes of the ids and rows the tiles must read (each
-    Gaussian's row once) plus the bounds and the six output planes."""
+    """The least time the card needs for this view's composite: the fp32
+    operations that no implementation avoids — each composited (pixel,
+    pair)'s evaluation and composition — and the bytes of the ids and rows
+    the tiles must read (each Gaussian's row once) plus the bounds and the
+    six output planes.  Each pixel's stopping pair (at most one a pixel,
+    200,704 at 448²) is evaluated too but left out of the count, as are the
+    evaluations a cull skips; `ops_all_evaluated` keeps the count of every
+    (pixel, pair) up to the stop, the bound before the kernels culled."""
     import torch
 
     from vist3a_tpu_torch.kernels import rasterizer as tr
 
-    ops = OPS_PER_EVAL * int(n_eval.sum()) + OPS_PER_COMPOSITE * int(
-        n_comp.sum())
+    n_comp = int(n_comp.sum())
+    ops = (OPS_PER_EVAL + OPS_PER_COMPOSITE) * n_comp
+    ops_all = OPS_PER_EVAL * int(n_eval.sum()) + OPS_PER_COMPOSITE * n_comp
+    walk, need = tile_walks(pairs, n_eval)
+    n_rows = torch.unique(pairs.gid[need]).numel()
+    n_bytes = 4 * int(need.sum()) + 4 * tr.N_ATTR * n_rows \
+        + 4 * pairs.bounds.numel() + 4 * tr.N_OUT * IMAGE * IMAGE
+    ops_ms = ops / PEAK_FP32_FLOPS * 1e3
+    bytes_ms = n_bytes / PEAK_BYTES * 1e3
+    return {"ops": ops, "ops_all_evaluated": ops_all,
+            "bound_all_evaluated_ms": max(ops_all / PEAK_FP32_FLOPS * 1e3,
+                                          bytes_ms),
+            "bytes": n_bytes, "pairs_walked": int(need.sum()),
+            "rows_read": n_rows, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "walk_max": int(walk.max()),
+            "walk_mean": walk.float().mean().item()}
+
+
+def tile_walks(pairs, n_eval):
+    """Each tile's walk (the pairs up to its last pixel's stop) and the
+    (P,) mask of the pairs within it."""
+    import torch
+
+    from vist3a_tpu_torch.kernels import rasterizer as tr
+
     nt = IMAGE // tr.TILE
     walk = n_eval.reshape(nt, tr.TILE, nt, tr.TILE).amax((1, 3)).flatten()
     idx = torch.arange(pairs.gid.numel(), device=walk.device)
     bounds = pairs.bounds.long()
     tile = torch.searchsorted(bounds[1:], idx, right=True)
-    need = (idx - bounds[tile]) < walk[tile]
-    n_rows = torch.unique(pairs.gid[need]).numel()
-    n_bytes = 4 * int(need.sum()) + 4 * tr.N_ATTR * n_rows \
-        + 4 * bounds.numel() + 4 * tr.N_OUT * IMAGE * IMAGE
-    ops_ms = ops / PEAK_FP32_FLOPS * 1e3
-    bytes_ms = n_bytes / PEAK_BYTES * 1e3
-    return {"ops": ops, "bytes": n_bytes, "pairs_walked": int(need.sum()),
-            "rows_read": n_rows, "bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+    return walk, (idx - bounds[tile]) < walk[tile]
+
+
+def cull_stats(pairs, table, n_eval, batch: int) -> dict:
+    """The kernels' cull on this view (`subtile_mask_ref`, the plain
+    version of their mask): the share of (warp, pair)s kept over the whole
+    stream and over the pairs the tiles walk up to their stop; and, over
+    each warp's own walk (the pairs before its last pixel stops), the
+    (warp, pair)s it walks, those it keeps, and those some lane of it
+    composites, whose gradients the backward reduces.  `warp_imbalance`:
+    over the kernel's stages of `batch` pairs, between two of which a block
+    waits for its slowest warp, Σ max over the warps of the kept and
+    composited (warp, pair)s over Σ their mean (1 if every warp of a stage
+    had as many); `warp_imbalance_tile` the same over whole tiles, the
+    part that no scheduling of a tile's fixed warps can remove."""
+    import torch
+
+    from vist3a_tpu_torch.kernels import rasterizer as tr
+
+    ntx = IMAGE // tr.TILE
+    _, need = tile_walks(pairs, n_eval)
+    mask = tr.subtile_mask_ref(table, ntx, IMAGE, IMAGE, pairs.gid,
+                               pairs.bounds)
+    bits = sum(((mask >> w) & 1) for w in range(tr.N_WARPS))
+    p = torch.arange(tr.PIX, device=table.device)
+    lx = (p % tr.TILE).float() + 0.5
+    ly = torch.div(p, tr.TILE, rounding_mode="floor").float() + 0.5
+    # the pixels of warp w are rows 32w .. 32w + 31 of by_warp
+    by_warp = torch.argsort(tr.pixel_warp(), stable=True).to(table.device)
+    warps = torch.arange(tr.N_WARPS, device=table.device)[:, None]
+    walked = kept = active = 0
+    stage_max = stage_mean = tile_max = tile_mean = 0.0
+    starts = pairs.bounds.tolist()
+    for t in range(len(starts) - 1):
+        s, e = starts[t], starts[t + 1]
+        tile_work = torch.zeros(tr.N_WARPS, device=table.device)
+        ty, tx = divmod(t, ntx)
+        px, py = (tx * tr.TILE + lx)[:, None], (ty * tr.TILE + ly)[:, None]
+        trans = torch.ones(tr.PIX, 1, device=table.device)
+        done = (px >= IMAGE) | (py >= IMAGE)
+        for c0 in range(s, e, tr.REF_CHUNK):
+            c1 = min(c0 + tr.REF_CHUNK, e)
+            a = table[pairs.gid[c0:c1].long()]
+            dx, dy = px - a[:, 0], py - a[:, 1]
+            sigma = 0.5 * (a[:, 2] * dx * dx + a[:, 4] * dy * dy) \
+                + a[:, 3] * dx * dy
+            a_raw = a[:, 5] * torch.exp(-sigma)
+            ok = (sigma >= 0) & (a_raw >= tr.ALPHA_MIN)
+            alpha = torch.where(ok, torch.clamp_max(a_raw, tr.ALPHA_CLAMP),
+                                0.0)
+            t_incl = torch.cumprod(torch.cat([trans, 1.0 - alpha], 1), 1)
+            evaluated = (t_incl[:, :-1] >= tr.T_EPS) & ~done
+            composited = (t_incl[:, 1:] >= tr.T_EPS) & ok & ~done
+            w_walk = evaluated[by_warp].view(tr.N_WARPS, 32, -1).any(1)
+            w_comp = composited[by_warp].view(tr.N_WARPS, 32, -1).any(1)
+            w_kept = ((mask[c0:c1][None] >> warps) & 1).bool()
+            check(not bool((w_comp & ~w_kept).any()),
+                  f"the cull drops a (warp, pair) that composites: tile {t}")
+            walked += int(w_walk.sum())
+            kept += int((w_walk & w_kept).sum())
+            active += int(w_comp.sum())
+            stage = torch.div(torch.arange(c0 - s, c1 - s,
+                                           device=table.device),
+                              batch, rounding_mode="floor")
+            stage = stage - stage[0]
+            work = torch.zeros(tr.N_WARPS, int(stage[-1]) + 1,
+                               device=table.device).index_add_(
+                1, stage, ((w_walk & w_kept).float() + w_comp.float()))
+            stage_max += work.amax(0).sum().item()
+            stage_mean += work.mean(0).sum().item()
+            tile_work += work.sum(1)
+            n_live = (t_incl[:, 1:] >= tr.T_EPS).sum(1, keepdim=True)
+            trans = torch.where(n_live > 0, torch.gather(
+                t_incl[:, 1:], 1, (n_live - 1).clamp_min(0)), trans)
+            done = done | (n_live < c1 - c0)
+            if bool(done.all()):
+                break
+        tile_max += tile_work.max().item()
+        tile_mean += tile_work.mean().item()
+    return {"kept_share": bits.sum().item() / (tr.N_WARPS * mask.numel()),
+            "kept_share_walked": bits[need].sum().item()
+            / (tr.N_WARPS * max(int(need.sum()), 1)),
+            "warp_pairs_walked": walked, "warp_pairs_kept": kept,
+            "warp_pairs_active": active,
+            "warp_imbalance": stage_max / max(stage_mean, 1e-30),
+            "warp_imbalance_tile": tile_max / max(tile_mean, 1e-30)}
+
+
+def ptxas_summary(source: str) -> dict:
+    """Registers and spill bytes ptxas reported for `source`'s kernels."""
+    import re
+
+    from vist3a_tpu_torch.kernels import build
+
+    text = build.build_logs.get(source, "")
+    regs = [int(x) for x in re.findall(r"Used (\d+) registers", text)]
+    spills = [int(a) + int(b) for a, b in re.findall(
+        r"(\d+) bytes spill stores, (\d+) bytes spill loads", text)]
+    return {"registers": regs, "spill_bytes": spills} if regs \
+        else {"registers": None, "spill_bytes": None}
 
 
 def camera_spread(c2w) -> tuple[float, float]:
@@ -1321,9 +1449,33 @@ def camera_spread(c2w) -> tuple[float, float]:
             dist.max().item())
 
 
+def compare_composite(tr, gid, bounds, table, ntx: int, width: int,
+                      height: int):
+    """The composite kernel against `composite_ref` on one view: each plane
+    within `RASTER_ATOL` of its scale on all but `RASTER_MAX_OFF_SHARE` of
+    the pixels → (result, passed, (kernel output, plain output, work))."""
+    import torch
+
+    args = (gid, bounds, table, ntx, width, height)
+    img = tr.composite(*args)
+    torch.cuda.synchronize()
+    ref, *work = tr.composite_ref(*args, return_work=True)
+    check(bool(torch.isfinite(img).all()), "non-finite composite output")
+    diff = (img - ref).abs()
+    scale = ref.abs().flatten(1).amax(1).clamp_min(1.0)[:, None, None]
+    off = (diff > RASTER_ATOL * scale).any(0)
+    share = off.float().mean().item()
+    planes = ("r", "g", "b", "depth", "alpha", "T")
+    res = {"max_abs_err": diff.max().item(), "off_share": share,
+           "off_pixels": int(off.sum()),
+           "max_abs_err_by_plane": {k: diff[i].max().item()
+                                    for i, k in enumerate(planes)}}
+    return res, share <= RASTER_MAX_OFF_SHARE, (img, ref, work)
+
+
 def raster_view(g, cams, view: int) -> dict:
     """The composite kernel against its plain version on one orbit view,
-    both timed, with the view's bound."""
+    both timed, with the view's bound, its walk and its cull."""
     import torch
 
     from vist3a_tpu_torch.kernels import rasterizer as tr
@@ -1342,24 +1494,12 @@ def raster_view(g, cams, view: int) -> dict:
     check(n_pairs > 0, f"orbit view {view} is empty: nothing to composite")
     ntx = IMAGE // tr.TILE
     args = (pairs.gid, pairs.bounds, table, ntx, IMAGE, IMAGE)
-    img = tr.composite(*args)
-    torch.cuda.synchronize()
-    ref, n_eval, n_comp, _ = tr.composite_ref(*args, return_work=True)
-    check(bool(torch.isfinite(img).all()), "non-finite composite output")
-    diff = (img - ref).abs()
-    scale = ref.abs().flatten(1).amax(1).clamp_min(1.0)[:, None, None]
-    off = (diff > RASTER_ATOL * scale).any(0)
-    share = off.float().mean().item()
-    planes = ("r", "g", "b", "depth", "alpha", "T")
-    errs = {k: diff[i].max().item() for i, k in enumerate(planes)}
-    errs_in = {k: diff[i][~off].max().item() for i, k in enumerate(planes)}
-    log(f"raster: view {view}: kernel vs plain max |Δ| per plane {errs}; "
-        f"over the pixels within tolerance {errs_in}; pixels beyond "
-        f"{RASTER_ATOL}·scale: {int(off.sum())} ({share:.3g}); covered "
+    cmp, passed, (_, ref, (n_eval, n_comp, _)) = compare_composite(tr, *args)
+    log(f"raster: view {view}: kernel vs plain {json.dumps(cmp)}; covered "
         f"(alpha > 0.5) {(ref[4] > 0.5).float().mean().item():.4f}")
-    check(share <= RASTER_MAX_OFF_SHARE,
-          f"composite kernel disagrees with composite_ref on {share:.3g} of "
-          f"the pixels of view {view} (allowed {RASTER_MAX_OFF_SHARE})")
+    check(passed, f"composite kernel disagrees with composite_ref on "
+          f"{cmp['off_share']:.3g} of the pixels of view {view} (allowed "
+          f"{RASTER_MAX_OFF_SHARE})")
     kernel_ms = cuda_events_ms(lambda: tr.composite(*args), iters=20)
     plain_ms = cuda_events_ms(lambda: tr.composite_ref(*args), iters=1,
                               warmup=0)
@@ -1367,10 +1507,30 @@ def raster_view(g, cams, view: int) -> dict:
     res = {"view": view, "gaussians": n_gauss, "pairs": n_pairs,
            "pairs_total": pairs.total, "pairs_cut": pairs.total - n_pairs,
            "evaluations": int(n_eval.sum()), "composited": int(n_comp.sum()),
-           "max_abs_err": max(errs.values()), "off_share": share,
-           "kernel_ms": kernel_ms, "plain_ms": plain_ms, **bound}
+           "max_abs_err": cmp["max_abs_err"], "off_share": cmp["off_share"],
+           "kernel_ms": kernel_ms, "plain_ms": plain_ms, **bound,
+           "share_of_bound": bound["bound_ms"] / kernel_ms,
+           **cull_stats(pairs, table, n_eval, batch=256)}
     log(f"raster: {json.dumps(res)}")
+    log_view("forward", res)
     return {**res, "backward": raster_view_backward(g, cams, view)}
+
+
+def log_view(kind: str, res: dict) -> None:
+    """One composite kernel's time on a view beside its bound, its cull
+    and its walk; a share of the bound over 1 fails (the bound is wrong)."""
+    check(res["share_of_bound"] <= 1, f"the {kind} beat its bound: {res}")
+    log(f"raster: view {res['view']}: {kind} {res['kernel_ms']:.4f} ms, "
+        f"bound {res['bound_ms']:.4f} ms ({res['bound_by']}), share of the "
+        f"bound {res['share_of_bound']:.4f}; kept (warp, pair)s "
+        f"{res['kept_share']:.4f} of the stream, "
+        f"{res['kept_share_walked']:.4f} of the walk, "
+        f"{res['warp_pairs_active']} of {res['warp_pairs_kept']} kept "
+        f"composited by some lane, imbalance a stage "
+        f"{res['warp_imbalance']:.3f}, a tile "
+        f"{res['warp_imbalance_tile']:.3f}; tile walk largest "
+        f"{res['walk_max']}, "
+        f"mean {res['walk_mean']:.1f} pairs")
 
 
 def compare_composite_bwd(tr, gid, bounds, table, out, gout, ntx: int,
@@ -1407,22 +1567,29 @@ def compare_composite_bwd(tr, gid, bounds, table, out, gout, ntx: int,
 
 def composite_bwd_bound(tr, pairs, n_eval, n_comp, n_clamp) -> dict:
     """The least time the card needs for this view's composite backward:
-    the fp32 operations of the evaluations and compositions this data needs
-    (each (pixel, pair) evaluation's, then per composited pair the
-    transmittance step and the gradients, fewer where α was clamped), and
-    the bytes: the
-    ids, rows and gradient rows of the pairs walked, each Gaussian's row
-    once, the bounds, and the saved output and its cotangent (6 planes
-    each)."""
+    the fp32 operations no implementation avoids — each composited (pixel,
+    pair)'s evaluation, transmittance step and gradients, fewer where α
+    was clamped (each pixel's stopping pair, at most 200,704 evaluations,
+    is left out, as in `composite_bound`; `ops_all_evaluated` counts every
+    (pixel, pair) up to the stop) — and the bytes: the ids, rows and
+    gradient rows of the pairs walked, each Gaussian's row once, the
+    bounds, and the saved output and its cotangent (6 planes each)."""
     fwd = composite_bound(pairs, n_eval, n_comp)
-    ops = OPS_PER_EVAL * int(n_eval.sum()) + OPS_BWD_PER_COMPOSITE * int(
-        n_comp.sum()) - OPS_BWD_CLAMP_SKIPS * int(n_clamp.sum())
+    n_comp, n_clamp = int(n_comp.sum()), int(n_clamp.sum())
+    ops = (OPS_PER_EVAL + OPS_BWD_PER_COMPOSITE) * n_comp \
+        - OPS_BWD_CLAMP_SKIPS * n_clamp
+    ops_all = OPS_PER_EVAL * int(n_eval.sum()) \
+        + OPS_BWD_PER_COMPOSITE * n_comp - OPS_BWD_CLAMP_SKIPS * n_clamp
     n_bytes = fwd["bytes"] + 4 * tr.N_OUT * IMAGE * IMAGE \
         + 4 * tr.N_ATTR * fwd["pairs_walked"]
     ops_ms = ops / PEAK_FP32_FLOPS * 1e3
     bytes_ms = n_bytes / PEAK_BYTES * 1e3
-    return {"ops": ops, "bytes": n_bytes, "bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+    return {"ops": ops, "ops_all_evaluated": ops_all,
+            "bound_all_evaluated_ms": max(ops_all / PEAK_FP32_FLOPS * 1e3,
+                                          bytes_ms),
+            "bytes": n_bytes, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "walk_max": fwd["walk_max"], "walk_mean": fwd["walk_mean"]}
 
 
 def raster_view_backward(g, cams, view: int) -> dict:
@@ -1452,15 +1619,22 @@ def raster_view_backward(g, cams, view: int) -> dict:
     kernel_ms = cuda_events_ms(lambda: tr.composite_bwd(*args), iters=10)
     plain_ms = cuda_events_ms(lambda: tr.composite_bwd_ref(*args), iters=1,
                               warmup=0)
+    bound = composite_bwd_bound(tr, pairs, n_eval, n_comp, n_clamp)
     res.update(view=view, pair_budget=budget, pairs=pairs.gid.numel(),
                pairs_total=pairs.total, kernel_ms=kernel_ms,
                plain_ms=plain_ms, clamped=int(n_clamp.sum()),
-               **composite_bwd_bound(tr, pairs, n_eval, n_comp, n_clamp))
+               evaluations=int(n_eval.sum()), composited=int(n_comp.sum()),
+               **bound, share_of_bound=bound["bound_ms"] / kernel_ms,
+               **cull_stats(pairs, table, n_eval, batch=128))
     log(f"raster: backward {json.dumps(res)}")
+    log_view("backward", res)
     return res
 
 
-def phase_raster(model) -> list:
+def raster_scene(model):
+    """One full-width scene: the Gaussians of a stitched-decoder request
+    from seeded inputs and its 13 context cameras interpolated to the
+    orbit → (gaussians, cameras)."""
     import torch
 
     from vist3a_tpu_torch.stitch import chopped_anysplat as ca
@@ -1476,10 +1650,18 @@ def phase_raster(model) -> list:
         f"{dist:.6g} of camera-centre distance from the first")
     check(angle > 0.1 or dist > 1e-3,
           "the 13 context cameras coincide: the orbit does not move")
-    cams = orbit_cameras(out)
-    views = [raster_view(out.gaussians, cams, v) for v in RASTER_VIEWS]
+    return out.gaussians, orbit_cameras(out)
+
+
+def phase_raster(model) -> list:
+    from vist3a_tpu_torch.kernels import rasterizer as tr
+
+    gaussians, cams = raster_scene(model)
+    views = [raster_view(gaussians, cams, v) for v in RASTER_VIEWS]
     log("raster: library_ms null — no PyTorch call computes a front-to-back "
         "alpha composite over sorted (tile, depth) pairs, nor its backward")
+    log("raster: ptxas " + json.dumps(
+        {src: ptxas_summary(src) for src in (tr.SOURCE, tr.BWD_SOURCE)}))
     return views
 
 
@@ -2598,7 +2780,11 @@ def _kernel_entries(timed: dict, raster: list | None,
                       "pairs": r["pairs"]},
             "views": [{k: x[k] for k in ("view", "pairs", "kernel_ms",
                                          "plain_ms", "bound_ms", "bound_by",
-                                         "max_abs_err", "off_share")}
+                                         "max_abs_err", "off_share",
+                                         "share_of_bound",
+                                         "bound_all_evaluated_ms",
+                                         "kept_share", "walk_max",
+                                         "walk_mean")}
                       for x in raster]})
         main, by_path = count("composite_backward", ("vdm",))
         rb = [x["backward"] for x in raster]
@@ -2616,7 +2802,11 @@ def _kernel_entries(timed: dict, raster: list | None,
                       "pair_budget": rb[0]["pair_budget"]},
             "views": [{k: x[k] for k in ("view", "pairs", "kernel_ms",
                                          "plain_ms", "bound_ms", "bound_by",
-                                         "max_abs_err", "off_share")}
+                                         "max_abs_err", "off_share",
+                                         "share_of_bound",
+                                         "bound_all_evaluated_ms",
+                                         "kept_share", "walk_max",
+                                         "walk_mean")}
                       for x in rb]})
     return entries
 

@@ -109,9 +109,16 @@ _MUTANTS = _mutants()
 
 @pytest.mark.parametrize("name", sorted(_MUTANTS.MUTANTS))
 def test_mutant_edit_applies_once(name):
+    """Each edit finds its text once (`_mutate` raises otherwise), in the
+    source or in a header it includes, and the mutant changes a file."""
     m = _MUTANTS.MUTANTS[name]
-    text = (build.CSRC_DIR / m["source"]).read_text()
-    assert _MUTANTS._mutate(text, name, m["edits"]) != text
+    texts = _MUTANTS.mutated_texts(build.CSRC_DIR, name)
+    assert set(texts) == {m["source"], *m["headers"]}
+    assert any(text != (build.CSRC_DIR / file).read_text()
+               for file, text in texts.items())
+    for header in m["headers"]:
+        assert f'#include "{header}"' in \
+            (build.CSRC_DIR / m["source"]).read_text()
 
 
 def test_digest_follows_included_headers(tmp_path):

@@ -6,10 +6,12 @@ that has only PyTorch and the CUDA toolkit:
     python -m pytest -p no:cacheprovider --noconftest tests/test_torch_gpu.py
 
 (`--noconftest`: the suite's conftest imports JAX.)  Inputs are made on the
-card from a seeded generator.
+card from a seeded generator, or with numpy from a seed by
+`tests/raster_cases.py` (torch and the port only).
 """
 
 import pytest
+import raster_cases
 import torch
 
 from vist3a_tpu_torch.kernels import flash_attention as fa
@@ -464,3 +466,62 @@ def test_composite_backward_matches_plain_on_card(cuda):
     # weight; a fault in dα (the T_final cotangent dropped) moves the few
     # rows it touches by a large share of their column
     assert bool(((got - want).abs().amax(0) <= 1e-2 * scale).all())
+
+
+# The composites against their plain versions, with chip_smoke.py's limits
+# (it states why): each plane within RASTER_ATOL of its scale on all but
+# RASTER_MAX_OFF_SHARE of the pixels; each gradient row within
+# RASTER_BWD_RTOL of its column's largest on all but
+# RASTER_BWD_MAX_OFF_SHARE of the pairs, and every error within
+# RASTER_BWD_MAX_REL of it.
+RASTER_ATOL = 1e-4
+RASTER_MAX_OFF_SHARE = 1e-3
+RASTER_BWD_RTOL = 1e-3
+RASTER_BWD_MAX_OFF_SHARE = 1e-3
+RASTER_BWD_MAX_REL = 1e-2
+
+RASTER_CASES = {
+    # grazing ellipses, needles, non-PD conics, huge radii and an opaque
+    # cluster, at a size no multiple of the tile (72×40) and at 48²
+    "grazing_72x40": lambda: raster_cases.grazing_case(2, exact=False),
+    "grazing_48": lambda: raster_cases.grazing_case(3, 48, 48, exact=False),
+    # every tile walks 3000 pairs: over ten stages of either kernel
+    "long_segment": lambda: raster_cases.long_segment_case(0),
+    # every pixel stops within the first stage, 2000 pairs follow
+    "early_stop": lambda: raster_cases.early_stop_case(0),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(RASTER_CASES))
+def test_composite_kernels_match_plain_on_hard_cases(cuda, name):
+    """The culled, staged walk of both kernels on the cases that stress it:
+    the forward and the backward within the RASTER_* limits, the backward
+    the same bits twice, one launch each."""
+    case = RASTER_CASES[name]().to(cuda)
+    args = (case.gid, case.bounds, case.table, case.ntx, case.width,
+            case.height)
+    before = (tr.launches, tr.launches_backward)
+    img = tr.composite(*args)
+    torch.cuda.synchronize()
+    ref = tr.composite_ref(*args)
+    assert bool(torch.isfinite(img).all())
+    scale = ref.abs().flatten(1).amax(1).clamp_min(1.0)[:, None, None]
+    off = ((img - ref).abs() > RASTER_ATOL * scale).any(0)
+    assert off.float().mean().item() <= RASTER_MAX_OFF_SHARE
+    assert float(ref[4].max()) > 0.5
+
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    gout = torch.randn(ref.shape, generator=gen, device=cuda)
+    got = tr.composite_bwd(*args[:3], ref, gout, *args[3:])
+    again = tr.composite_bwd(*args[:3], ref, gout, *args[3:])
+    torch.cuda.synchronize()
+    assert (tr.launches, tr.launches_backward) == (before[0] + 1,
+                                                   before[1] + 2)
+    assert torch.equal(got, again)
+    want = tr.composite_bwd_ref(*args[:3], ref, gout, *args[3:])
+    scale = want.abs().amax(0).clamp_min(1e-30)
+    diff = (got - want).abs()
+    assert (diff > RASTER_BWD_RTOL * scale).any(1).float().mean().item() \
+        <= RASTER_BWD_MAX_OFF_SHARE
+    assert bool((diff.amax(0) <= RASTER_BWD_MAX_REL * scale).all())

@@ -35,12 +35,20 @@ cases it is judged on):
   * `csrc/flash_attention_bwd_sm90.cu` (the wgmma backward at head_dim 64
     and 128): the same two faults, in both instantiations (judged at
     head_dim 128) and in the D = 64 ones alone (judged at head_dim 64);
-  * `csrc/rasterize_bwd.cu`: the T_final cotangent dropped (the g_T·T_N
-    term of every dα), judged on a random 448² scene at the reward's pair
-    budget with a random cotangent.
+  * `csrc/rasterize_fwd.cu` and `csrc/rasterize_bwd.cu` (the composites),
+    each judged on a random 448² scene (the backward at the reward's pair
+    budget with a random cotangent) and on the grazing scene of
+    `tests/raster_cases.py` (72×40): in either, the cull mask of
+    `csrc/raster_common.cuh` without its margins and with its extents
+    scaled by 0.9; the forward compositing its stopping pair; one warp's
+    partial left out of the backward's cross-warp sum, the backward's
+    reduce-scatter without its last stage (lane offset 1), and the T_final
+    cotangent dropped from it (the g_T·T_N term of every dα).
 The mutated sources are written to and built in a fresh temporary
-directory (the checkout is not touched; the shared `csrc/` headers are
-found through `-I`), one nvcc each, all at once.  Every library — the
+directory, one per mutant (the checkout is not touched; a mutated header
+sits beside its source, where `#include "..."` looks first, and the
+unchanged `csrc/` headers are found through `-I`), one nvcc each, all at
+once.  Every library — the
 unchanged sources first — is loaded in place of the kernel's own and
 driven through the wrappers on the same seeded inputs, judged by
 `chip_smoke`'s own comparisons: `compare_case` for the forward (each |ΔO|
@@ -48,7 +56,8 @@ within `O_ATOL_STD` of the plain output's std plus `O_RTOL` of itself,
 LSE within `LSE_ATOL`; also, for comparison, the fixed O limit of 2e-2
 that the script used before), `compare_f32_case` (the `F32_*` limits),
 `compare_bf16_bwd_case` (`GRAD_ATOL_STD`, `GRAD_RTOL`, the same bits
-twice) and `compare_composite_bwd` (`RASTER_BWD_*`).  The script fails
+twice), `compare_composite` (`RASTER_ATOL`, `RASTER_MAX_OFF_SHARE`) and
+`compare_composite_bwd` (`RASTER_BWD_*`).  The script fails
 unless the unchanged kernels pass every case and every mutant fails every
 case it is judged on.
 """
@@ -73,7 +82,11 @@ BWD = "flash_attention_bwd.cu"
 BWD_SM90 = "flash_attention_bwd_sm90.cu"
 FWD_F32 = "flash_attention_fwd_f32_sm90.cu"
 BWD_F32 = "flash_attention_bwd_f32_sm90.cu"
+RASTER_FWD = "rasterize_fwd.cu"
 RASTER_BWD = "rasterize_bwd.cu"
+RASTER_HEADER = "raster_common.cuh"
+# the composites' cases: a random 448² scene and the grazing scene
+RASTER_CASES = ("random_448", "grazing")
 
 # forward cases (chip_smoke.Case arguments: name, B, N, H, D, pad keys,
 # frame length): head_dim 64 and 128 take the wgmma kernel, 40 and 96 the
@@ -115,9 +128,22 @@ SM90_BF16_CASES = ("bf16_4096_d128", "bf16_ragged_d128", "bf16_short_d128")
 SM90_D64_BF16_CASES = ("bf16_vit_frame", "bf16_ragged_d64", "bf16_short")
 
 
-def _mutant(source, kind, cases, *edits):
+def _mutant(source, kind, cases, *edits, headers=None):
+    """`headers`: {header name: [(text, replacement), ...]} edits of a
+    `csrc/` header the source includes."""
     return {"source": source, "kind": kind, "cases": cases,
-            "edits": list(edits)}
+            "edits": list(edits), "headers": headers or {}}
+
+
+# the cull mask without its margins, its extents scaled by 0.9
+CULL_TOO_TIGHT = {RASTER_HEADER: [
+    ("constexpr float kCullDiag = 1e-4f;", "constexpr float kCullDiag = 0.f;"),
+    ("constexpr float kCullDet = 1e-5f;", "constexpr float kCullDet = 0.f;"),
+    ("constexpr float kCullLevel = 1e-4f;",
+     "constexpr float kCullLevel = 0.f;"),
+    ("constexpr float kCullExtent = 1e-4f;",
+     "constexpr float kCullExtent = -0.1f;"),
+    ("constexpr float kCullPad = 1e-2f;", "constexpr float kCullPad = 0.f;")]}
 
 
 # name → the source, the kind of check, the cases it is judged on, and its
@@ -260,8 +286,28 @@ MUTANTS = {
          "        mbar_arrive(&empty[s]);\n        continue;\n      }\n")),
     # composite backward: dα without the T_final cotangent
     "composite_bwd_tn_cotangent_dropped": _mutant(
-        RASTER_BWD, "raster", ("random_448",),
+        RASTER_BWD, "raster", RASTER_CASES,
         ("g_tn = g[5] * out[5 * plane + p];", "g_tn = 0.f;")),
+    # the composites' cull too tight: pairs culled where they composite
+    "composite_fwd_cull_too_tight": _mutant(
+        RASTER_FWD, "raster_fwd", RASTER_CASES, headers=CULL_TOO_TIGHT),
+    "composite_bwd_cull_too_tight": _mutant(
+        RASTER_BWD, "raster", RASTER_CASES, headers=CULL_TOO_TIGHT),
+    # the forward composites the pair that stops a pixel
+    "composite_fwd_composites_stopping_pair": _mutant(
+        RASTER_FWD, "raster_fwd", RASTER_CASES,
+        ("      if (t_next < kTEps) {\n        done = true;\n"
+         "        continue;\n      }\n",
+         "      if (t_next < kTEps) done = true;\n")),
+    # the backward's cross-warp sum leaves out the last warp's partials
+    "composite_bwd_drops_a_warp": _mutant(
+        RASTER_BWD, "raster", RASTER_CASES,
+        ("for (int w = 0; w < kWarps; ++w)\n        if (sm.act",
+         "for (int w = 0; w < kWarps - 1; ++w)\n        if (sm.act")),
+    # the backward's reduce-scatter skips its last stage (lane offset 1)
+    "composite_bwd_reduce_scatter_short": _mutant(
+        RASTER_BWD, "raster", RASTER_CASES,
+        ("  if constexpr (OFF > 0) {", "  if constexpr (OFF > 1) {")),
 }
 
 
@@ -274,13 +320,25 @@ def _mutate(text: str, name: str, edits) -> str:
     return text
 
 
+def mutated_texts(csrc: Path, name: str) -> dict[str, str]:
+    """File name → mutated text of every file mutant `name` changes: its
+    source (unchanged where only a header is edited) and its headers."""
+    m = MUTANTS[name]
+    texts = {m["source"]: _mutate((csrc / m["source"]).read_text(), name,
+                                  m["edits"])}
+    for header, edits in m["headers"].items():
+        texts[header] = _mutate((csrc / header).read_text(), name, edits)
+    return texts
+
+
 def build_mutants(build, workdir: Path) -> dict[str, Path]:
     sources = {}
     for name, m in MUTANTS.items():
-        text = (build.CSRC_DIR / m["source"]).read_text()
-        src = workdir / f"{name}.cu"
-        src.write_text(_mutate(text, name, m["edits"]))
-        sources[name] = src
+        folder = workdir / name
+        folder.mkdir()
+        for file, text in mutated_texts(build.CSRC_DIR, name).items():
+            (folder / file).write_text(text)
+        sources[name] = folder / m["source"]
 
     def nvcc(item):
         name, src = item
@@ -329,9 +387,14 @@ def run_bf16(cs, fa, torch, names) -> list[dict]:
     return rows
 
 
-def run_raster(cs, tr, torch, names) -> list[dict]:
-    """One random scene at 448² (200,000 splats before an identity camera,
-    opacities up to 0.99), the reward's pair budget, a random cotangent."""
+def raster_inputs(cs, tr, torch) -> dict:
+    """Case → {"args": (gid, bounds, table, ntx, width, height), "out":
+    the plain forward's output, "gout": a random cotangent}: one random
+    scene at 448² (200,000 splats before an identity camera, opacities up
+    to 0.99, the reward's pair budget) and the grazing scene of
+    `tests/raster_cases.py` (72×40)."""
+    import raster_cases
+
     gen = torch.Generator(device="cuda").manual_seed(400)
     g, w = 200_000, cs.IMAGE
     means = torch.randn(g, 3, generator=gen, device="cuda") * 0.6
@@ -345,16 +408,47 @@ def run_raster(cs, tr, torch, names) -> list[dict]:
     table, pairs = tr.view_pairs(means, covars, harm, op,
                                  torch.eye(4, device="cuda"), K, w, w,
                                  13 * w * w)
-    ntx = w // tr.TILE
-    out = tr.composite(pairs.gid, pairs.bounds, table, ntx, w, w)
-    gout = torch.randn(out.shape, generator=gen, device="cuda")
-    res, passed, _ = cs.compare_composite_bwd(
-        tr, pairs.gid, pairs.bounds, table, out, gout, ntx, w, w)
-    return [{"case": "random_448", "pairs": pairs.gid.numel(), **res,
-             "passes": passed}]
+    grazing = raster_cases.grazing_case(2, exact=False).to("cuda")
+    cases = {"random_448": (pairs.gid, pairs.bounds, table, w // tr.TILE, w,
+                            w),
+             "grazing": tuple(grazing)}
+    return {name: {"args": args, "out": tr.composite_ref(*args),
+                   "gout": torch.randn(tr.N_OUT, args[5], args[4],
+                                       generator=gen, device="cuda")}
+            for name, args in cases.items()}
+
+
+def _judged(name, pairs, compare) -> dict:
+    """One composite case: `chip_smoke`'s comparison, whose check of
+    finite outputs raises — a mutant's non-finite output fails the case."""
+    try:
+        res, passed, _ = compare()
+    except AssertionError as err:
+        return {"case": name, "pairs": pairs, "error": str(err),
+                "passes": False}
+    return {"case": name, "pairs": pairs, **res, "passes": passed}
+
+
+def run_raster_fwd(cs, tr, inputs, names) -> list[dict]:
+    return [_judged(name, inputs[name]["args"][0].numel(),
+                    lambda: cs.compare_composite(tr, *inputs[name]["args"]))
+            for name in names]
+
+
+def run_raster(cs, tr, inputs, names) -> list[dict]:
+    rows = []
+    for name in names:
+        gid, bounds, table, ntx, w, h = inputs[name]["args"]
+        out, gout = inputs[name]["out"], inputs[name]["gout"]
+        rows.append(_judged(
+            name, gid.numel(), lambda: cs.compare_composite_bwd(
+                tr, gid, bounds, table, out, gout, ntx, w, h)))
+    return rows
 
 
 def describe(kind: str, r: dict) -> str:
+    if "error" in r:
+        return r["error"]
     if kind == "fwd":
         return (f"max|ΔO| {r['max_abs_err_o']:.6g} o_excess "
                 f"{r['o_excess']:.6g} max|ΔLSE| {r['max_abs_err_lse']:.6g} "
@@ -366,6 +460,9 @@ def describe(kind: str, r: dict) -> str:
         return (f"excess dQ {r['excess_dq']:.3g} dK {r['excess_dk']:.3g} "
                 f"dV {r['excess_dv']:.3g} repeatable "
                 f"{r['bitwise_repeatable']}")
+    if kind == "raster_fwd":
+        return (f"off share {r['off_share']:.3g} max|Δ| by plane "
+                f"{r['max_abs_err_by_plane']}")
     return (f"off share {r['off_share']:.3g} max rel by column "
             f"{r['max_rel_err_by_column']}")
 
@@ -382,6 +479,7 @@ def main(argv=None) -> int:
         print("torch_flash_mutants: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(REPO))
+    sys.path.insert(0, str(REPO / "tests"))
     import chip_smoke as cs
     from vist3a_tpu_torch.kernels import build
     from vist3a_tpu_torch.kernels import flash_attention as fa
@@ -390,11 +488,14 @@ def main(argv=None) -> int:
     runners = {"fwd": lambda names: run_fwd(cs, fa, torch, names),
                "f32": lambda names: run_f32(cs, fa, torch, names),
                "bf16": lambda names: run_bf16(cs, fa, torch, names),
-               "raster": lambda names: run_raster(cs, tr, torch, names)}
+               "raster_fwd": lambda names: run_raster_fwd(cs, tr, raster,
+                                                          names),
+               "raster": lambda names: run_raster(cs, tr, raster, names)}
     all_cases = {"fwd": [c[0] for c in FWD_CASES],
                  "f32": [n for n, _ in F32_CASES],
                  "bf16": [n for n, _ in BF16_CASES],
-                 "raster": ["random_448"]}
+                 "raster_fwd": list(RASTER_CASES),
+                 "raster": list(RASTER_CASES)}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
@@ -404,8 +505,9 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         for load in (fa._lib, fa._bwd_lib, fa._sm90_lib, fa._sm90_bwd_lib,
                      fa._f32_lib, fa._f32_bwd_lib,
-                     tr._bwd_lib):                  # the unchanged kernels
+                     tr._lib, tr._bwd_lib):         # the unchanged kernels
             load()
+        raster = raster_inputs(cs, tr, torch)
         built = build_mutants(build, Path(tmp))
         print(f"built {len(built)} mutants in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -441,10 +543,14 @@ def main(argv=None) -> int:
                               "lse_atol": cs.F32_LSE_ATOL},
                "grad_limits": {"atol_std": cs.GRAD_ATOL_STD,
                                "rtol": cs.GRAD_RTOL},
+               "raster_limits": {"atol": cs.RASTER_ATOL,
+                                 "max_off_share": cs.RASTER_MAX_OFF_SHARE},
                "raster_bwd_limits": {"rtol": cs.RASTER_BWD_RTOL,
                                      "max_off_share":
-                                         cs.RASTER_BWD_MAX_OFF_SHARE},
+                                         cs.RASTER_BWD_MAX_OFF_SHARE,
+                                     "max_rel": cs.RASTER_BWD_MAX_REL},
                "mutants": {n: {k: m[k] for k in ("source", "kind", "cases")}
+                           | {"headers": sorted(m["headers"])}
                            for n, m in MUTANTS.items()},
                "results": results}
     if args.out:

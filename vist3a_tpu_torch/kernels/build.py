@@ -29,8 +29,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
-# nvcc's output for each library built in this process (ptxas: registers,
-# shared memory and spills of every kernel).
+# nvcc's output for each library built or loaded in this process (ptxas:
+# registers, shared memory and spills of every kernel), also kept beside
+# the library as `.log`.
 build_logs: dict[str, str] = {}
 
 
@@ -73,7 +74,10 @@ def build(source: str) -> Path:
     """Compile `csrc/<source>` for sm_90a; returns the library's path."""
     src = CSRC_DIR / source
     lib = BUILD_DIR / f"lib{src.stem}-{digest(src)}.so"
+    log = lib.with_suffix(".log")
     if lib.exists():
+        if log.exists():
+            build_logs.setdefault(source, log.read_text())
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
@@ -83,6 +87,7 @@ def build(source: str) -> Path:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {src} (exit {proc.returncode}):\n"
                            f"{build_logs[source]}")
+    log.write_text(build_logs[source])
     os.replace(tmp, lib)
     return lib
 

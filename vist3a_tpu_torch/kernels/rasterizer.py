@@ -21,6 +21,11 @@ call: RGB+D, explicit covariances, 0.3-px dilation, near 1e-10, radius clip
   3. `composite`: the alpha composite over each 16×16 tile's segment —
      the Hopper kernel `csrc/rasterize_fwd.cu` on CUDA tensors, its plain
      version `composite_ref` on CPU tensors.  `launches` counts the kernel.
+     Both kernels give each warp of a tile's block an 8×4 sub-tile and walk
+     a warp only over the pairs whose a_raw ≥ 1/255 region can reach it
+     (`csrc/raster_common.cuh`); `subtile_mask_ref` is that cull mask's
+     plain version, and the plain composites restricted to it
+     (`keep=...`) give the same outputs as unrestricted.
   4. `Composite`, the autograd function `rasterize` calls: its backward is
      `composite_bwd` — the Hopper kernel `csrc/rasterize_bwd.cu` on CUDA
      tensors (`launches_backward` counts it), the explicit plain version
@@ -67,6 +72,17 @@ NEAR_PLANE = 1e-10
 FAR_PLANE = 1e10
 RADIUS_CLIP = 0.1
 REF_CHUNK = 4096     # pairs per step of the plain composite
+# a warp's sub-tile in the kernels: 8 pixels wide, 4 high, warps numbered
+# row-major over the tile's 2 × 4 sub-tiles
+SUB_W, SUB_H = 8, 4
+N_WARPS = PIX // 32
+# the cull mask's margins (csrc/raster_common.cuh says why each suffices)
+CULL_DIAG = 1e-4
+CULL_DET = 1e-5
+CULL_LEVEL = 1e-4
+CULL_EXTENT = 1e-4
+CULL_PAD = 1e-2
+CULL_HUGE = 1e6
 
 launches = 0
 launches_backward = 0
@@ -239,9 +255,68 @@ def build_pairs(proj: Projected, ntx: int, nty: int, pair_budget: int,
     return Pairs(gid, bounds, total)
 
 
+def subtile_mask_ref(table: torch.Tensor, ntx: int, width: int, height: int,
+                     gid: torch.Tensor, bounds: torch.Tensor) -> torch.Tensor:
+    """(P,) int32: each pair's cull mask, bit w set when the pair's
+    a_raw ≥ 1/255 region can reach a pixel centre of warp w's 8×4 sub-tile
+    of the pair's tile (w = 2·(y // 4) + x // 8 within the tile).
+
+    Mirrors `csrc/raster_common.cuh::subtile_mask` operation by operation
+    in fp32, margins included (the header states why each suffices): the
+    ellipse σ ≤ ln(255·o) of the conic with its diagonal shrunk by
+    `CULL_DIAG`, det lowered by `CULL_DET`, the level raised by
+    `CULL_LEVEL`, the half-extents widened by `CULL_EXTENT` and `CULL_PAD`.
+    A non-PD conic, o < 1/255, a non-finite value or an extent beyond
+    `CULL_HUGE` gives all 8 bits."""
+    _tile_grid(bounds, ntx, width, height)
+    device = table.device
+    idx = torch.arange(gid.numel(), device=device)
+    tile = torch.searchsorted(bounds[1:].long(), idx, right=True)
+    ty = torch.div(tile, ntx, rounding_mode="floor")
+    x0 = ((tile - ty * ntx) * TILE).float() + 0.5
+    y0 = (ty * TILE).float() + 0.5
+    mx, my, a, b, c, o = table[gid.long()].float()[:, :6].unbind(1)
+    ap = a * (1.0 - CULL_DIAG)
+    cp = c * (1.0 - CULL_DIAG)
+    det = ap * cp - b * b
+    det_lo = det - CULL_DET * (ap * cp + b * b)
+    level = torch.log(255.0 * o)
+    lv = level + CULL_LEVEL * (level.abs() + 1.0)
+    ex = torch.sqrt(2.0 * lv * cp / det_lo) * (1.0 + CULL_EXTENT) + CULL_PAD
+    ey = torch.sqrt(2.0 * lv * ap / det_lo) * (1.0 + CULL_EXTENT) + CULL_PAD
+    culls = ((ap > 0) & (cp > 0) & (det_lo > 0) & (o >= ALPHA_MIN)
+             & (ex <= CULL_HUGE) & (ey <= CULL_HUGE)
+             & (mx.abs() <= CULL_HUGE) & (my.abs() <= CULL_HUGE))
+    mask = torch.zeros(gid.numel(), dtype=torch.int32, device=device)
+    for w in range(N_WARPS):
+        sx0 = x0 + float((w % 2) * SUB_W)
+        sy0 = y0 + float((w // 2) * SUB_H)
+        sx1 = sx0 + float(SUB_W - 1)
+        sy1 = sy0 + float(SUB_H - 1)
+        hit = ((sx0 - mx <= ex) & (mx - sx1 <= ex)
+               & (sy0 - my <= ey) & (my - sy1 <= ey))
+        mask |= hit.int() << w
+    return torch.where(culls, mask, (1 << N_WARPS) - 1)
+
+
+def pixel_warp() -> torch.Tensor:
+    """(PIX,) the warp whose sub-tile holds each pixel of a tile, pixels
+    row-major (p = 16·y + x)."""
+    p = torch.arange(PIX)
+    return (p // TILE // SUB_H) * (TILE // SUB_W) + (p % TILE) // SUB_W
+
+
+def _kept(keep, c0: int, c1: int, warp_of) -> torch.Tensor | bool:
+    """(PIX, K) whether each pixel's warp walks each pair of the chunk."""
+    if keep is None:
+        return True
+    return ((keep[c0:c1][None, :] >> warp_of[:, None]) & 1).bool()
+
+
 def composite_ref(gid: torch.Tensor, bounds: torch.Tensor,
                   table: torch.Tensor, ntx: int, width: int, height: int, *,
-                  return_work: bool = False):
+                  return_work: bool = False,
+                  keep: torch.Tensor | None = None):
     """Plain PyTorch version of the composite kernel → (6, H, W) fp32.
 
     Tile by tile, over chunks of `REF_CHUNK` pairs with T carried between
@@ -249,7 +324,9 @@ def composite_ref(gid: torch.Tensor, bounds: torch.Tensor,
     sequential `cumprod` on the CPU, as the kernel multiplies).  With
     `return_work`, also returns per-pixel counts (pairs evaluated up to and
     including the stopping pair, pairs composited, and of those the pairs
-    whose α was clamped at `ALPHA_CLAMP`), each (H, W) int64."""
+    whose α was clamped at `ALPHA_CLAMP`), each (H, W) int64.  `keep`, a
+    (P,) mask as `subtile_mask_ref` gives, restricts each pixel to the
+    pairs its warp walks (a culled pair counts as skipped)."""
     device = table.device
     n_tiles = bounds.numel() - 1
     nty = n_tiles // ntx
@@ -262,6 +339,7 @@ def composite_ref(gid: torch.Tensor, bounds: torch.Tensor,
     p = torch.arange(PIX, device=device)
     lx = (p % TILE).float() + 0.5
     ly = torch.div(p, TILE, rounding_mode="floor").float() + 0.5
+    warp_of = pixel_warp().to(device)
     starts = bounds.tolist()
     for t in range(n_tiles):
         s, e = starts[t], starts[t + 1]
@@ -278,7 +356,8 @@ def composite_ref(gid: torch.Tensor, bounds: torch.Tensor,
             sigma = 0.5 * (a[:, 2] * dx * dx + a[:, 4] * dy * dy) \
                 + a[:, 3] * dx * dy
             a_raw = a[:, 5] * torch.exp(-sigma)
-            ok = (sigma >= 0) & (a_raw >= ALPHA_MIN)
+            ok = (sigma >= 0) & (a_raw >= ALPHA_MIN) \
+                & _kept(keep, c0, c0 + a.shape[0], warp_of)
             alpha = torch.where(ok, torch.clamp_max(a_raw, ALPHA_CLAMP), 0.0)
             t_incl = torch.cumprod(torch.cat([trans, 1.0 - alpha], 1), 1)
             t_excl, t_incl = t_incl[:, :-1], t_incl[:, 1:]
@@ -313,7 +392,8 @@ def composite_ref(gid: torch.Tensor, bounds: torch.Tensor,
 def composite_bwd_ref(gid: torch.Tensor, bounds: torch.Tensor,
                       table: torch.Tensor, out: torch.Tensor,
                       gout: torch.Tensor, ntx: int, width: int,
-                      height: int) -> torch.Tensor:
+                      height: int, *,
+                      keep: torch.Tensor | None = None) -> torch.Tensor:
     """Plain PyTorch version of the composite backward kernel: the gradient
     (P, 10) of every pair's table row, given the forward's output `out` and
     its cotangent `gout` (each (6, H, W)), computed explicitly, without
@@ -322,7 +402,8 @@ def composite_bwd_ref(gid: torch.Tensor, bounds: torch.Tensor,
     Tile by tile over chunks of `REF_CHUNK` pairs, as `composite_ref`, with
     T, the stop flag and the prefix Σ w·gp carried between chunks; the
     suffix that dα needs is the total Σ_c g_c·out_c less the prefix, plus
-    the T_final cotangent g_T·T_N (the TPU kernel's form)."""
+    the T_final cotangent g_T·T_N (the TPU kernel's form).  `keep`
+    restricts each pixel to its warp's pairs, as in `composite_ref`."""
     device = table.device
     n_tiles = bounds.numel() - 1
     nty = n_tiles // ntx
@@ -339,6 +420,7 @@ def composite_bwd_ref(gid: torch.Tensor, bounds: torch.Tensor,
     p = torch.arange(PIX, device=device)
     lx = (p % TILE).float() + 0.5
     ly = torch.div(p, TILE, rounding_mode="floor").float() + 0.5
+    warp_of = pixel_warp().to(device)
     starts = bounds.tolist()
     for t in range(n_tiles):
         s, e = starts[t], starts[t + 1]
@@ -360,7 +442,8 @@ def composite_bwd_ref(gid: torch.Tensor, bounds: torch.Tensor,
             sigma = 0.5 * (a[:, 2] * dx * dx + a[:, 4] * dy * dy) \
                 + a[:, 3] * dx * dy
             a_raw = a[:, 5] * torch.exp(-sigma)
-            ok = (sigma >= 0) & (a_raw >= ALPHA_MIN)
+            ok = (sigma >= 0) & (a_raw >= ALPHA_MIN) \
+                & _kept(keep, c0, c1, warp_of)
             alpha = torch.where(ok, torch.clamp_max(a_raw, ALPHA_CLAMP), 0.0)
             t_incl = torch.cumprod(torch.cat([trans, 1.0 - alpha], 1), 1)
             t_excl, t_incl = t_incl[:, :-1], t_incl[:, 1:]
@@ -419,6 +502,7 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+
 def _check(gid, bounds, table, ntx, width, height) -> None:
     for name, x, dtype in (("gid", gid, torch.int32),
                            ("bounds", bounds, torch.int32),
@@ -432,6 +516,13 @@ def _check(gid, bounds, table, ntx, width, height) -> None:
     if gid.dim() != 1 or table.dim() != 2 or table.shape[1] != N_ATTR:
         raise ValueError(f"gid (P,) and table (G, {N_ATTR}), got "
                          f"{tuple(gid.shape)} and {tuple(table.shape)}")
+    _tile_grid(bounds, ntx, width, height)
+    if table.data_ptr() % 8:
+        raise ValueError("table must be 8-byte aligned: the kernels copy "
+                         "its rows 8 bytes at a time")
+
+
+def _tile_grid(bounds, ntx: int, width: int, height: int) -> None:
     n_tiles = bounds.numel() - 1
     if n_tiles <= 0 or n_tiles % ntx or ntx != _cdiv(width, TILE) \
             or n_tiles // ntx != _cdiv(height, TILE):
@@ -472,6 +563,14 @@ def _bwd_lib() -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 \
             + [ctypes.c_void_p]
     return lib
+
+
+def bwd_smem_bytes() -> int:
+    """Dynamic shared memory a block of the backward kernel takes."""
+    fn = _bwd_lib().rasterize_composite_bwd_smem
+    fn.restype = ctypes.c_int
+    fn.argtypes = []
+    return fn()
 
 
 def composite_bwd(gid: torch.Tensor, bounds: torch.Tensor,
