@@ -65,10 +65,12 @@ Phases, each of which passes or raises (any failure exits non-zero):
                composite backward (kernel 7) against `composite_bwd_ref` on
                the same two views at the reward's 1×G pair budget, given a
                random cotangent (`RASTER_BWD_*` limits), bit for bit
-               repeatable, timed with its bound.  Prints, per view, the
-               share of (warp, pair)s the kernels' sub-tile cull keeps
-               (`subtile_mask_ref`), the largest and mean tile walk, and
-               ptxas's registers and spills of both composite kernels.
+               repeatable, timed with its bound.  Logs, per view, figures
+               of the plain versions, not of the kernels: the share of
+               (warp, pair)s the sub-tile cull keeps (`subtile_mask_ref`)
+               and the largest and mean tile walk (`composite_ref`'s
+               work counts).  Logs ptxas's registers and spills of both
+               composite kernels.
                No PyTorch call computes either function, so their library
                times are null.
   5. slice   — builds the stitched decoder at full width (VGGT-1B /
@@ -446,9 +448,8 @@ def phase_build() -> None:
         "fwd": fwd32.flash_attention_fwd_f32_sm90_smem(64),
         "bwd_dkv": bwd32.flash_attention_bwd_f32_sm90_smem(64, 0),
         "bwd_dq": bwd32.flash_attention_bwd_f32_sm90_smem(64, 1)}
-    smem["composite bwd"] = tr.bwd_smem_bytes()
-    log("  wgmma and composite kernels' dynamic shared memory a block "
-        "(bytes): " + json.dumps(smem))
+    log("  wgmma kernels' dynamic shared memory a block (bytes): "
+        + json.dumps(smem))
 
 
 @dataclasses.dataclass
@@ -1306,7 +1307,7 @@ def composite_bound(pairs, n_eval, n_comp) -> dict:
     n_comp = int(n_comp.sum())
     ops = (OPS_PER_EVAL + OPS_PER_COMPOSITE) * n_comp
     ops_all = OPS_PER_EVAL * int(n_eval.sum()) + OPS_PER_COMPOSITE * n_comp
-    walk, need = tile_walks(pairs, n_eval)
+    _, need = tile_walks(pairs, n_eval)
     n_rows = torch.unique(pairs.gid[need]).numel()
     n_bytes = 4 * int(need.sum()) + 4 * tr.N_ATTR * n_rows \
         + 4 * pairs.bounds.numel() + 4 * tr.N_OUT * IMAGE * IMAGE
@@ -1317,9 +1318,7 @@ def composite_bound(pairs, n_eval, n_comp) -> dict:
                                           bytes_ms),
             "bytes": n_bytes, "pairs_walked": int(need.sum()),
             "rows_read": n_rows, "bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "walk_max": int(walk.max()),
-            "walk_mean": walk.float().mean().item()}
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
 def tile_walks(pairs, n_eval):
@@ -1337,89 +1336,55 @@ def tile_walks(pairs, n_eval):
     return walk, (idx - bounds[tile]) < walk[tile]
 
 
-def cull_stats(pairs, table, n_eval, batch: int) -> dict:
-    """The kernels' cull on this view (`subtile_mask_ref`, the plain
-    version of their mask): the share of (warp, pair)s kept over the whole
+def cull_stats(pairs, table, n_eval, walked, composited,
+               batch: int) -> dict:
+    """The cull on this view, figures of the plain versions: the mask of
+    `subtile_mask_ref` and the (warp, pair) walk of
+    `composite_ref(warp_work=True)` (`walked`, `composited`), not read back
+    from the kernel. Each tile's walk (the pairs up to its last pixel's
+    stop), largest and mean; the share of (warp, pair)s kept over the whole
     stream and over the pairs the tiles walk up to their stop; and, over
-    each warp's own walk (the pairs before its last pixel stops), the
-    (warp, pair)s it walks, those it keeps, and those some lane of it
-    composites, whose gradients the backward reduces.  `warp_imbalance`:
-    over the kernel's stages of `batch` pairs, between two of which a block
-    waits for its slowest warp, Σ max over the warps of the kept and
+    each warp's own walk, the (warp, pair)s it walks, those it keeps, and
+    those some lane of it composites, whose gradients the backward reduces.
+    `warp_imbalance`: over stages of `batch` pairs, between two of which a
+    block waits for its slowest warp, Σ max over the warps of the kept and
     composited (warp, pair)s over Σ their mean (1 if every warp of a stage
-    had as many); `warp_imbalance_tile` the same over whole tiles, the
-    part that no scheduling of a tile's fixed warps can remove."""
+    had as many); `warp_imbalance_tile` the same over whole tiles, the part
+    that no scheduling of a tile's fixed warps can remove."""
     import torch
 
     from vist3a_tpu_torch.kernels import rasterizer as tr
 
-    ntx = IMAGE // tr.TILE
-    _, need = tile_walks(pairs, n_eval)
-    mask = tr.subtile_mask_ref(table, ntx, IMAGE, IMAGE, pairs.gid,
-                               pairs.bounds)
-    bits = sum(((mask >> w) & 1) for w in range(tr.N_WARPS))
-    p = torch.arange(tr.PIX, device=table.device)
-    lx = (p % tr.TILE).float() + 0.5
-    ly = torch.div(p, tr.TILE, rounding_mode="floor").float() + 0.5
-    # the pixels of warp w are rows 32w .. 32w + 31 of by_warp
-    by_warp = torch.argsort(tr.pixel_warp(), stable=True).to(table.device)
+    walk, need = tile_walks(pairs, n_eval)
+    mask = tr.subtile_mask_ref(table, IMAGE // tr.TILE, IMAGE, IMAGE,
+                               pairs.gid, pairs.bounds)
     warps = torch.arange(tr.N_WARPS, device=table.device)[:, None]
-    walked = kept = active = 0
-    stage_max = stage_mean = tile_max = tile_mean = 0.0
-    starts = pairs.bounds.tolist()
-    for t in range(len(starts) - 1):
-        s, e = starts[t], starts[t + 1]
-        tile_work = torch.zeros(tr.N_WARPS, device=table.device)
-        ty, tx = divmod(t, ntx)
-        px, py = (tx * tr.TILE + lx)[:, None], (ty * tr.TILE + ly)[:, None]
-        trans = torch.ones(tr.PIX, 1, device=table.device)
-        done = (px >= IMAGE) | (py >= IMAGE)
-        for c0 in range(s, e, tr.REF_CHUNK):
-            c1 = min(c0 + tr.REF_CHUNK, e)
-            a = table[pairs.gid[c0:c1].long()]
-            dx, dy = px - a[:, 0], py - a[:, 1]
-            sigma = 0.5 * (a[:, 2] * dx * dx + a[:, 4] * dy * dy) \
-                + a[:, 3] * dx * dy
-            a_raw = a[:, 5] * torch.exp(-sigma)
-            ok = (sigma >= 0) & (a_raw >= tr.ALPHA_MIN)
-            alpha = torch.where(ok, torch.clamp_max(a_raw, tr.ALPHA_CLAMP),
-                                0.0)
-            t_incl = torch.cumprod(torch.cat([trans, 1.0 - alpha], 1), 1)
-            evaluated = (t_incl[:, :-1] >= tr.T_EPS) & ~done
-            composited = (t_incl[:, 1:] >= tr.T_EPS) & ok & ~done
-            w_walk = evaluated[by_warp].view(tr.N_WARPS, 32, -1).any(1)
-            w_comp = composited[by_warp].view(tr.N_WARPS, 32, -1).any(1)
-            w_kept = ((mask[c0:c1][None] >> warps) & 1).bool()
-            check(not bool((w_comp & ~w_kept).any()),
-                  f"the cull drops a (warp, pair) that composites: tile {t}")
-            walked += int(w_walk.sum())
-            kept += int((w_walk & w_kept).sum())
-            active += int(w_comp.sum())
-            stage = torch.div(torch.arange(c0 - s, c1 - s,
-                                           device=table.device),
-                              batch, rounding_mode="floor")
-            stage = stage - stage[0]
-            work = torch.zeros(tr.N_WARPS, int(stage[-1]) + 1,
-                               device=table.device).index_add_(
-                1, stage, ((w_walk & w_kept).float() + w_comp.float()))
-            stage_max += work.amax(0).sum().item()
-            stage_mean += work.mean(0).sum().item()
-            tile_work += work.sum(1)
-            n_live = (t_incl[:, 1:] >= tr.T_EPS).sum(1, keepdim=True)
-            trans = torch.where(n_live > 0, torch.gather(
-                t_incl[:, 1:], 1, (n_live - 1).clamp_min(0)), trans)
-            done = done | (n_live < c1 - c0)
-            if bool(done.all()):
-                break
-        tile_max += tile_work.max().item()
-        tile_mean += tile_work.mean().item()
-    return {"kept_share": bits.sum().item() / (tr.N_WARPS * mask.numel()),
-            "kept_share_walked": bits[need].sum().item()
+    kept = ((mask[None] >> warps) & 1).bool()
+    check(not bool((composited & ~kept).any()),
+          "the cull drops a (warp, pair) that composites")
+    work = (walked & kept).float() + composited.float()
+    idx = torch.arange(mask.numel(), device=table.device)
+    bounds = pairs.bounds.long()
+    tile = torch.searchsorted(bounds[1:], idx, right=True)
+    stage = tile * (int(torch.diff(bounds).max()) // batch + 1) \
+        + torch.div(idx - bounds[tile], batch, rounding_mode="floor")
+    _, stage = torch.unique(stage, return_inverse=True)
+
+    def imbalance(group):
+        w = torch.zeros(tr.N_WARPS, int(group.max()) + 1,
+                        device=table.device).index_add_(1, group, work)
+        return w.amax(0).sum().item() / max(w.mean(0).sum().item(), 1e-30)
+
+    return {"walk_max": int(walk.max()),
+            "walk_mean": walk.float().mean().item(),
+            "kept_share": kept.sum().item() / kept.numel(),
+            "kept_share_walked": kept[:, need].sum().item()
             / (tr.N_WARPS * max(int(need.sum()), 1)),
-            "warp_pairs_walked": walked, "warp_pairs_kept": kept,
-            "warp_pairs_active": active,
-            "warp_imbalance": stage_max / max(stage_mean, 1e-30),
-            "warp_imbalance_tile": tile_max / max(tile_mean, 1e-30)}
+            "warp_pairs_walked": int(walked.sum()),
+            "warp_pairs_kept": int((walked & kept).sum()),
+            "warp_pairs_active": int(composited.sum()),
+            "warp_imbalance": imbalance(stage),
+            "warp_imbalance_tile": imbalance(tile)}
 
 
 def ptxas_summary(source: str) -> dict:
@@ -1453,13 +1418,14 @@ def compare_composite(tr, gid, bounds, table, ntx: int, width: int,
                       height: int):
     """The composite kernel against `composite_ref` on one view: each plane
     within `RASTER_ATOL` of its scale on all but `RASTER_MAX_OFF_SHARE` of
-    the pixels → (result, passed, (kernel output, plain output, work))."""
+    the pixels → (result, passed, (kernel output, plain output, work)),
+    `work` the plain version's counts (`composite_ref(warp_work=True)`)."""
     import torch
 
     args = (gid, bounds, table, ntx, width, height)
     img = tr.composite(*args)
     torch.cuda.synchronize()
-    ref, *work = tr.composite_ref(*args, return_work=True)
+    ref, *work = tr.composite_ref(*args, return_work=True, warp_work=True)
     check(bool(torch.isfinite(img).all()), "non-finite composite output")
     diff = (img - ref).abs()
     scale = ref.abs().flatten(1).amax(1).clamp_min(1.0)[:, None, None]
@@ -1494,7 +1460,8 @@ def raster_view(g, cams, view: int) -> dict:
     check(n_pairs > 0, f"orbit view {view} is empty: nothing to composite")
     ntx = IMAGE // tr.TILE
     args = (pairs.gid, pairs.bounds, table, ntx, IMAGE, IMAGE)
-    cmp, passed, (_, ref, (n_eval, n_comp, _)) = compare_composite(tr, *args)
+    cmp, passed, (_, ref, work) = compare_composite(tr, *args)
+    n_eval, n_comp, _, walked, composited = work
     log(f"raster: view {view}: kernel vs plain {json.dumps(cmp)}; covered "
         f"(alpha > 0.5) {(ref[4] > 0.5).float().mean().item():.4f}")
     check(passed, f"composite kernel disagrees with composite_ref on "
@@ -1510,27 +1477,31 @@ def raster_view(g, cams, view: int) -> dict:
            "max_abs_err": cmp["max_abs_err"], "off_share": cmp["off_share"],
            "kernel_ms": kernel_ms, "plain_ms": plain_ms, **bound,
            "share_of_bound": bound["bound_ms"] / kernel_ms,
-           **cull_stats(pairs, table, n_eval, batch=256)}
+           "plain": cull_stats(pairs, table, n_eval, walked, composited,
+                               batch=256)}
     log(f"raster: {json.dumps(res)}")
     log_view("forward", res)
     return {**res, "backward": raster_view_backward(g, cams, view)}
 
 
 def log_view(kind: str, res: dict) -> None:
-    """One composite kernel's time on a view beside its bound, its cull
-    and its walk; a share of the bound over 1 fails (the bound is wrong)."""
+    """One composite kernel's time on a view beside its bound, then the
+    plain versions' figures of the cull and the walk (`res["plain"]`: the
+    kernel's own are not read back); a share of the bound over 1 fails
+    (the bound is wrong)."""
     check(res["share_of_bound"] <= 1, f"the {kind} beat its bound: {res}")
+    p = res["plain"]
     log(f"raster: view {res['view']}: {kind} {res['kernel_ms']:.4f} ms, "
         f"bound {res['bound_ms']:.4f} ms ({res['bound_by']}), share of the "
-        f"bound {res['share_of_bound']:.4f}; kept (warp, pair)s "
-        f"{res['kept_share']:.4f} of the stream, "
-        f"{res['kept_share_walked']:.4f} of the walk, "
-        f"{res['warp_pairs_active']} of {res['warp_pairs_kept']} kept "
+        f"bound {res['share_of_bound']:.4f} (bound with every evaluation up "
+        f"to the stop {res['bound_all_evaluated_ms']:.4f} ms); the plain "
+        f"versions' figures: kept (warp, pair)s {p['kept_share']:.4f} of "
+        f"the stream, {p['kept_share_walked']:.4f} of the walk, "
+        f"{p['warp_pairs_active']} of {p['warp_pairs_kept']} kept "
         f"composited by some lane, imbalance a stage "
-        f"{res['warp_imbalance']:.3f}, a tile "
-        f"{res['warp_imbalance_tile']:.3f}; tile walk largest "
-        f"{res['walk_max']}, "
-        f"mean {res['walk_mean']:.1f} pairs")
+        f"{p['warp_imbalance']:.3f}, a tile {p['warp_imbalance_tile']:.3f}; "
+        f"tile walk largest {p['walk_max']}, mean {p['walk_mean']:.1f} "
+        f"pairs")
 
 
 def compare_composite_bwd(tr, gid, bounds, table, out, gout, ntx: int,
@@ -1588,8 +1559,7 @@ def composite_bwd_bound(tr, pairs, n_eval, n_comp, n_clamp) -> dict:
             "bound_all_evaluated_ms": max(ops_all / PEAK_FP32_FLOPS * 1e3,
                                           bytes_ms),
             "bytes": n_bytes, "bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "walk_max": fwd["walk_max"], "walk_mean": fwd["walk_mean"]}
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
 def raster_view_backward(g, cams, view: int) -> dict:
@@ -1614,8 +1584,9 @@ def raster_view_backward(g, cams, view: int) -> dict:
     check(passed, f"composite backward disagrees with composite_bwd_ref on "
           f"view {view}: {res} (limits {RASTER_BWD_RTOL}, "
           f"{RASTER_BWD_MAX_OFF_SHARE}, {RASTER_BWD_MAX_REL})")
-    _, n_eval, n_comp, n_clamp = tr.composite_ref(
-        pairs.gid, pairs.bounds, table, ntx, IMAGE, IMAGE, return_work=True)
+    _, n_eval, n_comp, n_clamp, walked, composited = tr.composite_ref(
+        pairs.gid, pairs.bounds, table, ntx, IMAGE, IMAGE, return_work=True,
+        warp_work=True)
     kernel_ms = cuda_events_ms(lambda: tr.composite_bwd(*args), iters=10)
     plain_ms = cuda_events_ms(lambda: tr.composite_bwd_ref(*args), iters=1,
                               warmup=0)
@@ -1625,7 +1596,8 @@ def raster_view_backward(g, cams, view: int) -> dict:
                plain_ms=plain_ms, clamped=int(n_clamp.sum()),
                evaluations=int(n_eval.sum()), composited=int(n_comp.sum()),
                **bound, share_of_bound=bound["bound_ms"] / kernel_ms,
-               **cull_stats(pairs, table, n_eval, batch=128))
+               plain=cull_stats(pairs, table, n_eval, walked, composited,
+                                batch=128))
     log(f"raster: backward {json.dumps(res)}")
     log_view("backward", res)
     return res
@@ -2781,10 +2753,7 @@ def _kernel_entries(timed: dict, raster: list | None,
             "views": [{k: x[k] for k in ("view", "pairs", "kernel_ms",
                                          "plain_ms", "bound_ms", "bound_by",
                                          "max_abs_err", "off_share",
-                                         "share_of_bound",
-                                         "bound_all_evaluated_ms",
-                                         "kept_share", "walk_max",
-                                         "walk_mean")}
+                                         "share_of_bound")}
                       for x in raster]})
         main, by_path = count("composite_backward", ("vdm",))
         rb = [x["backward"] for x in raster]
@@ -2803,10 +2772,7 @@ def _kernel_entries(timed: dict, raster: list | None,
             "views": [{k: x[k] for k in ("view", "pairs", "kernel_ms",
                                          "plain_ms", "bound_ms", "bound_by",
                                          "max_abs_err", "off_share",
-                                         "share_of_bound",
-                                         "bound_all_evaluated_ms",
-                                         "kept_share", "walk_max",
-                                         "walk_mean")}
+                                         "share_of_bound")}
                       for x in rb]})
     return entries
 

@@ -14,6 +14,9 @@ import pytest
 import raster_cases
 import torch
 
+from chip_smoke import (RASTER_ATOL, RASTER_BWD_MAX_OFF_SHARE,
+                        RASTER_BWD_MAX_REL, RASTER_BWD_RTOL,
+                        RASTER_MAX_OFF_SHARE)
 from vist3a_tpu_torch.kernels import flash_attention as fa
 from vist3a_tpu_torch.kernels import rasterizer as tr
 from vist3a_tpu_torch.nn import wan_dit
@@ -474,12 +477,6 @@ def test_composite_backward_matches_plain_on_card(cuda):
 # RASTER_BWD_RTOL of its column's largest on all but
 # RASTER_BWD_MAX_OFF_SHARE of the pairs, and every error within
 # RASTER_BWD_MAX_REL of it.
-RASTER_ATOL = 1e-4
-RASTER_MAX_OFF_SHARE = 1e-3
-RASTER_BWD_RTOL = 1e-3
-RASTER_BWD_MAX_OFF_SHARE = 1e-3
-RASTER_BWD_MAX_REL = 1e-2
-
 RASTER_CASES = {
     # grazing ellipses, needles, non-PD conics, huge radii and an opaque
     # cluster, at a size no multiple of the tile (72×40) and at 48²

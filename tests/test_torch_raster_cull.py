@@ -188,3 +188,42 @@ def test_early_stop_case_stops_every_pixel_in_the_first_stage():
     _, n_eval, _, _ = tr.composite_ref(case.gid, case.bounds, case.table,
                                        case.ntx, 32, 32, return_work=True)
     assert int(n_eval.max()) <= 2
+
+
+@pytest.mark.parametrize("name", ["early_stop", "grazing_exact_1", "scene"])
+def test_warp_work_is_each_warps_walk(name):
+    """`composite_ref(warp_work=True)`'s (warp, pair) figures, which
+    `chip_smoke.py` reads the cull's statistics from: warp w walks the
+    pairs of its tile up to its furthest pixel's stop (`n_eval`), and
+    composites pair j exactly where the plain backward, given a random
+    cotangent on warp w's pixels only, gives pair j colour or depth
+    gradients; no composited (warp, pair) is culled."""
+    case = CASES[name]()
+    args = (case.gid, case.bounds, case.table, case.ntx, case.width,
+            case.height)
+    out, n_eval, _, _, walked, comp = tr.composite_ref(
+        *args, return_work=True, warp_work=True)
+    assert walked.shape == comp.shape == (tr.N_WARPS, case.gid.numel())
+    assert bool(comp.any()) and not bool((comp & ~walked).any())
+    kept = ((_mask(case)[None] >> torch.arange(tr.N_WARPS)[:, None]) & 1)
+    assert not bool((comp & ~kept.bool()).any())
+    nty = case.bounds.numel() // case.ntx
+    warp = tr.pixel_warp().view(tr.TILE, tr.TILE).repeat(nty, case.ntx)[
+        :case.height, :case.width]
+    y, x = torch.meshgrid(torch.arange(case.height),
+                          torch.arange(case.width), indexing="ij")
+    tile = (y // tr.TILE) * case.ntx + x // tr.TILE
+    want = torch.zeros_like(walked)
+    starts = case.bounds.tolist()
+    for t in range(len(starts) - 1):
+        for w in range(tr.N_WARPS):
+            reach = n_eval[(tile == t) & (warp == w)]
+            if reach.numel():
+                want[w, starts[t]:starts[t] + int(reach.max())] = True
+    assert torch.equal(walked, want)
+    gout = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        out.shape).astype(np.float32))
+    for w in range(tr.N_WARPS):
+        d = tr.composite_bwd_ref(*args[:3], out, gout * (warp == w),
+                                 *args[3:])
+        assert torch.equal(comp[w], (d[:, 6:10] != 0).any(1)), w

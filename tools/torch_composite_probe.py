@@ -18,12 +18,9 @@ temporary directory, one nvcc each, all at once:
     sums its contributions into a register that is never stored);
     `bwd_no_sum`, the backward without its cross-warp sum and row writes;
     `fwd_stage_only`, `bwd_stage_only`, the kernels staging every batch
-    (ids, rows, masks, barriers) and walking none;
-  * each `--define NAME=fwd|bwd:MACRO=VALUE[,MACRO=VALUE...]`: the
-    repository's kernel of that direction built with those macros (the
-    build-time knobs the sources read: RASTER_FWD_BATCH, RASTER_BWD_BATCH,
-    RASTER_FWD_MIN_BLOCKS, RASTER_BWD_MIN_BLOCKS, RASTER_GROUP,
-    RASTER_FAST_EXP, RASTER_FAST_DIV).
+    (ids, rows, masks, barriers) and walking none.
+Another variant is one more entry of `VARIANTS`: a source and the text
+edits that make it.
 On each orbit view of `chip_smoke.RASTER_VIEWS` (the forward at the
 default pair budget, the backward at the reward's 1×G budget with a random
 cotangent), the kernels of one direction are timed in turns — the parent,
@@ -49,7 +46,7 @@ REPO = Path(__file__).resolve().parent.parent
 FWD, BWD, HEADER = "rasterize_fwd.cu", "rasterize_bwd.cu", "raster_common.cuh"
 ITERS = 20
 
-# variant → (source, {file: [(text, replacement), ...]}, [macro=value])
+# variant → (source, {file: [(text, replacement), ...]})
 CULL_OFF = {HEADER: [("  return mask;\n}", "  return kAllWarps;\n}")]}
 NO_REDUCE = [(
     "      const int v = reduce_scatter(c, lane);\n",
@@ -61,12 +58,12 @@ NO_SUM = [("      dpair[static_cast<size_t>(base + j) * kAttr + k] = sum;\n",
            "      if (sum == 1234.5f) dpair[0] = sum;\n")]
 STAGE_ONLY = [("    const int n = min(kBatch, end - base);\n",
                "    const int n = 0;\n")]
-VARIANTS = {"fwd_cull_off": (FWD, CULL_OFF, []),
-            "fwd_stage_only": (FWD, {FWD: STAGE_ONLY}, []),
-            "bwd_cull_off": (BWD, CULL_OFF, []),
-            "bwd_no_reduce": (BWD, {BWD: NO_REDUCE}, []),
-            "bwd_no_sum": (BWD, {BWD: NO_SUM}, []),
-            "bwd_stage_only": (BWD, {BWD: STAGE_ONLY}, [])}
+VARIANTS = {"fwd_cull_off": (FWD, CULL_OFF),
+            "fwd_stage_only": (FWD, {FWD: STAGE_ONLY}),
+            "bwd_cull_off": (BWD, CULL_OFF),
+            "bwd_no_reduce": (BWD, {BWD: NO_REDUCE}),
+            "bwd_no_sum": (BWD, {BWD: NO_SUM}),
+            "bwd_stage_only": (BWD, {BWD: STAGE_ONLY})}
 # timed only: their outputs are wrong by design
 TIMED_ONLY = ("fwd_stage_only", "bwd_no_reduce", "bwd_no_sum",
               "bwd_stage_only")
@@ -81,35 +78,23 @@ def _edit(text: str, edits) -> str:
     return text
 
 
-def parse_define(spec: str) -> tuple[str, tuple]:
-    """"NAME=fwd:A=1,B=2" → (NAME, (source, {}, ["A=1", "B=2"]))."""
-    name, _, rest = spec.partition("=")
-    direction, _, macros = rest.partition(":")
-    if direction not in ("fwd", "bwd") or not name or not macros:
-        raise SystemExit(f"--define {spec!r}: NAME=fwd|bwd:MACRO=VALUE,...")
-    return name, ({"fwd": FWD, "bwd": BWD}[direction], {},
-                  macros.split(","))
-
-
-def build_libs(build, parent: Path, workdir: Path,
-               variants: dict) -> dict[str, Path]:
+def build_libs(build, parent: Path, workdir: Path) -> dict[str, Path]:
     """Name → built library of each predecessor and variant."""
     jobs = {}
     for name, src in (("parent_fwd", FWD), ("parent_bwd", BWD)):
-        jobs[name] = (parent / src, parent, [])
-    for name, (src, edits, macros) in variants.items():
+        jobs[name] = (parent / src, parent)
+    for name, (src, edits) in VARIANTS.items():
         folder = workdir / name
         folder.mkdir()
         for file in {src, *edits}:
             text = (build.CSRC_DIR / file).read_text()
             (folder / file).write_text(_edit(text, edits.get(file, [])))
-        jobs[name] = (folder / src, build.CSRC_DIR,
-                      [f"-D{m}" for m in macros])
+        jobs[name] = (folder / src, build.CSRC_DIR)
 
     def nvcc(item):
-        name, (src, include, defines) = item
+        name, (src, include) = item
         lib = workdir / f"lib{name}.so"
-        proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, *defines,
+        proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS,
                                "-I", str(include), "-o", str(lib), str(src)],
                               capture_output=True, text=True)
         if proc.returncode != 0:
@@ -129,12 +114,7 @@ def main(argv=None) -> int:
                     help="directory with the predecessor's sources")
     ap.add_argument("--out", default=None,
                     help="also write the results as JSON to this file")
-    ap.add_argument("--define", action="append", default=[],
-                    help="NAME=fwd|bwd:MACRO=VALUE[,MACRO=VALUE...]: one "
-                         "more variant built with these macros")
     args = ap.parse_args(argv)
-    variants = dict(VARIANTS)
-    variants.update(parse_define(spec) for spec in args.define)
 
     import torch
 
@@ -157,8 +137,8 @@ def main(argv=None) -> int:
     results = {"device": smi, "iters": ITERS, "views": []}
     with tempfile.TemporaryDirectory(prefix="composite_probe_") as tmp:
         libs = {name: ctypes.CDLL(str(path)) for name, path in
-                build_libs(build, args.parent.resolve(), Path(tmp),
-                           variants).items()}
+                build_libs(build, args.parent.resolve(),
+                           Path(tmp)).items()}
         model = cs.build_stitched()
         gaussians, cams = cs.raster_scene(model)
         del model
@@ -174,7 +154,7 @@ def main(argv=None) -> int:
                         ("bwd", cs.stitched_config().latent_t * cs.IMAGE ** 2,
                          tr.BWD_SOURCE)):
                     names = (f"parent_{direction}", "kernel",
-                             *(n for n, v in variants.items()
+                             *(n for n, v in VARIANTS.items()
                                if v[0] == source))
                     table, pairs = tr.view_pairs(
                         g.means[0], g.covariances[0], g.harmonics[0],

@@ -171,15 +171,9 @@ __device__ __forceinline__ void stage_mask(Stage<N>& st, int j, float x0,
   st.mask[j] = subtile_mask(g.x, g.y, g.z, g.w, c, o, lv, x0, y0);
 }
 
-// The composite's exponential: __expf (ex2.approx), or expf where a probe
-// build sets RASTER_FAST_EXP to 0.  Both kernels take the same one, so the
-// backward recomputes the forward's stopping set.
-#ifndef RASTER_FAST_EXP
-#define RASTER_FAST_EXP 1
-#endif
-__device__ __forceinline__ float composite_exp(float x) {
-  return RASTER_FAST_EXP ? __expf(x) : expf(x);
-}
+// The composite's exponential, __expf (ex2.approx).  Both kernels take the
+// same one, so the backward recomputes the forward's stopping set.
+__device__ __forceinline__ float composite_exp(float x) { return __expf(x); }
 
 // A warp's walk over the first n pairs of a stage, in pair order, visiting
 // only those whose mask holds the warp's bit.  `next` gives the next such

@@ -62,9 +62,6 @@
 //     spills, three blocks an SM;
 //   * the forward's exponential (__expf), and dα's division as __fdividef
 //     (within 2 ulp; 1 − α lies in [0.001, 1]).
-// Probe builds may set RASTER_BWD_BATCH, RASTER_GROUP,
-// RASTER_BWD_MIN_BLOCKS, RASTER_FAST_EXP and RASTER_FAST_DIV
-// (tools/torch_composite_probe.py --define).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o librasterize_bwd.so rasterize_bwd.cu
@@ -75,22 +72,10 @@ namespace {
 
 using namespace raster;
 
-#ifndef RASTER_BWD_BATCH
-#define RASTER_BWD_BATCH 128
-#endif
-constexpr int kBatch = RASTER_BWD_BATCH;   // pairs staged per round
+constexpr int kBatch = 128;     // pairs staged per round
 static_assert(kBatch % 32 == 0 && kBatch <= kPix, "kBatch");
-#ifndef RASTER_GROUP
-#define RASTER_GROUP 2
-#endif
-#ifndef RASTER_BWD_MIN_BLOCKS
-#define RASTER_BWD_MIN_BLOCKS 3
-#endif
-#ifndef RASTER_FAST_DIV
-#define RASTER_FAST_DIV 1
-#endif
-
-constexpr int kGroup = RASTER_GROUP;  // pairs a warp reduces at once
+constexpr int kMinBlocks = 3;   // blocks an SM: at most 80 registers
+constexpr int kGroup = 2;       // pairs a warp reduces at once
 constexpr int kValues = kGroup * kAttr;
 constexpr int kWords = kBatch / 32;
 static_assert(kValues <= 32, "a group's values must fit the warp's lanes");
@@ -140,8 +125,12 @@ struct Smem {
   float part[kWarps][kBatch][kAttr];  // each warp's sums over its pixels
   unsigned act[kWarps][kWords];       // which of them the warp wrote
 };
+// 2 × 6,656 + 40,960 + 128 bytes: over the 48 KiB a launch gets without
+// asking, so the entry below raises the limit; with s_g's 4 KiB, three
+// blocks fit an SM's 228 KiB.
+static_assert(sizeof(Smem) == 54400, "shared memory a block");
 
-__global__ void __launch_bounds__(kPix, RASTER_BWD_MIN_BLOCKS)
+__global__ void __launch_bounds__(kPix, kMinBlocks)
 composite_bwd_kernel(const int* __restrict__ gid,
                      const int* __restrict__ bounds,
                      const float* __restrict__ table,
@@ -246,13 +235,8 @@ composite_bwd_kernel(const int* __restrict__ gid,
                        gc.w * col.w + g_alpha;
       prefix += w * gp;
       if (a_raw < kAlphaClamp) {
-#if RASTER_FAST_DIV
         const float dalpha =
             gp * trans - __fdividef(o_total - prefix + g_tn, 1.0f - alpha);
-#else
-        const float dalpha =
-            gp * trans - (o_total - prefix + g_tn) / (1.0f - alpha);
-#endif
         const float dsig = -alpha * dalpha;
         c[0] = -dsig * (ge.z * dx + ge.w * dy);
         c[1] = -dsig * (ge1.x * dy + ge.w * dx);
@@ -331,9 +315,4 @@ extern "C" int rasterize_composite_bwd(const void* gid, const void* bounds,
       static_cast<const float*>(gout), static_cast<float*>(dpair), ntx,
       width, height);
   return static_cast<int>(cudaGetLastError());
-}
-
-// Dynamic shared memory a block of the kernel takes, in bytes.
-extern "C" int rasterize_composite_bwd_smem() {
-  return static_cast<int>(sizeof(Smem));
 }

@@ -49,9 +49,7 @@
 //     b and depth sums live in shared memory, so nothing spills.
 // The arithmetic per (pixel, pair) is the simple kernel's but for the
 // exponential, __expf in place of expf (within ~1e-6 of itself; the
-// backward takes the same one).  Probe builds may set RASTER_FWD_BATCH,
-// RASTER_FWD_MIN_BLOCKS and RASTER_FAST_EXP
-// (tools/torch_composite_probe.py --define).
+// backward takes the same one).
 
 #include "raster_common.cuh"
 
@@ -59,16 +57,11 @@ namespace {
 
 using namespace raster;
 
-#ifndef RASTER_FWD_BATCH
-#define RASTER_FWD_BATCH 256
-#endif
-constexpr int kBatch = RASTER_FWD_BATCH;   // pairs staged per round
+constexpr int kBatch = 256;     // pairs staged per round
 static_assert(kBatch % 32 == 0 && kBatch <= kPix, "kBatch");
-#ifndef RASTER_FWD_MIN_BLOCKS
-#define RASTER_FWD_MIN_BLOCKS 6
-#endif
+constexpr int kMinBlocks = 6;   // blocks an SM: at most 40 registers
 
-__global__ void __launch_bounds__(kPix, RASTER_FWD_MIN_BLOCKS)
+__global__ void __launch_bounds__(kPix, kMinBlocks)
 composite_fwd_kernel(const int* __restrict__ gid,
                      const int* __restrict__ bounds,
                      const float* __restrict__ table,

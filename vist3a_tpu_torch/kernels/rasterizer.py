@@ -315,7 +315,7 @@ def _kept(keep, c0: int, c1: int, warp_of) -> torch.Tensor | bool:
 
 def composite_ref(gid: torch.Tensor, bounds: torch.Tensor,
                   table: torch.Tensor, ntx: int, width: int, height: int, *,
-                  return_work: bool = False,
+                  return_work: bool = False, warp_work: bool = False,
                   keep: torch.Tensor | None = None):
     """Plain PyTorch version of the composite kernel → (6, H, W) fp32.
 
@@ -324,7 +324,10 @@ def composite_ref(gid: torch.Tensor, bounds: torch.Tensor,
     sequential `cumprod` on the CPU, as the kernel multiplies).  With
     `return_work`, also returns per-pixel counts (pairs evaluated up to and
     including the stopping pair, pairs composited, and of those the pairs
-    whose α was clamped at `ALPHA_CLAMP`), each (H, W) int64.  `keep`, a
+    whose α was clamped at `ALPHA_CLAMP`), each (H, W) int64; with
+    `warp_work` as well, then two (N_WARPS, P) bool: whether some pixel of
+    each warp's sub-tile (within the image) evaluates each pair up to and
+    including its stop, and whether one composites it.  `keep`, a
     (P,) mask as `subtile_mask_ref` gives, restricts each pixel to the
     pairs its warp walks (a culled pair counts as skipped)."""
     device = table.device
@@ -340,6 +343,11 @@ def composite_ref(gid: torch.Tensor, bounds: torch.Tensor,
     lx = (p % TILE).float() + 0.5
     ly = torch.div(p, TILE, rounding_mode="floor").float() + 0.5
     warp_of = pixel_warp().to(device)
+    by_warp = torch.argsort(warp_of, stable=True)   # warp w: rows 32w ..
+    if warp_work:
+        walked = torch.zeros(N_WARPS, gid.numel(), dtype=torch.bool,
+                             device=device)
+        composited = torch.zeros_like(walked)
     starts = bounds.tolist()
     for t in range(n_tiles):
         s, e = starts[t], starts[t + 1]
@@ -347,6 +355,7 @@ def composite_ref(gid: torch.Tensor, bounds: torch.Tensor,
             continue
         ty, tx = divmod(t, ntx)
         px, py = (tx * TILE + lx)[:, None], (ty * TILE + ly)[:, None]
+        inside = (px < width) & (py < height)
         trans = torch.ones(PIX, 1, device=device)
         acc = torch.zeros(PIX, 5, device=device)
         done = torch.zeros(PIX, 1, dtype=torch.bool, device=device)
@@ -363,6 +372,12 @@ def composite_ref(gid: torch.Tensor, bounds: torch.Tensor,
             t_excl, t_incl = t_incl[:, :-1], t_incl[:, 1:]
             # t_incl never grows along the pairs, so `live` is a prefix
             live = (t_incl >= T_EPS) & ~done
+            if warp_work:
+                c1 = c0 + a.shape[0]
+                for dst, x in ((walked, (t_excl >= T_EPS) & ~done),
+                               (composited, live & ok)):
+                    dst[:, c0:c1] = (x & inside)[by_warp].view(
+                        N_WARPS, 32, -1).any(1)
             w = torch.where(live, alpha * t_excl, 0.0)
             payload = torch.cat([a[:, 6:10], torch.ones_like(a[:, :1])], 1)
             acc += (w[:, :, None] * payload[None]).sum(1)
@@ -386,7 +401,8 @@ def composite_ref(gid: torch.Tensor, bounds: torch.Tensor,
     img = image(out)
     if not return_work:
         return img
-    return img, image(n_eval)[0], image(n_comp)[0], image(n_clamp)[0]
+    work = (image(n_eval)[0], image(n_comp)[0], image(n_clamp)[0])
+    return (img, *work, walked, composited) if warp_work else (img, *work)
 
 
 def composite_bwd_ref(gid: torch.Tensor, bounds: torch.Tensor,
@@ -563,14 +579,6 @@ def _bwd_lib() -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 \
             + [ctypes.c_void_p]
     return lib
-
-
-def bwd_smem_bytes() -> int:
-    """Dynamic shared memory a block of the backward kernel takes."""
-    fn = _bwd_lib().rasterize_composite_bwd_smem
-    fn.restype = ctypes.c_int
-    fn.argtypes = []
-    return fn()
 
 
 def composite_bwd(gid: torch.Tensor, bounds: torch.Tensor,
