@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases device,build,kernels,raster
     python3 chip_smoke.py --phases device,build,kernels,train
     python3 chip_smoke.py --phases device,build,kernels,raster,vdm
+    python3 chip_smoke.py --phases device,build,cli
 
 Phases, each of which passes or raises (any failure exits non-zero):
   1. device  — the card's name and power limit; fails without CUDA.
@@ -108,8 +109,31 @@ Phases, each of which passes or raises (any failure exits non-zero):
                Checks the latents (1, 16, 4, 64, 64), the files and the
                launch counts; prints the ms per denoise step, peak memory,
                a profile of 2 denoise steps and, with `profile`, each
-               profiler range's host and device time in the request.
-  10. train — stitching distillation at full width, fp32 (TF32 off):
+               profiler range's host and device time in a request whose
+               denoise is cut to `T23D_PROFILE_STEPS` steps.
+  10. cli    — the command line on reference-format files at full width:
+               the whole AnySplat encoder (fp32, the camera trick of
+               phase 5), the Wan 2.1 VAE (fp32), UMT5-XXL and the Wan 1.3B
+               DiT (bf16) drawn on the card from a seed and moved to the
+               host; their reference-named state dicts (the port's
+               fabricators, each checked against its manifest) written
+               under a temporary weights root in the reference layout
+               (`anysplat.pth`, `wan_vae/`, `umt5/` as three HF shards and
+               an index, `wan_dit/`), with a stitched checkpoint chopped at
+               16 (LoRA r64 α32 with nonzero factors on every site, every
+               site's bias, the stitch conv and the tokens) and a PEFT
+               adapter (r8 α16, nonzero lora_B) on the DiT's q/k/v/o —
+               the free disk read first; then `cli/inference_t23d.py::main`
+               with the reference's flags on two prompts.  Checks the
+               launches (twice a request's), each prompt's folder
+               (prompt.txt, gs.mp4, depth.mp4, gaussians.ply), finite
+               latents and Gaussians, and every imported parameter of the
+               stitched decoder, the DiT, UMT5 and the VAE decoder equal,
+               bit for bit, to what was written (at a LoRA site, the merge
+               w + scaling·Δ computed here from the written factors, then
+               the cast).  Prints the seconds spent writing, reading and
+               importing, each request's latency and the peak memory.
+  11. train — stitching distillation at full width, fp32 (TF32 off):
                the teacher (the whole `EncoderConfig()` encoder, ~1.19 B
                parameters), the stitch conv and the Wan 2.1 VAE encoder
                drawn on the card from a seed; LoRA r64,a32; two steps of
@@ -123,9 +147,12 @@ Phases, each of which passes or raises (any failure exits non-zero):
                ViT/frame shape, 72 global) and 56 backward (32 and 24);
                prints ms per step,
                peak memory, a profile of one more step at S = 13, and
-               compares a narrow step on the card with the host CPU.
+               compares a narrow step on the card with the host CPU.  The
+               run saves its epoch (`save_path`); the save is reloaded into
+               a fresh state and held against the live one, tensor by
+               tensor (no step is taken for it).
                Cut: B = 1 and two steps; random weights, no data loader.
-  11. vdm    — reward-aligned VDM fine-tuning at full width: two steps of
+  12. vdm    — reward-aligned VDM fine-tuning at full width: two steps of
                `cli.train_vdm.run` (`VDMTrainConfig()`: LoRA r8 α16 on the
                Wan 2.1 1.3B DiT's attention, bf16; UMT5-XXL for the prompts
                with the stand-in tokenizer of phase `denoise`; the Wan VAE
@@ -147,6 +174,8 @@ Phases, each of which passes or raises (any failure exits non-zero):
                (the gradients with respect to the latent and the decoded
                clip, the render's cotangents apart), counting card vs host
                the members of the sets the render's thresholds select.
+               The run saves `checkpoint-2` (`save_freq`), reloaded into
+               a fresh state and held against the live one as in phase 11.
                Cut: B = 1, two steps, random weights and data.
 The line before the last lists the kernels as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -155,6 +184,7 @@ The line before the last lists the kernels as JSON; the last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
 import json
@@ -169,7 +199,7 @@ import zlib
 from pathlib import Path
 
 PHASES = ("device", "build", "kernels", "raster", "slice", "profile",
-          "reference", "decode", "denoise", "train", "vdm")
+          "reference", "decode", "denoise", "cli", "train", "vdm")
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 (data sheet)
 PEAK_FP32_FLOPS = 67e12       # H100 SXM fp32 outside the tensor cores
 # fp32-accurate products on the TF32 tensor cores (495 TFLOP/s dense), each
@@ -372,7 +402,21 @@ RENDER_STAGES = ("render.project_sh_table", "render.pairs",
 # a whole text→3DGS request: the prompt embedding and the denoise, then the
 # decode's stages
 T23D_STAGES = ("t23d.embed", "t23d.denoise", *DECODE_STAGES)
+# the denoise steps of phase `denoise`'s profiled request
+T23D_PROFILE_STEPS = 5
 PROMPT = "a red chair in a garden"
+# phase `cli`: two prompts, the second with a "/" that its folder name drops
+CLI_PROMPTS = (PROMPT, "a wooden boat on a calm lake, seen from bow/stern")
+# the stitched checkpoint's LoRA: the reference's stitching recipe
+CLI_LORA_SPEC = TRAIN_LORA
+# the DiT's PEFT adapter: rank and α of the reference's VDM recipe, which
+# `apply_peft_lora` merges by default; the phase's own merge takes α/r
+CLI_DIT_LORA_RANK = 8
+CLI_DIT_LORA_ALPHA = 16
+# the UMT5 safetensors are written as this many shards and an index
+CLI_UMT5_SHARDS = 3
+# free disk asked of the temporary folder, as a multiple of the files' size
+CLI_DISK_FACTOR = 1.2
 
 
 def log(msg: str) -> None:
@@ -1052,6 +1096,7 @@ def profile_call(label: str, fn, stages=(), nested=()) -> None:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    t1 = time.perf_counter()
     kernels = {}
     for ev in prof.events():
         if ev.device_type != torch.autograd.DeviceType.CUDA \
@@ -1079,25 +1124,26 @@ def profile_call(label: str, fn, stages=(), nested=()) -> None:
     for ev in host[:12]:
         log(f"{tag}: host op {ev.self_cpu_time_total / 1e3:9.3f} ms self, "
             f"{ev.count:5d} calls  {ev.key[:90]}")
-    if not stages:
-        return
-    ranges = {n: [0, 0.0, 0.0] for n in (*stages, *nested)}
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CPU \
-                and ev.name in ranges:
-            r = ranges[ev.name]
-            r[0] += 1
-            r[1] += ev.time_range.elapsed_us() / 1e3
-            r[2] += ev.device_time_total / 1e3
-    missing = [n for n, r in ranges.items() if r[0] == 0]
-    check(not missing, f"{tag}: no profiler range {missing}")
-    for n, (calls, host_ms, dev_ms) in ranges.items():
-        log(f"{tag}: range {n}: {calls} calls, host {host_ms:.3f} ms, "
-            f"device {dev_ms:.3f} ms")
-    host_sum = sum(ranges[n][1] for n in stages)
-    log(f"{tag}: the {len(stages)} stages' host time {host_sum:.3f} ms of "
-        f"the request's {wall_ms:.3f} ms ({wall_ms - host_sum:.3f} ms "
-        f"outside them)")
+    if stages:
+        ranges = {n: [0, 0.0, 0.0] for n in (*stages, *nested)}
+        for ev in prof.events():
+            if ev.device_type == torch.autograd.DeviceType.CPU \
+                    and ev.name in ranges:
+                r = ranges[ev.name]
+                r[0] += 1
+                r[1] += ev.time_range.elapsed_us() / 1e3
+                r[2] += ev.device_time_total / 1e3
+        missing = [n for n, r in ranges.items() if r[0] == 0]
+        check(not missing, f"{tag}: no profiler range {missing}")
+        for n, (calls, host_ms, dev_ms) in ranges.items():
+            log(f"{tag}: range {n}: {calls} calls, host {host_ms:.3f} ms, "
+                f"device {dev_ms:.3f} ms")
+        host_sum = sum(ranges[n][1] for n in stages)
+        log(f"{tag}: the {len(stages)} stages' host time {host_sum:.3f} ms of "
+            f"the request's {wall_ms:.3f} ms ({wall_ms - host_sum:.3f} ms "
+            f"outside them)")
+    log(f"{tag}: the profile's own processing (events, averages) "
+        f"{time.perf_counter() - t1:.1f} s")
 
 
 def stage_times(model, cfg, latent, images) -> None:
@@ -1844,12 +1890,488 @@ def phase_denoise(model, vae, profile: bool) -> dict:
         profile_call("denoise_2_steps", lambda: t23d.denoise(
             modules["dit"], cond, uncond, two, latents0=z))
         if profile:
-            profile_call("t23d", lambda: request(os.path.join(tmp, "prof")),
+            # every stage of a request, the denoise cut to a few steps:
+            # the profile's event walk takes host time per launch, and a
+            # 50-step request launches ~221,000 kernels
+            short = dataclasses.replace(
+                cfg, num_inference_steps=T23D_PROFILE_STEPS)
+            profile_call(f"t23d_{T23D_PROFILE_STEPS}_steps",
+                         lambda: t23d.text_to_3dgs(
+                             modules, tokenize, PROMPT,
+                             os.path.join(tmp, "prof"), short,
+                             orbit_t=ORBIT_T),
                          T23D_STAGES, RENDER_STAGES)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return {"latency_ms": latency, "peak_bytes": peak, "launches": counts,
             "ms_per_step": steps_ms}
+
+
+SAFETENSORS_DTYPES = {"torch.float32": "F32", "torch.bfloat16": "BF16",
+                      "torch.float16": "F16", "torch.int64": "I64"}
+
+
+def write_safetensors(path, tensors: dict) -> int:
+    """A minimal safetensors writer (the card machine has no `safetensors`
+    package): the 8-byte little-endian header length, the JSON header padded
+    to 8 bytes, then each tensor's bytes in header order.  Returns the
+    bytes written."""
+    import struct
+
+    import torch
+
+    names = sorted(tensors)
+    header, offset = {}, 0
+    for name in names:
+        t = tensors[name]
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": SAFETENSORS_DTYPES[str(t.dtype)],
+                        "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for name in names:
+            t = tensors[name].detach().to("cpu").contiguous().reshape(-1)
+            f.write(memoryview(t.view(torch.uint8).numpy()))
+    return 8 + len(head) + offset
+
+
+def write_sharded(folder: Path, tensors: dict, shards: int) -> int:
+    """HF's sharded layout: `model-0000i-of-0000n.safetensors` and
+    `model.safetensors.index.json`."""
+    names = sorted(tensors)
+    per = -(-len(names) // shards)
+    weight_map, total = {}, 0
+    for i in range(shards):
+        shard = f"model-{i + 1:05d}-of-{shards:05d}.safetensors"
+        part = {n: tensors[n] for n in names[i * per:(i + 1) * per]}
+        total += write_safetensors(folder / shard, part)
+        weight_map.update({n: shard for n in part})
+    (folder / "model.safetensors.index.json").write_text(json.dumps(
+        {"metadata": {"total_size": total}, "weight_map": weight_map}))
+    return total
+
+
+def _saved_site(site: str, k_chop: int) -> str:
+    """The stitched model's (the reference's) name of an encoder site: the
+    ViT blocks before the chop are deleted there, so block i is saved as
+    i − k."""
+    import re
+
+    from vist3a_tpu_torch.io import weight_import as wi
+
+    ref = wi.encoder_to_reference(site + ".")[:-1]
+    return "encoder." + re.sub(
+        r"^aggregator\.patch_embed\.blocks\.(\d+)",
+        lambda m: f"aggregator.patch_embed.blocks.{int(m[1]) - k_chop}", ref)
+
+
+def stitched_checkpoint(encoder, scfg, lora_cfg, gen) -> tuple:
+    """A reference-format `stitched_model_epoch_N.pth` for the sites of the
+    encoder chopped at `scfg.stitch_layer_index`: nonzero LoRA factors
+    (torch's lora_A (r·k, in·k), lora_B (out·k, r·k)) on every site, every
+    site's bias nudged (bias="lora_only"), a random stitch conv and the
+    three token tensors.  Returns (that dict, the port-named factors
+    {site: {"a", "b"}} and biases {"<site>.bias": tensor} it holds)."""
+    import torch
+
+    from vist3a_tpu_torch.io import weight_import as wi
+    from vist3a_tpu_torch.nn.encoder import Encoder
+    from vist3a_tpu_torch.stitch import lora as lora_mod
+
+    k = scfg.stitch_layer_index
+    student = wi.on_meta(lambda: Encoder(scfg.encoder, vit_start=k))
+    modules = dict(encoder.named_modules())
+    lora, factors, biases = {}, {}, {}
+    for site in lora_mod.lora_sites(student, lora_cfg):
+        m = modules[site]
+        (a_shape, b_shape, fan_in) = lora_mod._factor_shapes(m.weight.shape,
+                                                             lora_cfg.r)
+        a = (torch.rand(a_shape, generator=gen) * 2 - 1) / math.sqrt(fan_in)
+        b = torch.randn(b_shape, generator=gen) * 1e-3
+        name = _saved_site(site, k)
+        lora[f"{name}.lora_A"] = a.T.contiguous()
+        lora[f"{name}.lora_B"] = b.T.contiguous()
+        factors[site] = {"a": a, "b": b}
+        if m.bias is not None:
+            bias = m.bias.detach().float().cpu() \
+                + 1e-3 * torch.randn(m.bias.shape, generator=gen)
+            lora[f"{name}.bias"] = bias
+            biases[f"{site}.bias"] = bias
+    cshape = (scfg.conv.out_channels, scfg.latent_channels,
+              *scfg.conv.kernel_shape(1)[2:])
+    bound = 1.0 / math.sqrt(math.prod(cshape[1:]))
+    d = scfg.encoder.vit.embed_dim
+    ck = {"lora": lora,
+          "stitching_layer": {
+              "weight": (torch.rand(cshape, generator=gen) * 2 - 1) * bound,
+              "bias": (torch.rand(cshape[0], generator=gen) * 2 - 1) * bound},
+          "mask_token": torch.zeros(1, d),
+          "cls_token": torch.randn(1, 1, d, generator=gen) * 1e-6,
+          "register_tokens": torch.randn(
+              1, scfg.encoder.vit.num_register_tokens, d, generator=gen)
+          * 1e-6}
+    return ck, factors, biases
+
+
+def peft_adapter(dit, gen, r: int) -> tuple[dict, dict]:
+    """A PEFT adapter of rank r on q/k/v/o of both attention blocks of every
+    DiT block, lora_B nonzero: ({"base_model.model.blocks.{i}.attn1.to_q.
+    lora_A.weight": (r, in), "….lora_B.weight": (out, r), ...}, the same
+    factors keyed by the port's weight names {name: (A, B)})."""
+    import torch
+
+    adapter, factors = {}, {}
+    d = dit.cfg.dim
+    for i in range(dit.cfg.num_layers):
+        for attn in ("attn1", "attn2"):
+            for proj, ours in (("to_q", "q"), ("to_k", "k"), ("to_v", "v"),
+                               ("to_out.0", "o")):
+                a = (torch.rand(r, d, generator=gen) * 2 - 1) / math.sqrt(d)
+                b = torch.randn(d, r, generator=gen) * 1e-3
+                p = f"base_model.model.blocks.{i}.{attn}.{proj}"
+                adapter[f"{p}.lora_A.weight"] = a
+                adapter[f"{p}.lora_B.weight"] = b
+                factors[f"blocks.{i}.{attn}.{ours}.weight"] = (a, b)
+    return adapter, factors
+
+
+def write_weights_root(root: Path, src: dict, scfg, lora_cfg, gen) -> dict:
+    """The reference layout under `root` from the source modules (on the
+    host): `anysplat.pth` (fp32), `wan_vae/` (fp32), `umt5/` (bf16, HF
+    shards and index), `wan_dit/` (bf16), `anysplat_stitched.pth` and the
+    DiT's PEFT folder `wan_lora/`, each state dict checked against its
+    manifest first.  Returns what the checks need: the stitched
+    checkpoint's port-named factors and biases, the PEFT adapter, and the
+    bytes written."""
+    import torch
+
+    from vist3a_tpu_torch.io import manifests
+
+    files = {
+        "anysplat_encoder": manifests._fab_anysplat_encoder(src["encoder"]),
+        "wan_vae": manifests._fab_wan_vae(src["vae_encoder"],
+                                          src["vae_decoder"]),
+        "umt5_xxl": manifests._fab_umt5(src["umt5"]),
+        "wan_dit": manifests._fab_wan_dit(src["dit"])}
+    for family, sd in files.items():
+        if family == "wan_dit":
+            manifests.validate_wan_dit(sd)
+        else:
+            manifests.validate_state_dict(sd, family)
+    ck, factors, biases = stitched_checkpoint(src["encoder"], scfg, lora_cfg,
+                                              gen)
+    adapter, dit_factors = peft_adapter(src["dit"], gen,
+                                       CLI_DIT_LORA_RANK)
+    for sub in ("wan_vae", "wan_dit", "umt5", "wan_lora"):
+        (root / sub).mkdir(parents=True)
+    written = {}
+    torch.save(files["anysplat_encoder"], root / "anysplat.pth")
+    torch.save(ck, root / "anysplat_stitched.pth")
+    written["wan_vae"] = write_safetensors(
+        root / "wan_vae" / "diffusion_pytorch_model.safetensors",
+        files["wan_vae"])
+    written["wan_dit"] = write_safetensors(
+        root / "wan_dit" / "diffusion_pytorch_model.safetensors",
+        files["wan_dit"])
+    written["umt5"] = write_sharded(root / "umt5", files["umt5_xxl"],
+                                    CLI_UMT5_SHARDS)
+    written["wan_lora"] = write_safetensors(
+        root / "wan_lora" / "adapter_model.safetensors", adapter)
+    for name in ("anysplat.pth", "anysplat_stitched.pth"):
+        written[name] = (root / name).stat().st_size
+    return {"factors": factors, "biases": biases, "checkpoint": ck,
+            "dit_factors": dit_factors, "bytes": written}
+
+
+@contextlib.contextmanager
+def timed_calls(module, names: tuple, times: list, sync):
+    """Wrap `module.<name>` for each name, appending (name, start, seconds)
+    of every call to `times` (after `sync()`); restored on exit."""
+    saved = {n: getattr(module, n) for n in names}
+
+    def wrap(name, fn):
+        def timed(*args, **kwargs):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            sync()
+            times.append((name, t0, time.perf_counter() - t0))
+            return out
+        return timed
+    for n, fn in saved.items():
+        setattr(module, n, wrap(n, fn))
+    try:
+        yield times
+    finally:
+        for n, fn in saved.items():
+            setattr(module, n, fn)
+
+
+def expected_stitched(stitched, src: dict, written: dict, lora_cfg,
+                      ck: dict) -> dict:
+    """What each parameter of the imported stitched decoder must hold,
+    computed here from the source encoder and the written factors: the
+    source value, or the checkpoint's bias / token / stitch conv, or at a
+    LoRA site w + scaling·(a@b)ᵀ in fp32 on the module's device (the
+    merge's own formula and operand layouts), each cast to the module's
+    dtype."""
+    import torch
+
+    enc = {f"encoder.{k}": v for k, v in src["encoder"].state_dict().items()}
+    merged = {f"encoder.{s}.weight": f for s, f in written["factors"].items()}
+    out = {}
+    for name, p in stitched.state_dict().items():
+        dev = p.device
+        if name.startswith("stitch_conv."):
+            want = ck["stitching_layer"][name.split(".", 1)[1]]
+        elif name in ("encoder.vit.cls_token", "encoder.vit.register_tokens"):
+            want = ck[name.rsplit(".", 1)[1]]
+        elif name[len("encoder."):] in written["biases"]:
+            want = written["biases"][name[len("encoder."):]]
+        elif name in merged:
+            f = merged[name]
+            w = enc[name].to(dev, torch.float32)
+            a = f["a"].T.contiguous().to(dev).T    # lora_Aᵀ, as imported
+            b = f["b"].T.contiguous().to(dev).T
+            delta = (torch.matmul(a, b) * lora_cfg.scaling).to(w.dtype)
+            want = w + delta.T.reshape(w.shape)
+        else:
+            want = enc[name]
+        out[name] = want.to(dev, p.dtype)
+    return out
+
+
+def expected_dit(src_dit, factors: dict, scaling: float) -> dict:
+    """The DiT's parameters after the PEFT merge, on the host: w, or at a
+    site bf16(w + (B@A)·α/r) computed in fp32."""
+    out = {k: v.detach().cpu() for k, v in src_dit.state_dict().items()}
+    for name, (a, b) in factors.items():
+        w = out[name]
+        out[name] = (w.float() + (b.float() @ a.float()) * scaling).to(w.dtype)
+    return out
+
+
+def same_values(label: str, got: dict, want: dict) -> int:
+    """Every tensor of `got` (nested dicts) equal, bit for bit and in dtype,
+    to the one at its place in `want`, every other value equal; returns how
+    many tensors were compared."""
+    import torch
+
+    from vist3a_tpu_torch.io.checkpoints import _flatten
+
+    a, b = _flatten(got), _flatten(want)
+    check(a.keys() == b.keys(),
+          f"{label}: values {sorted(a.keys() ^ b.keys())[:5]}")
+    tensors = [k for k, v in a.items() if isinstance(v, torch.Tensor)]
+    bad = [k for k in tensors if not (
+        a[k].dtype == b[k].dtype and torch.equal(a[k], b[k].to(a[k].device)))]
+    bad += [k for k in a if k not in tensors and a[k] != b[k]]
+    check(not bad, f"{label}: {len(bad)} values differ, first {bad[:5]}")
+    return len(tensors)
+
+
+def drive_cli(src: dict, scfg, lora_spec: str, tmp: Path, *, tokenize,
+              device: str = "cuda", want_launches: dict | None = None,
+              prompts=CLI_PROMPTS, flags: tuple = ()) -> dict:
+    """Write the reference-format files of the source modules `src` (on the
+    host) under `tmp/weights`, run `cli/inference_t23d.py::main` with the
+    reference's flags on two prompts, and check what it loaded and wrote.
+    Returns the seconds spent writing, reading and importing, each
+    request's latency, the peak device memory while loading and while
+    serving, and the launches.  `flags`
+    are added to the command line (the CPU test's shorter clip)."""
+    import torch
+
+    from vist3a_tpu_torch.cli import arguments, inference_t23d
+    from vist3a_tpu_torch.io import load_weights
+    from vist3a_tpu_torch.pipelines import t23d
+    from vist3a_tpu_torch.stitch.conv_spec import conv_spec_to_string
+    from vist3a_tpu_torch.stitch.lora import parse_lora_mode
+
+    cuda = device == "cuda"
+    lora_cfg = parse_lora_mode(lora_spec)
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    root, out_dir = tmp / "weights", tmp / "results"
+    root.mkdir(parents=True)
+    t0 = time.perf_counter()
+    written = write_weights_root(root, src, scfg, lora_cfg,
+                                 torch.Generator().manual_seed(21))
+    write_s = time.perf_counter() - t0
+    (root / "prompts.txt").write_text("\n".join(prompts) + "\n")
+    args = arguments.inference_vist3a_argument().parse_args([
+        "--weights_root", str(root),
+        "--checkpoint_path", str(root / "anysplat_stitched.pth"),
+        "--transformer_lora_path", str(root / "wan_lora"),
+        "--input_texts_path", str(root / "prompts.txt"),
+        "--output_dir", str(out_dir),
+        "--stitching_layer_location", f"enc_blocks_{scfg.stitch_layer_index}",
+        "--stitching_layer_config", conv_spec_to_string(scfg.conv),
+        "--lora_config", lora_spec, *flags])
+    reads, requests = [], []
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    loaders = ("load_torch_state_dict", "load_sharded_safetensors")
+    serve, load_peak = inference_t23d.run, []
+
+    def peak_then_run(*a, **k):
+        # the loading's peak, then the requests' from zero
+        if cuda:
+            load_peak.append(torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+        return serve(*a, **k)
+    inference_t23d.run = peak_then_run
+    try:
+        with timed_calls(load_weights, loaders, reads, sync), \
+                timed_calls(t23d, ("text_to_3dgs",), requests, sync):
+            modules, results = inference_t23d.main(args, tokenize,
+                                                   device=device)
+    finally:
+        inference_t23d.run = serve
+    sync()
+    main_s = time.perf_counter() - t0
+    counts = _vdm_counts()
+    peak = {"load": load_peak[0], "requests": torch.cuda.max_memory_allocated()
+            } if cuda else None
+    read_s = sum(s for _, _, s in reads)
+    load_s = requests[0][1] - t0
+    request_s = [s for _, _, s in requests]
+
+    if want_launches is not None:
+        got = {k: counts[k] for k in want_launches}
+        check(got == want_launches, f"cli: launches {got}, want "
+              f"{want_launches}")
+    check(sorted(modules) == ["dit", "stitched", "umt5", "vae"],
+          f"cli: main built {sorted(modules)} (the decode needs only the "
+          "VAE decoder)")
+    # what the CLI wrote: one folder per prompt, named as the reference
+    # names it
+    check([p for p, _ in results] == list(prompts), "cli: prompts run")
+    for prompt, res in results:
+        folder = out_dir / prompt[:100].replace("/", "")
+        check((folder / "prompt.txt").read_text() == prompt,
+              f"cli: {folder}/prompt.txt")
+        for f in ("gs.mp4", "depth.mp4", "gaussians.ply"):
+            check((folder / f).is_file() and (folder / f).stat().st_size,
+                  f"cli: {folder}/{f} missing or empty")
+        check(bool(torch.isfinite(res.latents).all()), "cli: latents")
+        for t in res.output.gaussians:
+            check(bool(torch.isfinite(t).all()), "cli: Gaussians")
+    # what the CLI loaded: the written values, merged where LoRA was
+    n_stitched = same_values(
+        "stitched decoder", modules["stitched"].state_dict(),
+        expected_stitched(modules["stitched"], src, written, lora_cfg,
+                          written["checkpoint"]))
+    n_dit = same_values("DiT", modules["dit"].state_dict(), expected_dit(
+        src["dit"], written["dit_factors"],
+        CLI_DIT_LORA_ALPHA / CLI_DIT_LORA_RANK))
+    n_umt5 = same_values("UMT5", modules["umt5"].state_dict(), {
+        k: v.to(torch.bfloat16) for k, v in src["umt5"].state_dict().items()})
+    dt = next(modules["vae"].parameters()).dtype
+    n_vae = same_values("VAE decoder", modules["vae"].state_dict(), {
+        k: v.to(dt) for k, v in src["vae_decoder"].state_dict().items()})
+    return {"write_s": write_s, "read_s": read_s,
+            "import_s": load_s - read_s, "main_s": main_s,
+            "request_s": request_s, "peak_bytes": peak,
+            "launches": {k: counts[k] for k in
+                         ("unmasked", "masked", "natural", "composite")},
+            "bytes": written["bytes"],
+            "compared": {"stitched": n_stitched, "dit": n_dit,
+                         "umt5": n_umt5, "vae_decoder": n_vae},
+            "merged_sites": {"stitched": len(written["factors"]),
+                             "dit": len(written["dit_factors"])},
+            "results": results}
+
+
+def build_cli_sources() -> dict:
+    """The modules whose reference-format files phase `cli` writes, drawn on
+    the card from a seed and then moved to the host, so the card is free
+    for the CLI's own: the whole AnySplat encoder (fp32, with the camera
+    trick of `build_stitched`), the Wan 2.1 VAE (fp32), UMT5-XXL and the
+    Wan 2.1 1.3B DiT (bf16)."""
+    import torch
+
+    from vist3a_tpu_torch.nn import umt5, wan_dit, wan_vae
+    from vist3a_tpu_torch.nn.encoder import Encoder, EncoderConfig
+    from vist3a_tpu_torch.nn.layers import build_random
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    t0 = time.perf_counter()
+    src = {"encoder": build_random(
+        lambda: Encoder(EncoderConfig(), vit_start=0), gen, "cuda",
+        torch.float32)}
+    fc2 = src["encoder"].camera_head.pose_branch.fc2
+    fc2.weight.mul_(CAMERA_WEIGHT_SCALE)
+    fc2.bias.copy_(torch.tensor(CAMERA_BIAS))
+    vcfg = wan_vae.WanVAEConfig()
+    src["vae_encoder"] = wan_vae.init_encoder(vcfg, gen, device="cuda")
+    src["vae_decoder"] = wan_vae.init_decoder(vcfg, gen, device="cuda")
+    src["umt5"] = umt5.init(umt5.UMT5_XXL, gen, device="cuda",
+                            dtype=torch.bfloat16)
+    src["dit"] = wan_dit.init(wan_dit.WAN_1_3B, gen, device="cuda",
+                              dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    built = time.perf_counter() - t0
+    src = {k: m.to("cpu") for k, m in src.items()}
+    torch.cuda.empty_cache()
+    log(f"cli: source modules drawn on the card in {built:.1f} s, moved to "
+        f"the host: " + json.dumps(
+            {k: sum(p.numel() for p in m.parameters())
+             for k, m in src.items()}) + " parameters")
+    return src
+
+
+def phase_cli() -> dict:
+    """`cli/inference_t23d.py::main` on full-width reference-format files:
+    two prompts through the whole text→3DGS request, the files written from
+    seeded modules (`drive_cli`), every check there, the times, the peak
+    memory and the launches."""
+    import torch
+
+    from vist3a_tpu_torch.nn import umt5
+    from vist3a_tpu_torch.stitch import chopped_anysplat as ca
+
+    torch.cuda.empty_cache()
+    src = build_cli_sources()
+    need = sum(p.numel() * p.element_size() for m in src.values()
+               for p in m.parameters())
+    tmp = Path(tempfile.mkdtemp(prefix="vist3a_cli_"))
+    try:
+        free = shutil.disk_usage(tmp).free
+        check(free >= CLI_DISK_FACTOR * need,
+              f"cli: {free} B free under {tmp}; the files need about "
+              f"{need} B (×{CLI_DISK_FACTOR} asked)")
+        per_request = {**LAUNCHES_PER_REQUEST, "composite": ORBIT_VIEWS,
+                       "natural": 30 * 50}
+        res = drive_cli(src, ca.StitchedConfig(), CLI_LORA_SPEC, tmp,
+                        tokenize=fake_tokenizer(umt5.UMT5_XXL),
+                        want_launches={k: len(CLI_PROMPTS) * v
+                                       for k, v in per_request.items()})
+        for prompt, r in res.pop("results"):
+            _check_output(r.output, GAUSSIANS)
+            log(f"cli: '{prompt}': {_check_artifacts(r.artifacts)}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        del src
+        torch.cuda.empty_cache()
+    log(f"cli: files written in {res['write_s']:.1f} s "
+        f"({json.dumps(res['bytes'])} B; {free} B were free), read in "
+        f"{res['read_s']:.1f} s, imported and placed in "
+        f"{res['import_s']:.1f} s; requests {res['request_s']} s; main "
+        f"{res['main_s']:.1f} s; peak memory allocated (B) "
+        f"{json.dumps(res['peak_bytes'])}; launches {res['launches']}; "
+        f"every file passed its manifest and every key was consumed "
+        f"(`main` raises otherwise); parameters "
+        f"equal to what was written {res['compared']} (LoRA-merged sites "
+        f"{res['merged_sites']})")
+    return res
 
 
 def build_trainer(cfg):
@@ -1905,6 +2427,7 @@ def phase_train() -> dict:
     import torch
 
     from vist3a_tpu_torch.cli import train_stitching as cli
+    from vist3a_tpu_torch.io import checkpoints as ckpt
     from vist3a_tpu_torch.kernels import flash_attention as fa
     from vist3a_tpu_torch.pipelines import t23d
     from vist3a_tpu_torch.stitch import chopped_anysplat as ca
@@ -1934,6 +2457,7 @@ def phase_train() -> dict:
                       torch.cuda.max_memory_allocated(), m))
         torch.cuda.reset_peak_memory_stats()
 
+    ckpt_dir = Path(tempfile.mkdtemp(prefix="vist3a_train_ckpt_"))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
@@ -1941,7 +2465,8 @@ def phase_train() -> dict:
     state, history = cli.run(
         {"encoder": teacher, "stitch_conv": stitch_conv, "vae": vae}, cfg,
         [batch, batch], train_cfg=tcfg, num_epochs=1, seed=seed, log_every=1,
-        on_metrics=on_metrics)
+        on_metrics=on_metrics, save_path=ckpt_dir)
+    saved_s = time.perf_counter() - marks[-1][0]
     counts = _train_counts(fa)
     n_train = sum(p.numel() for p in st.trainable_list(state.trainable))
     log(f"train: seed {seed}, LoRA {TRAIN_LORA}, {n_train} trainable "
@@ -1986,6 +2511,27 @@ def phase_train() -> dict:
         f"LoRA B factors moved (smallest max |B| {min(b_max):.3g})")
     log(f"train: ms per step {steps_ms}; peak memory allocated {peaks} B; "
         f"launches {counts}")
+    # the epoch's save (`save_path`), reloaded into a fresh state: no step
+    try:
+        t1 = time.perf_counter()
+        fresh, _ = st.init_train_state(
+            torch.Generator(device="cuda").manual_seed(11), teacher,
+            stitch_conv, cfg, tcfg)
+        epoch, fresh = ckpt.load_stitching_checkpoint(ckpt_dir, fresh)
+        n = same_values("train: reloaded", {
+            "trainable": state.trainable,
+            "optimizer": state.optimizer.state_dict()["state"]}, {
+            "trainable": fresh.trainable,
+            "optimizer": fresh.optimizer.state_dict()["state"]})
+        check(epoch == 1 and fresh.step == state.step == len(TRAIN_VIEWS),
+              f"train: reloaded epoch {epoch}, step {fresh.step}")
+        files = {p.name: p.stat().st_size for p in ckpt_dir.iterdir()}
+        log(f"train: saved {files} B after the epoch ({saved_s:.1f} s), "
+            f"reloaded into a fresh state in {time.perf_counter() - t1:.1f} "
+            f"s: {n} tensors (trainables, AdamW moments) equal bit for bit")
+        del fresh
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
 
     latent = cli.encode_context(vae, clip[:, :, :TRAIN_VIEWS[0]], gen)
     ff = feedforward[:, :, :TRAIN_VIEWS[0]]
@@ -2156,6 +2702,7 @@ def phase_vdm() -> dict:
     """Two full-width VDM steps through `run`, their checks, launches,
     times and peak memory; one more step under the profiler (a 10-step
     rollout); a narrow step card vs host CPU."""
+    import numpy as np
     import torch
 
     from vist3a_tpu_torch.cli import train_vdm as cli
@@ -2197,6 +2744,7 @@ def phase_vdm() -> dict:
                        for k, v in vdm.flat_lora(state.lora).items()}))
         torch.cuda.reset_peak_memory_stats()
 
+    ckpt_dir = Path(tempfile.mkdtemp(prefix="vist3a_vdm_ckpt_"))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
@@ -2210,7 +2758,9 @@ def phase_vdm() -> dict:
         scfg=stitched_config(), cfg=vcfg, num_steps=VDM_STEPS,
         seed=VDM_SEED, latent_shape=cfg.latent_shape, render_size=IMAGE,
         on_metrics=on_metrics, uncond_embeds=uncond,
-        reward_text_fn=lambda prompt: tuple(feats))
+        reward_text_fn=lambda prompt: tuple(feats), save_path=ckpt_dir,
+        save_freq=VDM_STEPS)
+    saved_s = time.perf_counter() - marks[-1][0]
     counts = _vdm_counts()
     steps_ms, peaks, prev, prev_t = [], [], {k: 0 for k in counts}, t0
     for i, (tm, c, peak, h, _) in enumerate(marks):
@@ -2254,6 +2804,29 @@ def phase_vdm() -> dict:
         f"({sum(len(v) for v in sums_before.values())} checksums)")
     log(f"vdm: ms per step {steps_ms}; peak memory allocated {peaks} B; "
         f"launches {counts}")
+    # the save after the last step (`save_freq`), reloaded into a fresh
+    # state: no step
+    try:
+        t1 = time.perf_counter()
+        fresh = vdm.init_train_state(
+            torch.Generator(device="cuda").manual_seed(12), m["dit"], vcfg)
+        path = cli.restore(ckpt_dir, fresh, np.random.default_rng(0))
+        n = same_values("vdm: reloaded", {
+            "lora": vdm.flat_lora(state.lora), "ema": state.ema,
+            "optimizer": state.optimizer.state_dict()["state"]}, {
+            "lora": vdm.flat_lora(fresh.lora), "ema": fresh.ema,
+            "optimizer": fresh.optimizer.state_dict()["state"]})
+        check(fresh.step == state.step == VDM_STEPS
+              and path.endswith(f"checkpoint-{VDM_STEPS}"),
+              f"vdm: reloaded {path} at step {fresh.step}")
+        files = {p.name: p.stat().st_size for p in Path(path).iterdir()}
+        log(f"vdm: saved {path} {files} B after step {VDM_STEPS} "
+            f"({saved_s:.1f} s), reloaded into a fresh state in "
+            f"{time.perf_counter() - t1:.1f} s: {n} tensors (LoRA, EMA "
+            f"shadow, AdamW moments) equal bit for bit")
+        del fresh
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
 
     embeds = embed_text([VDM_CAPTION])
     profile_call("vdm_step_rollout10", lambda: vdm.vdm_train_step(
@@ -2635,9 +3208,9 @@ def _kernel_entries(timed: dict, raster: list | None,
                     launches: dict) -> list:
     """One entry per kernel entry point, each timed at its main-path
     shape.  `launches` counts the entry's main path: for the bf16 forwards
-    the whole text→3DGS request of phase `denoise` where it ran, else the
-    latest earlier path that did (decode, then the stitched-decoder slice,
-    then the VDM steps); for the fp32 forward and the fp32 backward the two
+    and the composite the two CLI requests of phase `cli` where it ran,
+    else the first of the whole text→3DGS request of phase `denoise`, the
+    decode, the stitched-decoder slice and the VDM steps that did; for the fp32 forward and the fp32 backward the two
     distillation steps of phase `train`; for the bf16 backward (kernels 4b
     and 5) and the composite backward (kernel 7) the two VDM steps of phase
     `vdm`.  `launches_by_path` has each path's.  The masked flash entry's
@@ -2654,7 +3227,7 @@ def _kernel_entries(timed: dict, raster: list | None,
         main = next((by_path[p] for p in paths if p in by_path), None)
         return main, by_path
 
-    bf16_paths = ("denoise", "decode", "slice", "vdm")
+    bf16_paths = ("cli", "denoise", "decode", "slice", "vdm")
     shape_keys = ("case", "shape", "kernel_ms", "plain_ms", "bound_ms",
                   "library_ms", "max_abs_err_o", "o_excess",
                   "max_abs_err_lse")
@@ -2828,6 +3401,7 @@ def main(argv=None) -> int:
     decoded = run("decode", phase_decode, model, vae, profile)
     denoised = run("denoise", phase_denoise, model, vae, profile)
     del model, vae
+    served = run("cli", phase_cli)
     trained = run("train", phase_train)
     tuned = run("vdm", phase_vdm)
     log(f"seconds by phase {json.dumps(seconds)}; whole script "
@@ -2837,6 +3411,7 @@ def main(argv=None) -> int:
                                      "natural": 0},
                 "decode": decoded and {**decoded["launches"], "natural": 0},
                 "denoise": denoised and denoised["launches"],
+                "cli": served and served["launches"],
                 "train": trained and trained["launches"],
                 "vdm": tuned and tuned["launches"]}
     print(json.dumps({"kernels": _kernel_entries(timed, raster, launches)}))

@@ -405,9 +405,10 @@ def test_frozen_tensors_are_the_teachers_and_unchanged(trained, setup):
                if n in own)
 
 
-def test_run_over_an_in_memory_loader(setup):
+def test_run_over_an_in_memory_loader(setup, tmp_path):
     """`run` over two batches of a 21-frame clip: the view counts drawn,
-    the VAE encode, two steps, the history; checkpoints raise."""
+    the VAE encode, two steps, the history (checkpoints are
+    `test_torch_checkpoints.py`'s)."""
     tcfg = setup["tcfg"]
     vae = tvae.init_encoder(tvae.WanVAEConfig(base_dim=8),
                             torch.Generator().manual_seed(1), device="cpu")
@@ -427,7 +428,9 @@ def test_run_over_an_in_memory_loader(setup):
                                              for s in range(2)] == [9, 13]
     for h in history:
         assert np.isfinite(h["total_loss"]) and h["grad_norm"] > 0
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        tcli.run(params, tcfg, [], train_cfg=cfg, num_epochs=1,
-                 save_path="ckpt")
+    # an empty loader takes no step; the epoch's checkpoint is still saved
+    empty, none = tcli.run(params, tcfg, [], train_cfg=cfg, num_epochs=1,
+                           save_path=tmp_path)
+    assert empty.step == 0 and none == []
+    assert (tmp_path / "stitched_model_epoch_0.pt").exists()
     assert dataclasses.is_dataclass(state)

@@ -372,10 +372,11 @@ def test_whole_step_matches_jax(tiny_models):
                 <= 0.9 * 2 * LR + 1e-7
 
 
-def test_run_two_steps_in_memory(tiny_models):
+def test_run_two_steps_in_memory(tiny_models, tmp_path):
     """`cli.train_vdm.run` over in-memory loaders: two steps (the second
     restarts the one-batch video loader), finite losses, the LoRA moved,
-    the EMA at its warm-up formula, `save_path` refused until slice 6."""
+    the EMA at its warm-up formula; checkpoints are
+    `test_torch_checkpoints.py`'s."""
     _, p = tiny_models
     cfg = tvdm.VDMTrainConfig(enable_rl=True, rollout_steps_low=2,
                               rollout_steps_high=3)
@@ -420,8 +421,10 @@ def test_run_two_steps_in_memory(tiny_models):
         e1 = d0 * ema0[k] + (1 - d0) * snaps[0][k]
         torch.testing.assert_close(e, d1 * e1 + (1 - d1) * snaps[1][k],
                                    atol=1e-7, rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        tcli.run(state, p["dit"], p["enc"], p["dec"], p["stitched"],
-                 text_loader=prompts, video_loader=video,
-                 embed_text=embed_text, reward_loss_fn=None, scfg=p["scfg"],
-                 cfg=cfg, num_steps=3, save_path="x")
+    # a run already at num_steps takes no step (and so saves nothing)
+    again, none = tcli.run(state, p["dit"], p["enc"], p["dec"], p["stitched"],
+                           text_loader=prompts, video_loader=video,
+                           embed_text=embed_text, reward_loss_fn=None,
+                           scfg=p["scfg"], cfg=cfg, num_steps=2,
+                           save_path=tmp_path)
+    assert again.step == 2 and none == [] and not any(tmp_path.iterdir())

@@ -1,0 +1,139 @@
+"""Entry point: text → 3DGS inference on released checkpoints.
+
+Port of `vist3a_tpu/cli/inference_t23d.py` (the reference's
+`inference_t23d.py:51-166`): the prompt list sharded over processes
+(`prompts[rank::world]`, :62), the fixed seed 12413, 50-step UniPC with
+`--flow_shift` and the first `--cfg_scale`, one output folder per prompt
+with prompt.txt, the orbit gs.mp4 and depth.mp4 and gaussians.ply.
+
+    python -m vist3a_tpu_torch.cli.inference_t23d \\
+        --weights_root checkpoints \\
+        --checkpoint_path checkpoints/anysplat_stitched.pth \\
+        --transformer_lora_path checkpoints/wan_lora \\
+        --stitching_layer_location enc_blocks_16 \\
+        --lora_config r64,a32,d0.0,f0 \\
+        --input_texts_path prompts.txt --output_dir results
+
+The tokenizer is a callable `tokenize(text) → (ids (1, 226), mask (1,
+226))`; `main` loads the HF one from `{weights_root}/umt5` only when none
+is given (`transformers` is needed for that alone).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from pathlib import Path
+from typing import Callable
+
+import torch
+
+from vist3a_tpu_torch.cli.arguments import inference_vist3a_argument
+from vist3a_tpu_torch.pipelines import t23d
+
+
+def run(modules: dict, tokenize: Callable, prompts: list[str],
+        output_dir: str, cfg: t23d.T23DConfig, *, process_index: int = 0,
+        process_count: int = 1, orbit_t: int = 10,
+        device: torch.device | str = "cuda") -> list:
+    """This process's share of `prompts`, each through `text_to_3dgs` into
+    `output_dir/<prompt[:100] without '/'>/`.  Returns [(prompt,
+    T23DResult)]."""
+    results = []
+    for prompt in prompts[process_index::process_count]:
+        save = Path(output_dir) / prompt[:100].replace("/", "")
+        save.mkdir(parents=True, exist_ok=True)
+        (save / "prompt.txt").write_text(prompt)
+        res = t23d.text_to_3dgs(modules, tokenize, prompt, str(save), cfg,
+                                orbit_t=orbit_t, device=device)
+        results.append((prompt, res))
+    return results
+
+
+def hf_tokenizer(path) -> Callable:
+    """The HF UMT5 tokenizer of `path` as `tokenize`, padded to 226."""
+    from transformers import AutoTokenizer
+
+    tokenizer = AutoTokenizer.from_pretrained(str(path))
+
+    def tokenize(text):
+        enc = tokenizer([text], padding="max_length", max_length=226,
+                        truncation=True, add_special_tokens=True,
+                        return_attention_mask=True, return_tensors="np")
+        return enc["input_ids"], enc["attention_mask"]
+    return tokenize
+
+
+def process_grid() -> tuple[int, int]:
+    """(rank, world size) of an initialised `torch.distributed`, else
+    (0, 1)."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def load_generator(root: Path, model_id: str, lora_path=None, *,
+                   device: torch.device | str = "cuda") -> dict:
+    """{"umt5": UMT5Encoder, "dit": WanDiT} in bf16 from `{root}/umt5` and
+    `{root}/wan_dit`, each checked against its manifest; a PEFT adapter at
+    `lora_path` merged into the DiT in fp32 before the cast."""
+    from vist3a_tpu_torch.io import load_weights, manifests
+    from vist3a_tpu_torch.io import weight_import as wi
+    from vist3a_tpu_torch.nn import umt5, wan_dit
+
+    sd = load_weights.load_sharded_safetensors(root / "umt5")
+    manifests.validate_state_dict(sd, "umt5_xxl")
+    ucfg = umt5.UMT5_XXL
+    out = {"umt5": wi.build_module(
+        lambda: umt5.UMT5Encoder(ucfg), wi.import_umt5(sd, ucfg),
+        device=device, dtype=torch.bfloat16)}
+    del sd
+    sd = manifests.validate_wan_dit(
+        load_weights.load_sharded_safetensors(root / "wan_dit"))
+    # `--model_id` picks the DiT's widths (`inference_t23d.py:55`), the
+    # file its depth
+    cfg = wi.dit_config(sd, wan_dit.config_from_model_id(model_id))
+    state = wi.import_wan_dit(sd, cfg)
+    if lora_path:
+        state = wi.apply_peft_lora(
+            state, load_weights.load_sharded_safetensors(lora_path))
+    out["dit"] = wi.build_module(lambda: wan_dit.WanDiT(cfg), state,
+                                 device=device, dtype=torch.bfloat16)
+    return out
+
+
+def main(args, tokenize: Callable | None = None, *,
+         device: torch.device | str = "cuda") -> tuple[dict, list]:
+    """Load every module from the weights root and the checkpoints the
+    flags name, then `run` over `--input_texts_path`.  Returns the modules
+    and `run`'s results."""
+    from vist3a_tpu_torch.cli.model_loading import (load_stitched_model,
+                                                    weights_root)
+
+    root = weights_root(args)
+    modules, scfg = load_stitched_model(args, device=device)
+    modules.update(load_generator(
+        root, args.model_id, getattr(args, "transformer_lora_path", None),
+        device=device))
+    if tokenize is None:
+        tokenize = hf_tokenizer(root / "umt5")
+    with open(args.input_texts_path) as f:
+        prompts = [line.strip() for line in f if line.strip()]
+    # the inference decode runs the DPT cascades in bf16 (the t23d
+    # default; `load_stitched_model`'s config keeps the fp32 setting)
+    scfg = dataclasses.replace(
+        scfg, encoder=dataclasses.replace(scfg.encoder,
+                                          head_dtype="bfloat16"))
+    cfg = t23d.T23DConfig(
+        num_frames=args.num_frames, flow_shift=args.flow_shift,
+        guidance_scale=float(str(args.cfg_scale).split(",")[0]),
+        dit=modules["dit"].cfg, stitched=scfg)
+    rank, world = process_grid()
+    return modules, run(modules, tokenize, prompts, args.output_dir, cfg,
+                        process_index=rank, process_count=world,
+                        device=device)
+
+
+if __name__ == "__main__":
+    main(inference_vist3a_argument().parse_args())

@@ -5,12 +5,15 @@ a view count from {9, 13, 17, 21} (drawn from (seed, step), the same on
 every host), the batch sliced to it, a frozen Wan VAE encode of the clip
 and a posterior sample, then `stitch_train_step`.  `run` takes any iterable
 of batches {"vae_image_tensor", "feedforward_image_tensor"}, each (B, 3, T,
-H, W) in [−1, 1].
+H, W) in [−1, 1].  With `save_path` it saves after every epoch; with
+`resume_path` (a folder a run saved to) it goes on after the saved epoch,
+the step, the trainables and the AdamW state restored (`io/checkpoints.py`,
+as `vist3a_tpu/cli/train_stitching.py:57-98` does).  Every draw of a step
+comes from (seed, step), so a resumed run takes the steps an unbroken one
+takes.
 
-Not here yet: the DL3DV / ScanNet loaders, checkpoint save and resume
-(`io/checkpoints.py`) and the metric stream — slice 6, once the data and
-weights are in the repository — and the data-parallel mesh (DDP, also
-slice 6).
+Not here yet: the DL3DV / ScanNet loaders and the metric stream (ROADMAP
+Queue 1, item 14) and the data-parallel mesh (DDP, item 21).
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from vist3a_tpu_torch.io import checkpoints as ckpt
 from vist3a_tpu_torch.nn import wan_vae
 from vist3a_tpu_torch.stitch.chopped_anysplat import StitchedConfig
 from vist3a_tpu_torch.train import stitching as st
@@ -38,18 +42,19 @@ def run(params: dict[str, nn.Module], scfg: StitchedConfig, loader, *,
     """The training loop.  params: {"encoder": the full teacher `Encoder`,
     "stitch_conv": the initial stitch conv, "vae": a `WanVAEEncoder`}, all
     on one device, which the batches are moved to.  Returns (state,
-    history), history the metrics of every `log_every`-th step as floats."""
-    if save_path is not None or resume_path is not None:
-        raise NotImplementedError(
-            "stitching checkpoints (save_path / resume_path) come with "
-            "io/checkpoints.py in slice 6")
+    history), history the metrics of every `log_every`-th step of this
+    call as floats."""
     teacher, vae = params["encoder"], params["vae"]
     device = next(teacher.parameters()).device
     gen = torch.Generator(device=device).manual_seed(seed)
     state, _ = st.init_train_state(gen, teacher, params["stitch_conv"], scfg,
                                    train_cfg)
+    epoch_start = 0
+    if resume_path is not None:
+        epoch_start, state = ckpt.load_stitching_checkpoint(resume_path,
+                                                            state)
     history = []
-    for epoch in range(num_epochs):
+    for epoch in range(epoch_start, num_epochs):
         for batch in loader:
             gstep = state.step
             n_views = st.sample_view_count(seed, gstep)
@@ -68,4 +73,6 @@ def run(params: dict[str, nn.Module], scfg: StitchedConfig, loader, *,
                                 **{k: float(v) for k, v in metrics.items()}})
                 if on_metrics:
                     on_metrics(history[-1])
+        if save_path is not None:
+            ckpt.save_stitching_checkpoint(save_path, epoch, state)
     return state, history

@@ -10,8 +10,8 @@ and a linear projection, L2-normalised.  The reward needs gradients through
 the image tower, so `image_features` recomputes each layer in the backward
 (the JAX package's per-layer `jax.checkpoint`).  Attention is
 plain math (the JAX `impl="xla"`; N = 257 and 730 are below the flash
-threshold anyway).  The text towers and the weight importers come with the
-weights (slice 6): the reward takes text features as inputs.
+threshold anyway).  The text towers and the weight importers are ROADMAP
+Queue 1, item 15: the reward takes text features as inputs.
 
 Numerics follow the JAX functions: LayerNorm statistics in fp32, cast back;
 a linear rounds its product to the activation dtype and adds the bias in

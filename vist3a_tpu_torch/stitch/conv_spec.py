@@ -119,3 +119,18 @@ def parse_conv_spec(spec: str) -> ConvSpec:
                     padding=_parse_num(g["p"], 0),
                     dilation=_parse_num(g["d"], 1))
 
+
+
+def conv_spec_to_string(spec: ConvSpec) -> str:
+    """Inverse of `parse_conv_spec` (canonical form)."""
+    def fmt(v):
+        return "x".join(str(x) for x in v) if isinstance(v, tuple) else str(v)
+
+    s = f"conv{spec.dim}d_k{fmt(spec.kernel_size)}_o{spec.out_channels}"
+    if spec.stride != 1:
+        s += f"_s{fmt(spec.stride)}"
+    if spec.padding != 0:
+        s += f"_p{fmt(spec.padding)}"
+    if spec.dilation != 1:
+        s += f"_d{fmt(spec.dilation)}"
+    return s

@@ -16,7 +16,9 @@ in) that is the JAX w + a@b transposed, for an OIHW kernel the JAX
 (o, i, kh, kw) view of (a@b)ᵀ — one rule for every site kind.  The merge
 is functional, base + delta as new tensors, as the JAX package merges and
 then applies; a forward hook adding the delta to the output would round
-differently.
+differently.  `lora_from_flat` turns the flat factors of a reference
+stitched checkpoint (`io/weight_import.import_stitched_checkpoint`) into
+these sites and the biases a bias="lora_only" checkpoint trained.
 """
 
 from __future__ import annotations
@@ -173,3 +175,45 @@ def factors_by_block(lora: dict[str, dict],
         _, i, name = site.split(".", 2)
         out[int(i)][name] = f
     return out
+
+
+def lora_from_flat(flat: dict[str, dict], model: nn.Module
+                   ) -> tuple[dict[str, dict], dict[str, torch.Tensor]]:
+    """Flat {site: {"a", "b"[, "bias"]}} with `model`'s module names (e.g.
+    `io/weight_import.import_stitched_checkpoint`'s, its `encoder.` prefix
+    taken off for an `Encoder`) → ({site: {"a", "b"}}, {"<site>.bias":
+    tensor}), the factors for `merge_lora` and the biases a
+    bias="lora_only" checkpoint trained, to set on the base weights.
+
+    Port of `vist3a_tpu/stitch/lora.py::lora_from_flat`.  The port's sites
+    are per block, so a block without an entry (a chopped ViT block) simply
+    has none, where the JAX package stacks a zero row.  Raises on a site
+    `model` lacks, factors whose product does not fit the site's weight,
+    and a bias of another shape than the site's."""
+    modules = dict(model.named_modules())
+    lora, biases, bad = {}, {}, []
+    for site, f in flat.items():
+        m = modules.get(site)
+        if m is None or not _is_site(m):
+            bad.append(f"{site}: no LoRA site of that name")
+            continue
+        if "a" in f or "b" in f:
+            a, b = f.get("a"), f.get("b")
+            if (a is None or b is None or a.dim() != 2 or b.dim() != 2
+                    or a.shape[1] != b.shape[0]
+                    or a.shape[0] * b.shape[1] != m.weight.numel()):
+                shapes = [tuple(x.shape) for x in (a, b) if x is not None]
+                bad.append(f"{site}: factors {shapes} do not fit its weight "
+                           f"{tuple(m.weight.shape)}")
+                continue
+            lora[site] = {"a": a, "b": b}
+        if "bias" in f:
+            if m.bias is None or f["bias"].shape != m.bias.shape:
+                bad.append(f"{site}: bias {tuple(f['bias'].shape)} does not "
+                           "fit the site's")
+                continue
+            biases[f"{site}.bias"] = f["bias"]
+    if bad:
+        raise ValueError(f"{len(bad)} LoRA entries do not fit the model, "
+                         "first 20:\n  " + "\n  ".join(bad[:20]))
+    return lora, biases
