@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases device,build,kernels,train
     python3 chip_smoke.py --phases device,build,kernels,raster,vdm
     python3 chip_smoke.py --phases device,build,cli
+    python3 chip_smoke.py --phases device,build,workflows
 
 Phases, each of which passes or raises (any failure exits non-zero):
   1. device  — the card's name and power limit; fails without CUDA.
@@ -166,8 +167,7 @@ Phases, each of which passes or raises (any failure exits non-zero):
                formula, the frozen weights unchanged, and each step's
                launches against `vdm_launches` (56 kernel-4b, 60 kernel-5
                and 13 composite backward launches); prints ms per step,
-               peak memory, a profile of one more step with a 10-step
-               rollout, and compares a narrow step card vs host CPU (the
+               peak memory, and compares a narrow step card vs host CPU (the
                SFT gradients and the losses) and its reward branch alone,
                in fp32 and in bf16, with the host's render inputs, pair
                streams and the render's cotangents pinned to the card's
@@ -177,6 +177,34 @@ Phases, each of which passes or raises (any failure exits non-zero):
                The run saves `checkpoint-2` (`save_freq`), reloaded into
                a fresh state and held against the live one as in phase 11.
                Cut: B = 1, two steps, random weights and data.
+  13. workflows — the three workflows from their command lines at full
+               width on files on disk (`drive_workflows`): phase `cli`'s
+               source modules plus both scorers' towers (PickScore: HF
+               CLIP-H/14 at 224²; DFN5B: open_clip H/14 at 378²; each with
+               a CLIP-H text tower; fp32) written in the reference layout
+               (`pickscore/` with `logit_scale` and a synthetic `vocab.json`
+               + `merges.txt`, `dfn5b/`; ~28 GB, the free disk read first),
+               a DL3DV tree (2 scenes × 21 structured frames at 960×540,
+               PNG, one scene captioned), a one-scene ScanNet tree and a
+               prompt list; then `cli/find_layer.py::main` on 2 DL3DV
+               samples (24 MSEs, 24 artifacts, the printed argmin, a
+               second main from the cache, the last tap against the
+               trunk's own blocks, 24 fp32 flash launches a sample),
+               `cli/train_stitching.py::main` over DL3DV + ScanNet from the
+               search's `enc_blocks_16` artifact (converted to the {weight,
+               bias} `.pth` the main reads; LoRA r64 α32, B = 1, one epoch
+               of 3 steps at the seed whose views are 13, 9, 9: finite
+               losses, the teacher unchanged, the epoch's checkpoint, the
+               JSONL metric stream's 16 terms, phase `train`'s launches a
+               step) and `cli/train_vdm.py::main --enable_rl` for one step
+               (the 50-step rollout of every 10th step: finite losses, the
+               per-prompt text features of the imported towers finite, unit
+               norm and the source towers', the frozen modules as written,
+               `history.jsonl`, `images/step_000000.png`, `checkpoint-1`,
+               `vdm_launches(50)`).  Logs each main's read, load, step and
+               extraction seconds, the host fit's seconds, the feature
+               cache's bytes and the peak memory.  Cut: random weights,
+               synthetic scenes and tokenizer files, a few steps.
 The line before the last lists the kernels as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -199,7 +227,8 @@ import zlib
 from pathlib import Path
 
 PHASES = ("device", "build", "kernels", "raster", "slice", "profile",
-          "reference", "decode", "denoise", "cli", "train", "vdm")
+          "reference", "decode", "denoise", "cli", "train", "vdm",
+          "workflows")
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 (data sheet)
 PEAK_FP32_FLOPS = 67e12       # H100 SXM fp32 outside the tensor cores
 # fp32-accurate products on the TF32 tensor cores (495 TFLOP/s dense), each
@@ -417,6 +446,24 @@ CLI_DIT_LORA_ALPHA = 16
 CLI_UMT5_SHARDS = 3
 # free disk asked of the temporary folder, as a multiple of the files' size
 CLI_DISK_FACTOR = 1.2
+# phase `workflows`: the three command lines on files on disk.  The DL3DV
+# tree: 2 scenes of 21 frames at DL3DV's `images_4` size, one of them
+# captioned over frames 0-14; a one-scene ScanNet tree; two prompts
+WORKFLOW_FRAMES = 21
+WORKFLOW_HW = (540, 960)
+WORKFLOW_SCANNET_HW = (480, 640)
+WORKFLOW_CAPTION_FRAMES = 15
+WORKFLOW_PROMPTS = (PROMPT, "a wooden boat on a calm lake")
+# the distillation main's three steps (2 DL3DV + 1 ScanNet clip, B = 1):
+# the drawn view counts the seed is chosen for
+WORKFLOW_STITCH_VIEWS = (13, 9, 9)
+# the search's samples and the deployed chop the distillation starts from
+WORKFLOW_SEARCH_SAMPLES = 2
+WORKFLOW_CHOP = 16
+# PickScore's logit scale (the file holds its log; the reward takes exp)
+PICK_LOGIT_SCALE = 100.0
+# the extra disk the phase's data, features and checkpoints take
+WORKFLOW_EXTRA_BYTES = 4 << 30
 
 
 def log(msg: str) -> None:
@@ -1724,6 +1771,33 @@ def _check_artifacts(arts) -> str:
             f"depth.mp4 {mp4_bytes} B")
 
 
+def _check_summary(summary: dict, n_gauss: int) -> str:
+    """`_check_output` and `_check_artifacts` on what
+    `cli/inference_t23d.py::run` keeps of a request (`summarize`)."""
+    from vist3a_tpu_torch.io.ply_export import load_ply
+
+    shapes = summary["shapes"]
+    for name, shape in (("means", (1, n_gauss, 3)),
+                        ("covariances", (1, n_gauss, 3, 3)),
+                        ("harmonics", (1, n_gauss, 3, 25)),
+                        ("opacities", (1, n_gauss))):
+        check(shapes[name] == shape, f"{name} {shapes[name]}, want {shape}")
+    check(summary["frames_shape"] == (ORBIT_VIEWS, 3, IMAGE, IMAGE),
+          f"frames {summary['frames_shape']}")
+    lo, hi = summary["frames_range"]
+    check(summary["frames_finite"] and lo >= 0 and hi <= 1,
+          "orbit frames not finite in [0, 1]")
+    check(summary["depth_finite"], "non-finite depth")
+    paths = summary["paths"]
+    n_vertices = len(load_ply(paths["ply"])["x"])
+    check(n_vertices == n_gauss, f"PLY has {n_vertices} vertices")
+    mp4_bytes = [os.path.getsize(paths[k]) for k in ("gs", "depth")]
+    check(min(mp4_bytes) > 0, f"empty mp4 files {mp4_bytes}")
+    return (f"frames mean {summary['frames_mean']:.4f}, PLY {n_vertices} "
+            f"vertices, {os.path.getsize(paths['ply'])} B, gs.mp4 + "
+            f"depth.mp4 {mp4_bytes} B")
+
+
 def phase_decode(model, vae, profile: bool) -> dict:
     import torch
 
@@ -2044,8 +2118,11 @@ def write_weights_root(root: Path, src: dict, scfg, lora_cfg, gen) -> dict:
     """The reference layout under `root` from the source modules (on the
     host): `anysplat.pth` (fp32), `wan_vae/` (fp32), `umt5/` (bf16, HF
     shards and index), `wan_dit/` (bf16), `anysplat_stitched.pth` and the
-    DiT's PEFT folder `wan_lora/`, each state dict checked against its
-    manifest first.  Returns what the checks need: the stitched
+    DiT's PEFT folder `wan_lora/`, and where `src` holds the scorers'
+    towers (`pick_vision`, `pick_text`, `pe_vision`, `pe_text`)
+    `pickscore/` (HF CLIP-H with `logit_scale`, `vocab.json` and
+    `merges.txt`) and `dfn5b/` (open_clip), each state dict checked
+    against its manifest first.  Returns what the checks need: the stitched
     checkpoint's port-named factors and biases, the PEFT adapter, and the
     bytes written."""
     import torch
@@ -2058,6 +2135,12 @@ def write_weights_root(root: Path, src: dict, scfg, lora_cfg, gen) -> dict:
                                           src["vae_decoder"]),
         "umt5_xxl": manifests._fab_umt5(src["umt5"]),
         "wan_dit": manifests._fab_wan_dit(src["dit"])}
+    if "pick_vision" in src:
+        files["pickscore"] = manifests._fab_pickscore(
+            src["pick_vision"], src["pick_text"],
+            torch.tensor(math.log(PICK_LOGIT_SCALE)))
+        files["dfn5b"] = manifests._fab_dfn5b(src["pe_vision"],
+                                              src["pe_text"])
     for family, sd in files.items():
         if family == "wan_dit":
             manifests.validate_wan_dit(sd)
@@ -2084,8 +2167,52 @@ def write_weights_root(root: Path, src: dict, scfg, lora_cfg, gen) -> dict:
         root / "wan_lora" / "adapter_model.safetensors", adapter)
     for name in ("anysplat.pth", "anysplat_stitched.pth"):
         written[name] = (root / name).stat().st_size
+    for family in ("pickscore", "dfn5b"):
+        if family in files:
+            (root / family).mkdir()
+            written[family] = write_safetensors(
+                root / family / "model.safetensors", files[family])
+    if "pickscore" in files:
+        write_clip_tokenizer(root / "pickscore",
+                             (*WORKFLOW_PROMPTS, VDM_CAPTION))
     return {"factors": factors, "biases": biases, "checkpoint": ck,
             "dit_factors": dit_factors, "bytes": written}
+
+
+def clip_merges(texts) -> list[tuple[str, str]]:
+    """A BPE merge list that spells every word of `texts` as one token:
+    each word's characters merged left to right, the last one carrying the
+    word-final marker."""
+    merges, made = [], set()
+    for word in " ".join(texts).lower().replace(",", " ").split():
+        parts = [*word[:-1], word[-1] + "</w>"]
+        cur = parts[0]
+        for part in parts[1:]:
+            if cur + part not in made:
+                merges.append((cur, part))
+                made.add(cur + part)
+            cur += part
+    return merges
+
+
+def write_clip_tokenizer(folder: Path, texts) -> int:
+    """A synthetic HF `vocab.json` + `merges.txt` in the openai order (the
+    byte alphabet, its word-final forms, the merges, then the start and
+    end tokens, so the end token has the highest id, as CLIP's); returns
+    the vocabulary's size, far below CLIP's 49,408."""
+    from vist3a_tpu_torch.data.clip_tokenizer import (EOT, SOT,
+                                                      bytes_to_unicode)
+
+    merges = clip_merges(texts)
+    alphabet = list(bytes_to_unicode().values())
+    tokens = [*alphabet, *(c + "</w>" for c in alphabet),
+              *("".join(m) for m in merges), SOT, EOT]
+    (folder / "vocab.json").write_text(
+        json.dumps({t: i for i, t in enumerate(tokens)}), encoding="utf-8")
+    (folder / "merges.txt").write_text(
+        "#version: 0.2\n" + "\n".join(" ".join(m) for m in merges) + "\n",
+        encoding="utf-8")
+    return len(tokens)
 
 
 @contextlib.contextmanager
@@ -2107,6 +2234,31 @@ def timed_calls(module, names: tuple, times: list, sync):
         setattr(module, n, wrap(n, fn))
     try:
         yield times
+    finally:
+        for n, fn in saved.items():
+            setattr(module, n, fn)
+
+
+@contextlib.contextmanager
+def memory_after(module, names: tuple, out: list, cuda: bool):
+    """Wrap `module.<name>` for each name, appending (name, the peak of the
+    device memory allocated so far) after every call; restored on exit."""
+    import torch
+
+    saved = {n: getattr(module, n) for n in names}
+
+    def wrap(name, fn):
+        def measured(*args, **kwargs):
+            res = fn(*args, **kwargs)
+            if cuda:
+                torch.cuda.synchronize()
+                out.append((name, torch.cuda.max_memory_allocated()))
+            return res
+        return measured
+    for n, fn in saved.items():
+        setattr(module, n, wrap(n, fn))
+    try:
+        yield out
     finally:
         for n, fn in saved.items():
             setattr(module, n, fn)
@@ -2187,7 +2339,7 @@ def drive_cli(src: dict, scfg, lora_spec: str, tmp: Path, *, tokenize,
     are added to the command line (the CPU test's shorter clip)."""
     import torch
 
-    from vist3a_tpu_torch.cli import arguments, inference_t23d
+    from vist3a_tpu_torch.cli import arguments, inference_t23d, model_loading
     from vist3a_tpu_torch.io import load_weights
     from vist3a_tpu_torch.pipelines import t23d
     from vist3a_tpu_torch.stitch.conv_spec import conv_spec_to_string
@@ -2212,7 +2364,7 @@ def drive_cli(src: dict, scfg, lora_spec: str, tmp: Path, *, tokenize,
         "--stitching_layer_location", f"enc_blocks_{scfg.stitch_layer_index}",
         "--stitching_layer_config", conv_spec_to_string(scfg.conv),
         "--lora_config", lora_spec, *flags])
-    reads, requests = [], []
+    reads, requests, loads = [], [], []
     if cuda:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -2230,7 +2382,11 @@ def drive_cli(src: dict, scfg, lora_spec: str, tmp: Path, *, tokenize,
     inference_t23d.run = peak_then_run
     try:
         with timed_calls(load_weights, loaders, reads, sync), \
-                timed_calls(t23d, ("text_to_3dgs",), requests, sync):
+                timed_calls(t23d, ("text_to_3dgs",), requests, sync), \
+                memory_after(model_loading, ("load_stitched_model",), loads,
+                             cuda), \
+                memory_after(inference_t23d, ("load_generator",), loads,
+                             cuda):
             modules, results = inference_t23d.main(args, tokenize,
                                                    device=device)
     finally:
@@ -2238,8 +2394,8 @@ def drive_cli(src: dict, scfg, lora_spec: str, tmp: Path, *, tokenize,
     sync()
     main_s = time.perf_counter() - t0
     counts = _vdm_counts()
-    peak = {"load": load_peak[0], "requests": torch.cuda.max_memory_allocated()
-            } if cuda else None
+    peak = {"load": load_peak[0], "requests": torch.cuda.max_memory_allocated(),
+            **{f"after_{n}": m for n, m in loads}} if cuda else None
     read_s = sum(s for _, _, s in reads)
     load_s = requests[0][1] - t0
     request_s = [s for _, _, s in requests]
@@ -2254,16 +2410,18 @@ def drive_cli(src: dict, scfg, lora_spec: str, tmp: Path, *, tokenize,
     # what the CLI wrote: one folder per prompt, named as the reference
     # names it
     check([p for p, _ in results] == list(prompts), "cli: prompts run")
-    for prompt, res in results:
+    for prompt, summary in results:
         folder = out_dir / prompt[:100].replace("/", "")
         check((folder / "prompt.txt").read_text() == prompt,
               f"cli: {folder}/prompt.txt")
         for f in ("gs.mp4", "depth.mp4", "gaussians.ply"):
             check((folder / f).is_file() and (folder / f).stat().st_size,
                   f"cli: {folder}/{f} missing or empty")
-        check(bool(torch.isfinite(res.latents).all()), "cli: latents")
-        for t in res.output.gaussians:
-            check(bool(torch.isfinite(t).all()), "cli: Gaussians")
+        check(summary["paths"]["ply"] == str(folder / "gaussians.ply"),
+              f"cli: paths {summary['paths']}")
+        check(summary["latents_finite"], "cli: latents")
+        bad = [k for k, ok in summary["finite"].items() if not ok]
+        check(not bad, f"cli: non-finite {bad}")
     # what the CLI loaded: the written values, merged where LoRA was
     n_stitched = same_values(
         "stitched decoder", modules["stitched"].state_dict(),
@@ -2355,8 +2513,7 @@ def phase_cli() -> dict:
                         want_launches={k: len(CLI_PROMPTS) * v
                                        for k, v in per_request.items()})
         for prompt, r in res.pop("results"):
-            _check_output(r.output, GAUSSIANS)
-            log(f"cli: '{prompt}': {_check_artifacts(r.artifacts)}")
+            log(f"cli: '{prompt}': {_check_summary(r, GAUSSIANS)}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         del src
@@ -2700,8 +2857,7 @@ def _checksums(models: dict) -> dict:
 
 def phase_vdm() -> dict:
     """Two full-width VDM steps through `run`, their checks, launches,
-    times and peak memory; one more step under the profiler (a 10-step
-    rollout); a narrow step card vs host CPU."""
+    times and peak memory; a narrow step card vs host CPU."""
     import numpy as np
     import torch
 
@@ -2828,16 +2984,7 @@ def phase_vdm() -> dict:
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
 
-    embeds = embed_text([VDM_CAPTION])
-    profile_call("vdm_step_rollout10", lambda: vdm.vdm_train_step(
-        state, m["dit"], m["vae_encoder"], m["vae_decoder"], m["stitched"],
-        video=clip_video, sft_text=embeds, rl_cond=embeds, rl_uncond=uncond,
-        reward_loss_fn=loss_fn, seed=VDM_SEED, scfg=stitched_config(),
-        cfg=vcfg, latent_shape=cfg.latent_shape, render_size=IMAGE,
-        reward_text=tuple(feats),
-        draws={"num_steps": 10, "backprop_idx": [3, 7, 9],
-               "guidance": 5.0}))
-    del state, m, loss_fn, embeds, uncond, clip_video
+    del state, m, loss_fn, uncond, clip_video
     torch.cuda.empty_cache()
     steps = [{k: h[k] for k in ("num_steps", "backprop_idx", "guidance",
                                 "diffusion_loss", "reward_loss",
@@ -3204,6 +3351,510 @@ def vdm_reference() -> dict:
     return res
 
 
+# --------------------------------------------------------------------------- #
+# phase `workflows`: the three command lines on files on disk                  #
+# --------------------------------------------------------------------------- #
+def scene_frame(i: int, hw: tuple, seed: int):
+    """A structured RGB frame (uint8): four coloured Gaussian blobs that
+    move with the frame index over a lit gradient."""
+    import numpy as np
+
+    h, w = hw
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = np.stack([0.3 + 0.4 * xx / w, 0.25 + 0.3 * yy / h,
+                    0.5 - 0.2 * xx / w], axis=-1)
+    for _ in range(4):
+        colour = rng.uniform(0.2, 1.0, 3).astype(np.float32)
+        cx, cy = rng.uniform(0.2, 0.8) * w, rng.uniform(0.2, 0.8) * h
+        vx, vy = rng.uniform(-0.01, 0.01, 2) * np.float32(max(h, w))
+        sigma = rng.uniform(0.05, 0.15) * min(h, w)
+        blob = np.exp(-((xx - cx - vx * i) ** 2 + (yy - cy - vy * i) ** 2)
+                      / (2 * sigma * sigma))
+        img = img * (1 - blob[..., None]) + colour * blob[..., None]
+    return (np.clip(img, 0, 1) * 255).astype(np.uint8)
+
+
+def write_scenes(folder: Path, *, hw=WORKFLOW_HW,
+                 scannet_hw=WORKFLOW_SCANNET_HW, frames=WORKFLOW_FRAMES,
+                 caption_frames=WORKFLOW_CAPTION_FRAMES) -> dict:
+    """The datasets the command lines read, written with OpenCV (the card
+    machine has no Pillow): a DL3DV tree `dl3dv/1K/scene_{a,b}/images_4/
+    frame_XXXXX.png`, its caption JSON (scene_a captioned over frames
+    [0, caption_frames)), a one-scene ScanNet tree `scannet/scene0000_00/
+    frames/color/<i>.png` and a prompt list.  Returns their paths."""
+    import cv2
+
+    paths = {"dl3dv": folder / "dl3dv", "scannet": folder / "scannet",
+             "captions": folder / "captions.json",
+             "prompts": folder / "prompts.txt"}
+    dirs = [(paths["dl3dv"] / "1K" / f"scene_{c}" / "images_4", hw,
+             "frame_{:05d}.png", k) for k, c in enumerate("ab")]
+    dirs.append((paths["scannet"] / "scene0000_00" / "frames" / "color",
+                 scannet_hw, "{}.png", 2))
+    for d, size, name, seed in dirs:
+        d.mkdir(parents=True)
+        for i in range(frames):
+            ok = cv2.imwrite(str(d / name.format(i)),
+                             scene_frame(i, size, seed)[:, :, ::-1])
+            check(ok, f"workflows: cv2 could not write {d / name.format(i)}")
+    paths["captions"].write_text(json.dumps([{
+        "scene_name": "scene_a",
+        "caption": {f"cap_0_{caption_frames - 1}": VDM_CAPTION}}]))
+    paths["prompts"].write_text("\n".join(WORKFLOW_PROMPTS) + "\n")
+    return paths
+
+
+def workflow_seed(views=WORKFLOW_STITCH_VIEWS) -> int:
+    """The smallest seed whose view-count draws for the distillation
+    main's steps are `views`."""
+    from vist3a_tpu_torch.train import stitching as st
+
+    return next(s for s in range(1 << 16)
+                if [st.sample_view_count(s, i) for i in range(len(views))]
+                == list(views))
+
+
+@contextlib.contextmanager
+def captured(module, name: str, store: dict):
+    """Wrap `module.<name>`: the arguments and the result of its last call
+    go to store[name] as (args, kwargs, result); restored on exit."""
+    fn = getattr(module, name)
+
+    def wrap(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        store[name] = (args, kwargs, out)
+        return out
+    setattr(module, name, wrap)
+    try:
+        yield store
+    finally:
+        setattr(module, name, fn)
+
+
+def measured_main(label: str, fn, args, *, device: str, timed: tuple = ()
+                  ) -> tuple:
+    """fn(args, device=device) with the launch counts reset before it, the
+    peak device memory from its start, the seconds spent reading files
+    (`io/load_weights.py`) and in each of `timed` ((module, names) pairs).
+    Returns (fn's result, {"seconds", "read_s", "calls": {name: [s]},
+    "peak_bytes", "launches"})."""
+    import torch
+
+    from vist3a_tpu_torch.io import load_weights
+
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    reads, calls = [], []
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(timed_calls(load_weights, (
+            "load_torch_state_dict", "load_sharded_safetensors"), reads,
+            sync))
+        for module, names in timed:
+            stack.enter_context(timed_calls(module, names, calls, sync))
+        out = fn(args, device=device)
+    sync()
+    info = {"seconds": time.perf_counter() - t0,
+            "read_s": sum(x for _, _, x in reads),
+            "calls": {n: [x for m, _, x in calls if m == n]
+                      for _, names in timed for n in names},
+            "peak_bytes": torch.cuda.max_memory_allocated() if cuda
+            else None, "launches": _vdm_counts()}
+    log(f"workflows: {label}: {info['seconds']:.1f} s, read "
+        f"{info['read_s']:.1f} s, peak memory allocated "
+        f"{info['peak_bytes']} B, launches {info['launches']}, calls "
+        + json.dumps({n: [round(x, 2) for x in v]
+                      for n, v in info["calls"].items()}))
+    return out, info
+
+
+def drive_search(root: Path, data: dict, out: Path, scfg, flags: tuple, *,
+                 device: str, want_launches: dict | None) -> dict:
+    """`cli/find_layer.py::main` twice (the second reads the cache), its
+    checks; returns the times, the MSEs and the artifact folder."""
+    import numpy as np
+    import torch
+
+    from vist3a_tpu_torch.cli import arguments, find_layer, model_loading
+    from vist3a_tpu_torch.io import checkpoints as ckpt
+    from vist3a_tpu_torch.nn import vit as vit_mod
+    from vist3a_tpu_torch.nn.aggregator import IMAGENET_MEAN, IMAGENET_STD
+    from vist3a_tpu_torch.search import ridge
+
+    args = arguments.find_layer_stitching_argument().parse_args([
+        "--dataset", f"dl3dv:{data['dl3dv']}", "--feature_save_path",
+        str(out), "--iterations_for_feature_extraction",
+        str(WORKFLOW_SEARCH_SAMPLES), "--stitching_layer_config",
+        scfg.conv_spec, *flags])
+    args.weights_root = str(root)
+    taps = {}
+
+    def first_taps(vit, images01, cfg, **kw):
+        # the trunk and images of the first extraction, kept for the check
+        feats = extract(vit, images01, cfg, **kw)
+        taps.setdefault("in", (vit, images01[0], cfg, feats[-1][0]))
+        return feats
+    extract = ridge.extract_block_features
+    ridge.extract_block_features = first_taps
+    try:
+        (best, mses), info = measured_main(
+            "find_layer.main", find_layer.main, args, device=device,
+            timed=((ridge, ("extract_block_features",
+                            "fit_conv3d_streaming")),
+                   (model_loading, ("load_anysplat_encoder",
+                                    "load_wan_vae"))))
+    finally:
+        ridge.extract_block_features = extract
+    vit, images01, cfg, last = taps.pop("in")
+    depth = cfg.depth
+    check(len(mses) == depth and all(math.isfinite(v) for v in mses.values()),
+          f"search: {len(mses)} MSEs {mses}")
+    check(best == min(mses, key=mses.get), f"search: best {best} of {mses}")
+    kshape = (cfg.embed_dim, 16, 5, 3, 3)
+    for k in range(1, depth + 1):
+        art = ckpt.load_search_artifact(out / f"state_dict_enc_blocks_{k}.npz")
+        check(art["kernel"].shape == kshape and art["bias"].shape
+              == (cfg.embed_dim,) and np.isfinite(art["kernel"]).all(),
+              f"search: enc_blocks_{k} artifact {art['kernel'].shape}")
+        check((out / f"mse_enc_blocks_{k}.txt").is_file(),
+              f"search: mse_enc_blocks_{k}.txt")
+    # the last block's tap is the trunk's own output before the norm
+    with torch.no_grad():
+        mean = images01.new_tensor(IMAGENET_MEAN).reshape(1, 3, 1, 1)
+        std = images01.new_tensor(IMAGENET_STD).reshape(1, 3, 1, 1)
+        imgs = (images01 - mean) / std
+        x = vit_mod.prepare_tokens(vit, vit.patch_proj(imgs), (
+            imgs.shape[-2] // cfg.patch_size,
+            imgs.shape[-1] // cfg.patch_size), cfg).to(vit.cls_token.dtype)
+        for blk in vit.blocks.values():
+            x = blk(x)
+        own = x[:, 1 + cfg.num_register_tokens:].to(torch.float16)
+    check(torch.equal(own, last), "search: the last tap is not the trunk's "
+          "output before the norm")
+    del vit, images01, last, x, own, imgs
+    if want_launches is not None:
+        check(info["launches"] == want_launches,
+              f"search: launches {info['launches']}, want {want_launches}")
+    cache = (out / "features.npz").stat().st_size
+    (best2, mses2), info2 = measured_main(
+        "find_layer.main (cached)", find_layer.main, args, device=device,
+        timed=((ridge, ("extract_block_features",
+                        "fit_conv3d_streaming")),))
+    check(best2 == best and mses2 == mses
+          and not any(info2["calls"].values()),
+          f"search: the cached run gave {best2} {mses2}, calls "
+          f"{info2['calls']}")
+    log(f"workflows: search: best {best} (MSE {mses[best]:.6g}), MSEs "
+        + json.dumps({k: round(v, 6) for k, v in mses.items()})
+        + f"; extraction {sum(info['calls']['extract_block_features']):.1f}"
+        f" s, host fit {sum(info['calls']['fit_conv3d_streaming']):.1f} s, "
+        f"feature cache {cache} B; the cached run {info2['seconds']:.1f} s")
+    return {"best": best, "mses": mses, "info": info, "cached": info2,
+            "cache_bytes": cache}
+
+
+def drive_distillation(src: dict, root: Path, data: dict, search: Path,
+                       out: Path, scfg, flags: tuple, *, device: str,
+                       want_per_step: dict | None) -> dict:
+    """`cli/train_stitching.py::main` from the search's artifact at the
+    chop (converted to the {weight, bias} `.pth` the main reads), its
+    checks; returns the times, the losses and the launches."""
+    import torch
+
+    from vist3a_tpu_torch.cli import arguments, model_loading
+    from vist3a_tpu_torch.cli import train_stitching as cli
+    from vist3a_tpu_torch.io import checkpoints as ckpt
+    from vist3a_tpu_torch.train import stitching as st
+
+    # the search writes the JAX package's {kernel, bias} .npz; the main
+    # reads the reference's {weight, bias} torch file
+    chop = scfg.stitch_layer_index
+    art = ckpt.load_search_artifact(search / f"state_dict_enc_blocks_{chop}.npz")
+    init = out.parent / f"init_enc_blocks_{chop}.pth"
+    torch.save({"weight": torch.from_numpy(art["kernel"]),
+                "bias": torch.from_numpy(art["bias"])}, init)
+    seed = workflow_seed()
+    args = arguments.stitching_training_argument().parse_args([
+        "--dataset", f"dl3dv:{data['dl3dv']}",
+        "--dataset", f"scannet:{data['scannet']}",
+        "--stitching_layer_location", f"enc_blocks_{chop}",
+        "--stitching_layer_config", scfg.conv_spec,
+        "--initialization_weight_path", str(init),
+        "--lora_config", TRAIN_LORA, "--num_epochs", "1",
+        "--batch_size", "1", "--save_path", str(out), "--wandb_logging",
+        "--global_seed", str(seed), *flags])
+    args.weights_root = str(root)
+    store = {}
+    with captured(cli, "run", store):
+        (state, history), info = measured_main(
+            "train_stitching.main", cli.main, args, device=device,
+            timed=((st, ("stitch_train_step",)),
+                   (model_loading, ("load_anysplat_encoder",
+                                    "load_wan_vae"))))
+    params = store.pop("run")[0][0]
+    n_steps = len(WORKFLOW_STITCH_VIEWS)
+    check(state.step == n_steps and len(history) == 1,
+          f"distillation: {state.step} steps, history {len(history)}")
+    check(history[0]["views"] == WORKFLOW_STITCH_VIEWS[0],
+          f"distillation: step 0 took {history[0]['views']} views")
+    check(all(math.isfinite(v) for k, v in history[0].items()
+              if isinstance(v, float)), f"distillation: {history[0]}")
+    stream = [json.loads(line) for line in (
+        out / f"{args.exp_name}.metrics.jsonl").read_text().splitlines()]
+    # the 14 terms, their total and grad_norm (and the step's lr)
+    terms = [k for k in history[0] if k not in ("epoch", "step", "views",
+                                                "lr")]
+    check(len(stream) == 1 and len(terms) == 16
+          and all(math.isfinite(stream[0][k]) for k in terms + ["lr"]),
+          f"distillation: metric stream {stream} (terms {terms})")
+    saved = out / "stitched_model_epoch_0.pt"
+    check(saved.is_file() and saved.stat().st_size > 0,
+          f"distillation: {saved} missing")
+    n_teacher = same_values("distillation: teacher",
+                            params["encoder"].state_dict(),
+                            src["encoder"].state_dict())
+    conv = params["stitch_conv"].state_dict()
+    check(torch.equal(conv["weight"].cpu(), torch.from_numpy(art["kernel"]))
+          and torch.equal(conv["bias"].cpu(), torch.from_numpy(art["bias"])),
+          "distillation: the stitch conv is not the search's artifact")
+    del params, state, conv
+    if want_per_step is not None:
+        want = {k: n_steps * v for k, v in want_per_step.items()}
+        got = {k: info["launches"][k] for k in want}
+        check(got == want, f"distillation: launches {got}, want {want}")
+    log(f"workflows: distillation: {n_steps} steps (views "
+        f"{list(WORKFLOW_STITCH_VIEWS)}, seed {seed}), step s "
+        f"{[round(x, 2) for x in info['calls']['stitch_train_step']]}, "
+        f"losses " + json.dumps({k: round(history[0][k], 6)
+                                 for k in terms})
+        + f"; the teacher's {n_teacher} tensors unchanged; "
+        f"{saved.name} {saved.stat().st_size} B")
+    return {"info": info, "seed": seed, "history": history}
+
+
+def drive_vdm(src: dict, root: Path, written: dict, data: dict, out: Path,
+              scfg, flags: tuple, *, tokenize, device: str,
+              want_launches: bool, grid_tiles: tuple) -> dict:
+    """`cli/train_vdm.py::main --enable_rl` for one step, its checks
+    (`grid_tiles`: the image grid's (rows, columns) of square tiles: the
+    decoded frame and the 13 renders, 7 a row);
+    returns the times, the losses and the launches."""
+    import cv2
+    import numpy as np
+    import torch
+
+    from vist3a_tpu_torch.cli import arguments, model_loading
+    from vist3a_tpu_torch.cli import train_vdm as cli
+    from vist3a_tpu_torch.cli import inference_t23d
+    from vist3a_tpu_torch.data.clip_tokenizer import CLIPTokenizer
+    from vist3a_tpu_torch.nn import clip as clip_mod
+    from vist3a_tpu_torch.stitch.lora import parse_lora_mode
+    from vist3a_tpu_torch.train import reward, vdm
+
+    args = arguments.training_vdm_argument().parse_args([
+        "--enable_rl", "--dataset", f"dl3dv:{data['dl3dv']}",
+        "--text_dataset_path", str(data["prompts"]),
+        "--checkpoint_path", str(root / "anysplat_stitched.pth"),
+        "--stitching_layer_location", f"enc_blocks_{scfg.stitch_layer_index}",
+        "--stitching_layer_config", scfg.conv_spec,
+        "--lora_config", TRAIN_LORA, "--num_epochs", "1",
+        "--save_freq", "1", "--save_path", str(out), *flags])
+    args.weights_root = str(root)
+    args.text_annotation_path = str(data["captions"])
+    store = {}
+    with captured(cli, "run", store), \
+            captured(cli, "build_reward_fns", store), \
+            captured(reward, "make_loss_fn", store):
+        (state, history), info = measured_main(
+            "train_vdm.main", lambda a, device: cli.main(
+                a, tokenize, device=device), args, device=device,
+            timed=((vdm, ("vdm_train_step",)),
+                   (model_loading, ("load_stitched_model", "load_wan_vae")),
+                   (inference_t23d, ("load_generator",)),
+                   (cli, ("build_reward_fns",))))
+    run_args, run_kw, _ = store.pop("run")
+    _, text_fn = store.pop("build_reward_fns")[2]
+    pick, pe = store.pop("make_loss_fn")[0][:2]
+    h = history[0]
+    check(state.step == 1 and len(history) == 1 and not h["skipped"],
+          f"vdm main: step {state.step}, history {history}")
+    losses = {k: h[k] for k in ("diffusion_loss", "reward_loss",
+                                "total_loss", "grad_norm")}
+    check(all(math.isfinite(v) for v in losses.values())
+          and h["reward_loss"] != 0 and h["grad_norm"] > 0,
+          f"vdm main: {losses}")
+    check(h["num_steps"] == vdm.VDMTrainConfig().rollout_steps_high,
+          f"vdm main: step 0 rolled out {h['num_steps']} steps")
+    if want_launches:
+        want = vdm_launches(h["num_steps"], run_args[1].cfg.num_layers)
+        check(info["launches"] == want,
+              f"vdm main: launches {info['launches']}, want {want}")
+    # the per-prompt text features of the imported text towers: finite,
+    # unit norm, and those of the source towers on the same ids
+    tok = CLIPTokenizer.from_files(str(root / "pickscore" / "vocab.json"),
+                                   str(root / "pickscore" / "merges.txt"))
+    prompt = h["prompt"]
+    norms = []
+    for feats, name, pad in zip(text_fn(prompt), ("pick_text", "pe_text"),
+                                ("eos", "zero")):
+        tower = src[name].to(device)
+        ids = torch.from_numpy(tok([prompt], tower.cfg.context_length,
+                                   pad=pad))
+        with torch.no_grad():
+            want_feats = clip_mod.text_features(tower, ids)
+        src[name].to("cpu")
+        norms.append(float(feats.norm()))
+        check(bool(torch.isfinite(feats).all())
+              and abs(norms[-1] - 1) < 1e-5 and torch.equal(feats,
+                                                            want_feats),
+              f"vdm main: {name} features of '{prompt}' (norm "
+              f"{norms[-1]})")
+    # the frozen modules: as written, after the step
+    dit, vae_enc, vae_dec, stitched = run_args[1:5]
+    ck = written["checkpoint"]
+    n_frozen = {
+        "dit": same_values("vdm main: DiT", dit.state_dict(),
+                           src["dit"].state_dict()),
+        "vae": same_values("vdm main: VAE", {
+            "e": vae_enc.state_dict(), "d": vae_dec.state_dict()}, {
+            "e": src["vae_encoder"].state_dict(),
+            "d": src["vae_decoder"].state_dict()}),
+        "stitched": same_values("vdm main: stitched decoder",
+                                stitched.state_dict(), expected_stitched(
+                                    stitched, src, written,
+                                    parse_lora_mode(TRAIN_LORA), ck)),
+        "scorers": same_values("vdm main: scorer vision towers", {
+            "pick": pick.state_dict(), "pe": pe.state_dict()}, {
+            "pick": src["pick_vision"].state_dict(),
+            "pe": src["pe_vision"].state_dict()})}
+    del run_args, run_kw, dit, vae_enc, vae_dec, stitched, pick, pe, text_fn
+    lines = (out / "history.jsonl").read_text().splitlines()
+    check(len(lines) == 1 and json.loads(lines[0])["step"] == 1,
+          f"vdm main: history.jsonl {lines}")
+    grid = cv2.imread(str(out / "images" / "step_000000.png"))
+    rows, cols = grid_tiles
+    check(grid is not None and grid.shape[0] * cols == grid.shape[1] * rows
+          and grid.shape[0] % rows == 0 and np.ptp(grid) > 0,
+          f"vdm main: image grid {None if grid is None else grid.shape}, "
+          f"want {rows} × {cols} square tiles")
+    files = sorted(p.name for p in (out / "checkpoint-1").iterdir())
+    check("meta.json" in files, f"vdm main: checkpoint-1 holds {files}")
+    log(f"workflows: vdm main: rollout {h['num_steps']}, step s "
+        f"{[round(x, 2) for x in info['calls']['vdm_train_step']]}, "
+        + json.dumps(losses) + f"; text feature norms {norms}; frozen "
+        f"tensors unchanged {n_frozen}; history.jsonl, images/"
+        f"step_000000.png {grid.shape}, checkpoint-1 {files}")
+    return {"info": info, "history": history}
+
+
+def drive_workflows(src: dict, scfg, tmp: Path, *, tokenize,
+                    device: str = "cuda", scene_kw: dict | None = None,
+                    search_flags: tuple = (), stitch_flags: tuple = (),
+                    vdm_flags: tuple = (), want_launches: bool = False,
+                    grid_tiles: tuple = (2, 7)) -> dict:
+    """The three workflows' mains on one weights root and one scene tree
+    under `tmp`: the reference-format files of the source modules `src`
+    (on the host, the scorers' towers included), the scenes, then the
+    search, the distillation from its artifact at the chop, and one VDM
+    step, each with its checks.  `*_flags` are added to each command line
+    (the CPU test's sizes); `want_launches` checks each main's kernel
+    launches (on the card)."""
+    import torch
+
+    from vist3a_tpu_torch.stitch.lora import parse_lora_mode
+
+    root = tmp / "weights"
+    root.mkdir(parents=True)
+    t0 = time.perf_counter()
+    written = write_weights_root(root, src, scfg, parse_lora_mode(TRAIN_LORA),
+                                 torch.Generator().manual_seed(41))
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    data = write_scenes(tmp / "data", **(scene_kw or {}))
+    scenes_s = time.perf_counter() - t0
+    log(f"workflows: files written in {write_s:.1f} s "
+        f"({json.dumps(written['bytes'])} B), scenes in {scenes_s:.1f} s")
+    per_step = TRAIN_LAUNCHES if want_launches else None
+    search = drive_search(
+        root, data, tmp / "search", scfg, search_flags, device=device,
+        want_launches={"unmasked": WORKFLOW_SEARCH_SAMPLES
+                       * scfg.encoder.vit.depth, **{
+                           k: 0 for k in ("masked", "natural", "backward",
+                                          "backward_bf16",
+                                          "backward_natural", "composite",
+                                          "composite_backward")}}
+        if want_launches else None)
+    distill = drive_distillation(src, root, data, tmp / "search",
+                                 tmp / "stitching", scfg, stitch_flags,
+                                 device=device, want_per_step=per_step)
+    tuned = drive_vdm(src, root, written, data, tmp / "vdm", scfg, vdm_flags,
+                      tokenize=tokenize, device=device,
+                      want_launches=want_launches, grid_tiles=grid_tiles)
+    return {"write_s": write_s, "scenes_s": scenes_s,
+            "bytes": written["bytes"], "search": search,
+            "distillation": distill, "vdm": tuned}
+
+
+def build_scorer_sources(gen) -> dict:
+    """The two scorers' towers (PickScore: CLIP-H/14 at 224²; DFN5B:
+    CLIP-H/14 at 378²; each with a CLIP-H text tower), fp32, random
+    weights drawn on the card from `gen`, moved to the host."""
+    from vist3a_tpu_torch.nn import clip
+
+    out = {}
+    for name, fn, cfg in (("pick_vision", clip.init, clip.CLIP_H_224),
+                          ("pick_text", clip.text_init, clip.CLIP_H_TEXT),
+                          ("pe_vision", clip.init, clip.DFN5B_H_378),
+                          ("pe_text", clip.text_init, clip.CLIP_H_TEXT)):
+        out[name] = fn(cfg, gen, device="cuda").to("cpu")
+    return out
+
+
+def phase_workflows() -> dict:
+    """The search, distillation and VDM command lines at full width on
+    reference-format files and synthetic scene trees on disk
+    (`drive_workflows`); the free disk read first, everything deleted
+    after."""
+    import torch
+
+    from vist3a_tpu_torch.nn import umt5
+    from vist3a_tpu_torch.stitch import chopped_anysplat as ca
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    src = build_cli_sources()
+    src.update(build_scorer_sources(
+        torch.Generator(device="cuda").manual_seed(43)))
+    torch.cuda.empty_cache()
+    built_s = time.perf_counter() - t0
+    need = sum(p.numel() * p.element_size() for m in src.values()
+               for p in m.parameters()) + WORKFLOW_EXTRA_BYTES
+    tmp = Path(tempfile.mkdtemp(prefix="vist3a_workflows_"))
+    try:
+        free = shutil.disk_usage(tmp).free
+        check(free >= CLI_DISK_FACTOR * need,
+              f"workflows: {free} B free under {tmp}; the files need about "
+              f"{need} B (×{CLI_DISK_FACTOR} asked)")
+        res = drive_workflows(src, ca.StitchedConfig(), tmp,
+                              tokenize=fake_tokenizer(umt5.UMT5_XXL),
+                              want_launches=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        del src
+        torch.cuda.empty_cache()
+    res["built_s"] = built_s
+    log(f"workflows: sources built in {built_s:.1f} s; mains (s, peak B): "
+        + json.dumps({k: (round(res[k]["info"]["seconds"], 1),
+                          res[k]["info"]["peak_bytes"])
+                      for k in ("search", "distillation", "vdm")}))
+    return res
+
+
 def _kernel_entries(timed: dict, raster: list | None,
                     launches: dict) -> list:
     """One entry per kernel entry point, each timed at its main-path
@@ -3224,10 +3875,18 @@ def _kernel_entries(timed: dict, raster: list | None,
     def count(counter, paths):
         by_path = {path: c[counter] for path, c in launches.items()
                    if c is not None and path in paths}
-        main = next((by_path[p] for p in paths if p in by_path), None)
+        main = next((by_path[p] for p in paths if p in by_path
+                     and not p.startswith("workflows")), None)
+        # phase `workflows` drives every path of this slice: its launches
+        # add to the main path's
+        extra = sum(n for p, n in by_path.items()
+                    if p.startswith("workflows"))
+        if extra:
+            main = (main or 0) + extra
         return main, by_path
 
-    bf16_paths = ("cli", "denoise", "decode", "slice", "vdm")
+    bf16_paths = ("cli", "denoise", "decode", "slice", "vdm",
+                  "workflows_bf16")
     shape_keys = ("case", "shape", "kernel_ms", "plain_ms", "bound_ms",
                   "library_ms", "max_abs_err_o", "o_excess",
                   "max_abs_err_lse")
@@ -3261,7 +3920,7 @@ def _kernel_entries(timed: dict, raster: list | None,
                  "fwd"),
                 ("flash_attention_bwd", F32_BWD_SOURCE, 397, "backward",
                  "bwd")):
-            main, by_path = count(counter, ("train",))
+            main, by_path = count(counter, ("train", "workflows_fp32"))
             entries.append({
                 "name": kname, "route": "cuda", "source": source,
                 "replaces": f"vist3a_tpu/kernels/flash_attention.py:{line}",
@@ -3295,7 +3954,7 @@ def _kernel_entries(timed: dict, raster: list | None,
         if not rs:
             continue
         r = rs[0]
-        main, by_path = count(counter, ("vdm",))
+        main, by_path = count(counter, ("vdm", "workflows_bf16"))
         entries.append({
             "name": kname, "route": "cuda", "source": source,
             "replaces": f"vist3a_tpu/kernels/flash_attention.py:{line}",
@@ -3328,7 +3987,8 @@ def _kernel_entries(timed: dict, raster: list | None,
                                          "max_abs_err", "off_share",
                                          "share_of_bound")}
                       for x in raster]})
-        main, by_path = count("composite_backward", ("vdm",))
+        main, by_path = count("composite_backward",
+                              ("vdm", "workflows_bf16"))
         rb = [x["backward"] for x in raster]
         entries.append({
             "name": "rasterize_composite_bwd", "route": "cuda",
@@ -3404,6 +4064,7 @@ def main(argv=None) -> int:
     served = run("cli", phase_cli)
     trained = run("train", phase_train)
     tuned = run("vdm", phase_vdm)
+    workflows = run("workflows", phase_workflows)
     log(f"seconds by phase {json.dumps(seconds)}; whole script "
         f"{time.perf_counter() - start:.1f} s")
 
@@ -3414,6 +4075,14 @@ def main(argv=None) -> int:
                 "cli": served and served["launches"],
                 "train": trained and trained["launches"],
                 "vdm": tuned and tuned["launches"]}
+    if workflows:
+        # the fp32 kernels ran in the search and the distillation, the bf16
+        # ones in the VDM step
+        fp32 = [workflows[k]["info"]["launches"]
+                for k in ("search", "distillation")]
+        launches["workflows_fp32"] = {k: fp32[0][k] + fp32[1][k]
+                                      for k in fp32[0]}
+        launches["workflows_bf16"] = workflows["vdm"]["info"]["launches"]
     print(json.dumps({"kernels": _kernel_entries(timed, raster, launches)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

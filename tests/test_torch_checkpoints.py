@@ -207,7 +207,7 @@ def test_vdm_resume_equals_an_unbroken_run(vdm_setup, tmp_path):
     the save folder, the latest save (`checkpoint-2`) is the end state."""
     run, fresh = vdm_setup
     whole, hist = run(fresh(), 2, save_path=tmp_path, save_freq=1)
-    assert sorted(p.name for p in tmp_path.iterdir()) == [
+    assert sorted(p.name for p in tmp_path.glob("checkpoint-*")) == [
         "checkpoint-1", "checkpoint-2"]
     resumed, rest = run(fresh(), 2, resume_path=tmp_path / "checkpoint-1")
     assert rest == hist[1:] and rest[0]["prompt"] == "a blue chair"

@@ -188,6 +188,7 @@ def test_main_on_reference_files_at_tiny_sizes(tiny_gate_off, tmp_path,
                                tokenize=chip_smoke.fake_tokenizer(ucfg),
                                device="cpu", flags=("--num_frames", "5"))
     assert [p for p, _ in res["results"]] == list(chip_smoke.CLI_PROMPTS)
+    assert _tensors_in(res["results"]) == []
     assert "/" in chip_smoke.CLI_PROMPTS[1]
     assert res["compared"]["stitched"] > 100
     assert res["merged_sites"]["stitched"] > 50
@@ -211,10 +212,11 @@ def test_run_shards_prompts_and_names_folders(tmp_path, monkeypatch):
     monkeypatch.setattr(tt, "text_to_3dgs", lambda modules, tok, prompt,
                         save, cfg, **kw: calls.append((prompt, save, kw))
                         or prompt.upper())
+    monkeypatch.setattr(tinf, "summarize", lambda res: {"of": res})
     prompts = ["a / b", "x" * 150, "third", "fourth"]
     out = tinf.run({}, None, prompts, str(tmp_path), tt.T23DConfig(),
                    process_index=1, process_count=2, device="cpu")
-    assert out == [(p, p.upper()) for p in prompts[1::2]]
+    assert out == [(p, {"of": p.upper()}) for p in prompts[1::2]]
     assert [c[0] for c in calls] == prompts[1::2]
     assert calls[0][1] == str(tmp_path / ("x" * 100))
     assert calls[0][2] == {"orbit_t": 10, "device": "cpu"}
@@ -224,6 +226,58 @@ def test_run_shards_prompts_and_names_folders(tmp_path, monkeypatch):
     assert (tmp_path / "a  b" / "prompt.txt").read_text() == "a / b"
     assert tt.T23DConfig().seed == 12413
     assert tinf.process_grid() == (0, 1)
+
+
+def _tensors_in(tree) -> list:
+    """Every torch.Tensor anywhere in nested tuples, lists and dicts."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (tuple, list)):
+        return [t for x in tree for t in _tensors_in(x)]
+    return []
+
+
+def _fake_result(save: str, g: int = 6, s: int = 2) -> tt.T23DResult:
+    """A `T23DResult` of small tensors, its files named under `save`."""
+    import numpy as np
+
+    from vist3a_tpu_torch.nn.encoder import EncoderOutput
+    from vist3a_tpu_torch.nn.gaussians import Gaussians
+
+    gauss = Gaussians(torch.zeros(1, g, 3), torch.zeros(1, g, 3, 3),
+                      torch.zeros(1, g, 3, 25), torch.ones(1, g),
+                      torch.ones(1, g, 3), torch.zeros(1, g, 4))
+    out = EncoderOutput(gauss, [], torch.eye(4).expand(1, s, 4, 4),
+                        torch.eye(3).expand(1, s, 3, 3),
+                        torch.ones(1, s, 4, 4, 1), torch.ones(1, s, 4, 4),
+                        torch.ones(1, s, 4, 4, dtype=torch.bool),
+                        torch.ones(()), torch.zeros(1, s, 4, 4, 8),
+                        torch.ones(1, g))
+    arts = tt.Artifacts(f"{save}/gs.mp4", f"{save}/depth.mp4",
+                        f"{save}/gaussians.ply",
+                        np.full((3, 3, 4, 4), 0.25, np.float32),
+                        np.ones((3, 4, 4), np.float32))
+    return tt.T23DResult(torch.zeros(1, 16, 2, 4, 4), out, arts)
+
+
+def test_run_keeps_no_tensor(tmp_path, monkeypatch):
+    """`run` keeps, of each request, its paths and a host summary: no
+    tensor on any device (a scene holds ~1 GB on the card at full width),
+    as the JAX `run` keeps only (prompt, paths)."""
+    monkeypatch.setattr(tt, "text_to_3dgs", lambda modules, tok, prompt,
+                        save, cfg, **kw: _fake_result(save))
+    out = tinf.run({}, None, ["a", "b / c"], str(tmp_path), tt.T23DConfig(),
+                   device="cpu")
+    assert [p for p, _ in out] == ["a", "b / c"]
+    assert _tensors_in(out) == []
+    s = out[1][1]
+    assert s["paths"]["ply"] == str(tmp_path / "b  c" / "gaussians.ply")
+    assert s["latents_shape"] == (1, 16, 2, 4, 4) and s["latents_finite"]
+    assert s["shapes"]["means"] == (1, 6, 3) and all(s["finite"].values())
+    assert s["frames_shape"] == (3, 3, 4, 4) and s["frames_mean"] == 0.25
+    assert s["frames_range"] == (0.25, 0.25) and s["depth_finite"]
 
 
 PARSERS = ("stitching_training_argument", "find_layer_stitching_argument",

@@ -421,10 +421,13 @@ def test_run_two_steps_in_memory(tiny_models, tmp_path):
         e1 = d0 * ema0[k] + (1 - d0) * snaps[0][k]
         torch.testing.assert_close(e, d1 * e1 + (1 - d1) * snaps[1][k],
                                    atol=1e-7, rtol=1e-6)
-    # a run already at num_steps takes no step (and so saves nothing)
+    # a run already at num_steps takes no step (and so saves no checkpoint
+    # and no grid; its history, as the JAX `run`'s, is empty)
     again, none = tcli.run(state, p["dit"], p["enc"], p["dec"], p["stitched"],
                            text_loader=prompts, video_loader=video,
                            embed_text=embed_text, reward_loss_fn=None,
                            scfg=p["scfg"], cfg=cfg, num_steps=2,
                            save_path=tmp_path)
-    assert again.step == 2 and none == [] and not any(tmp_path.iterdir())
+    assert again.step == 2 and none == []
+    assert [f.name for f in tmp_path.iterdir()] == ["history.jsonl"]
+    assert (tmp_path / "history.jsonl").read_text() == ""

@@ -118,8 +118,8 @@ def test_validate_fails_loudly_and_honours_ignores():
     # the importer is strict on its own as well
     with pytest.raises(KeyError, match="not consumed"):
         twi.import_umt5(bad)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tmf.expected_keys("pickscore")
+    # the scorer families have their fabricators since the text towers
+    assert tmf.expected_keys("pickscore") == tmf.load_manifest("pickscore")
 
 
 # --------------------------------------------------------------------------- #

@@ -25,10 +25,39 @@ import dataclasses
 from pathlib import Path
 from typing import Callable
 
+import numpy as np
 import torch
 
 from vist3a_tpu_torch.cli.arguments import inference_vist3a_argument
 from vist3a_tpu_torch.pipelines import t23d
+
+
+def summarize(res: t23d.T23DResult) -> dict:
+    """What a caller checks of one request, on the host and small: the
+    output paths, the shape and finiteness of the latents and of each
+    tensor of the stitched decoder's output, the orbit frames' shape, mean
+    and range, and whether the rendered depth is finite.  Python scalars
+    and tuples only: the request's device tensors and its orbit frames are
+    dropped with `res`."""
+    out = res.output
+    tensors = {**out.gaussians._asdict(), "depth": out.depth,
+               "depth_conf": out.depth_conf,
+               "extrinsic_c2w": out.extrinsic_c2w,
+               "intrinsic_norm": out.intrinsic_norm}
+    arts = res.artifacts
+    return {
+        "paths": {"gs": arts.gs_path, "depth": arts.depth_path,
+                  "ply": arts.ply_path},
+        "latents_shape": tuple(res.latents.shape),
+        "latents_finite": bool(torch.isfinite(res.latents).all()),
+        "shapes": {k: tuple(t.shape) for k, t in tensors.items()},
+        "finite": {k: bool(torch.isfinite(t).all())
+                   for k, t in tensors.items()},
+        "frames_shape": tuple(arts.color.shape),
+        "frames_finite": bool(np.isfinite(arts.color).all()),
+        "frames_mean": float(arts.color.mean()),
+        "frames_range": (float(arts.color.min()), float(arts.color.max())),
+        "depth_finite": bool(np.isfinite(arts.depth).all())}
 
 
 def run(modules: dict, tokenize: Callable, prompts: list[str],
@@ -37,7 +66,8 @@ def run(modules: dict, tokenize: Callable, prompts: list[str],
         device: torch.device | str = "cuda") -> list:
     """This process's share of `prompts`, each through `text_to_3dgs` into
     `output_dir/<prompt[:100] without '/'>/`.  Returns [(prompt,
-    T23DResult)]."""
+    `summarize` of its request)]: no scene stays on the card once its
+    files are written, as the JAX `run` keeps only the paths."""
     results = []
     for prompt in prompts[process_index::process_count]:
         save = Path(output_dir) / prompt[:100].replace("/", "")
@@ -45,7 +75,8 @@ def run(modules: dict, tokenize: Callable, prompts: list[str],
         (save / "prompt.txt").write_text(prompt)
         res = t23d.text_to_3dgs(modules, tokenize, prompt, str(save), cfg,
                                 orbit_t=orbit_t, device=device)
-        results.append((prompt, res))
+        results.append((prompt, summarize(res)))
+        del res
     return results
 
 

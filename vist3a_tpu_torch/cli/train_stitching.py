@@ -1,19 +1,36 @@
-"""Stitching distillation training: the loop.
+"""Entry point: stitching distillation training.
 
-Port of `vist3a_tpu/cli/train_stitching.py::run` for one device: per step
-a view count from {9, 13, 17, 21} (drawn from (seed, step), the same on
-every host), the batch sliced to it, a frozen Wan VAE encode of the clip
-and a posterior sample, then `stitch_train_step`.  `run` takes any iterable
-of batches {"vae_image_tensor", "feedforward_image_tensor"}, each (B, 3, T,
-H, W) in [−1, 1].  With `save_path` it saves after every epoch; with
+Port of `vist3a_tpu/cli/train_stitching.py` for one device (the
+reference's `model_stitching_training.py`): per step a view count from
+{9, 13, 17, 21} (drawn from (seed, step), the same on every host), the
+batch sliced to it, a frozen Wan VAE encode of the clip and a posterior
+sample, then `stitch_train_step`.  `run` takes any iterable of batches
+{"vae_image_tensor", "feedforward_image_tensor"}, each (B, 3, T, H, W) in
+[−1, 1], numpy or torch, and the sampler whose `set_epoch` it calls at the
+start of every epoch.  With `save_path` it saves after every epoch; with
 `resume_path` (a folder a run saved to) it goes on after the saved epoch,
 the step, the trainables and the AdamW state restored (`io/checkpoints.py`,
 as `vist3a_tpu/cli/train_stitching.py:57-98` does).  Every draw of a step
 comes from (seed, step), so a resumed run takes the steps an unbroken one
 takes.
 
-Not here yet: the DL3DV / ScanNet loaders and the metric stream (ROADMAP
-Queue 1, item 14) and the data-parallel mesh (DDP, item 21).
+`main` is the command line (`:102-158`): the AnySplat encoder and the Wan
+VAE encoder from the weights root, the stitch conv from
+`--initialization_weight_path` ({weight, bias}) or drawn from
+`--global_seed`, the DL3DV / ScanNet loader with colour augmentation, the
+cosine schedule over `num_epochs · len(loader)` steps and the metric
+stream (`core/wandb_log.py`):
+
+    VIST3A_WEIGHTS=ROOT python -m vist3a_tpu_torch.cli.train_stitching \\
+        --dataset dl3dv:/data/dl3dv --dataset scannet:/data/scannet \\
+        --stitching_layer_location enc_blocks_16 \\
+        --initialization_weight_path init.pth \\
+        --lora_config r64,a32,d0.0,f0 --batch_size 1 --num_epochs 30 \\
+        --save_path out
+
+`--weights_root` is not a flag of this parser (as in the JAX package); set
+$VIST3A_WEIGHTS or the attribute.  The data-parallel mesh (DDP) is ROADMAP
+Queue 1, item 21.
 """
 
 from __future__ import annotations
@@ -21,6 +38,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from vist3a_tpu_torch.cli.arguments import stitching_training_argument
 from vist3a_tpu_torch.io import checkpoints as ckpt
 from vist3a_tpu_torch.nn import wan_vae
 from vist3a_tpu_torch.stitch.chopped_anysplat import StitchedConfig
@@ -35,15 +53,16 @@ def encode_context(vae: wan_vae.WanVAEEncoder, vae_images_pm1: torch.Tensor,
     return wan_vae.sample_posterior(mu, logvar, generator)
 
 
-def run(params: dict[str, nn.Module], scfg: StitchedConfig, loader, *,
-        train_cfg: st.StitchTrainConfig, num_epochs: int, seed: int = 23,
-        save_path=None, resume_path=None, log_every: int = 10,
-        on_metrics=None):
+def run(params: dict[str, nn.Module], scfg: StitchedConfig, loader,
+        sampler=None, *, train_cfg: st.StitchTrainConfig, num_epochs: int,
+        seed: int = 23, save_path=None, resume_path=None,
+        log_every: int = 10, on_metrics=None):
     """The training loop.  params: {"encoder": the full teacher `Encoder`,
     "stitch_conv": the initial stitch conv, "vae": a `WanVAEEncoder`}, all
-    on one device, which the batches are moved to.  Returns (state,
-    history), history the metrics of every `log_every`-th step of this
-    call as floats."""
+    on one device, which the batches are moved to.  `sampler.set_epoch(epoch)`
+    is called at the start of every epoch (the loader's sampler; None for
+    an in-memory list).  Returns (state, history), history the metrics of
+    every `log_every`-th step of this call as floats."""
     teacher, vae = params["encoder"], params["vae"]
     device = next(teacher.parameters()).device
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -55,12 +74,15 @@ def run(params: dict[str, nn.Module], scfg: StitchedConfig, loader, *,
                                                             state)
     history = []
     for epoch in range(epoch_start, num_epochs):
+        if sampler is not None:
+            sampler.set_epoch(epoch)
         for batch in loader:
             gstep = state.step
             n_views = st.sample_view_count(seed, gstep)
-            vae_images = batch["vae_image_tensor"][:, :, :n_views].to(device)
-            ff_images = batch["feedforward_image_tensor"][:, :, :n_views] \
-                .to(device)
+            vae_images = torch.as_tensor(
+                batch["vae_image_tensor"][:, :, :n_views]).to(device)
+            ff_images = torch.as_tensor(
+                batch["feedforward_image_tensor"][:, :, :n_views]).to(device)
             noise = torch.Generator(device=device).manual_seed(
                 st.fold_seed(seed, 2 * gstep + 1))
             latent = encode_context(vae, vae_images, noise)
@@ -76,3 +98,64 @@ def run(params: dict[str, nn.Module], scfg: StitchedConfig, loader, *,
         if save_path is not None:
             ckpt.save_stitching_checkpoint(save_path, epoch, state)
     return state, history
+
+
+def main(args, *, device: torch.device | str = "cuda"):
+    """The command line: every module from the weights root and the files
+    the flags name, then `run` over the datasets.  Returns `run`'s
+    (state, history)."""
+    from vist3a_tpu_torch.cli import model_loading as ml
+    from vist3a_tpu_torch.cli.inference_t23d import process_grid
+    from vist3a_tpu_torch.core.wandb_log import make_run
+    from vist3a_tpu_torch.data.loader import create_stitching_dataloader
+    from vist3a_tpu_torch.io.load_weights import load_torch_state_dict
+    from vist3a_tpu_torch.nn.layers import build_random
+    from vist3a_tpu_torch.stitch.chopped_anysplat import init_stitch_conv
+
+    root = ml.weights_root(args)
+    scfg = ml.stitched_config(args)
+    encoder = ml.load_anysplat_encoder(root, scfg.encoder, device=device)
+    vae = ml.load_wan_vae(root, ml.WanVAEConfig(), halves=("encoder",),
+                          device=device)["encoder"]
+    if args.initialization_weight_path:
+        init_sd = load_torch_state_dict(args.initialization_weight_path)
+        stitch_conv = init_stitch_conv(scfg).to(device)
+        stitch_conv.load_state_dict(
+            {"weight": init_sd["weight"], "bias": init_sd["bias"]},
+            strict=True)
+    else:
+        gen = torch.Generator(device=device).manual_seed(args.global_seed)
+        stitch_conv = build_random(lambda: init_stitch_conv(scfg), gen,
+                                   device, torch.float32)
+
+    rank, world = process_grid()
+    loader, sampler = create_stitching_dataloader(
+        [(n, str(p)) for n, p in args.dataset], args, augmentation=True,
+        num_replicas=world, rank=rank)
+    train_cfg = st.StitchTrainConfig(
+        learning_rate=args.learning_rate, weight_decay=args.weight_decay,
+        warmup_steps=args.warmup_steps,
+        total_steps=args.num_epochs * len(loader),
+        lora_spec=args.lora_config)
+    # the rank-0 metric stream (`model_stitching_training.py:173-193`)
+    logger = make_run(args.wandb_logging, project=args.wandb_project_name,
+                      run_name=args.exp_name, config=vars(args),
+                      out_dir=args.save_path)
+
+    def on_metrics(m):
+        print(m)
+        logger.log(m, step=m.get("step"))
+
+    try:
+        return run({"encoder": encoder, "stitch_conv": stitch_conv,
+                    "vae": vae}, scfg, loader, sampler, train_cfg=train_cfg,
+                   num_epochs=args.num_epochs, seed=args.global_seed,
+                   save_path=args.save_path,
+                   resume_path=args.resume_checkpoint_path,
+                   on_metrics=on_metrics)
+    finally:
+        logger.finish()
+
+
+if __name__ == "__main__":
+    main(stitching_training_argument().parse_args())

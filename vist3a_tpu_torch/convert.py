@@ -55,7 +55,9 @@ LoRA tree (`init_lora` on `dit["blocks"]`) over to factors keyed
 `VDMTrainState` (its LoRA, both AdamW moments and their count, and the EMA
 shadow) into the port's `VDMTrainState`; `load_jax_clip_vision_params`
 loads a CLIP vision tree (`clip.init`) into a `CLIPVision` (the patch
-kernel HWIO → OIHW; `proj` keeps its (width, projection_dim) layout).
+kernel HWIO → OIHW; `proj` keeps its (width, projection_dim) layout), and
+`load_jax_clip_text_params` a text tree (`clip.text_init`) into a
+`CLIPText`.
 """
 
 from __future__ import annotations
@@ -295,3 +297,9 @@ def load_jax_clip_vision_params(module: nn.Module, tree: dict) -> nn.Module:
     sd = from_jax_params({k: v for k, v in tree.items() if k != "patch"})
     sd["patch"] = _tensor(np.asarray(tree["patch"]).transpose(3, 2, 0, 1))
     return _load(module, sd, ())
+
+
+def load_jax_clip_text_params(module: nn.Module, tree: dict) -> nn.Module:
+    """Load a CLIP text JAX tree (`clip.text_init`) into a `CLIPText`
+    (`proj` keeps its (width, projection_dim) layout)."""
+    return _load(module, from_jax_params(tree), ())

@@ -11,16 +11,16 @@ tuple or `('size', n)` where only the element count is layout-stable).
   * `validate_wan_dit(sd)` picks the DiT manifest by the file's depth;
   * `fabricate_from(manifest)` is a zeros state dict of those keys and
     shapes (broadcast views, free at any size);
-  * the fabricators `_fab_anysplat_encoder`, `_fab_wan_vae`, `_fab_wan_dit`
-    and `_fab_umt5` invert the importers over the port's modules: given a
-    module, each returns the reference-named state dict holding that
-    module's values (the reference's own shapes for the size-only keys);
+  * the fabricators `_fab_anysplat_encoder`, `_fab_wan_vae`, `_fab_wan_dit`,
+    `_fab_umt5`, `_fab_pickscore` and `_fab_dfn5b` invert the importers over
+    the port's modules: given a module (for the scorers, a `CLIPVision` and
+    a `CLIPText`), each returns the reference-named state dict holding
+    that module's values (the reference's own shapes for the size-only
+    keys); `_fab_hf_clip_vision`, `_fab_hf_clip_text` and `_fab_open_clip`
+    are their per-tower pieces;
   * `expected_keys(family)` is that inversion over the family's deployed
     config built on the meta device, so it costs nothing, as
     `jax.eval_shape` costs nothing there.
-
-The CLIP families (`pickscore`, `dfn5b`) can be validated; their
-fabricators wait for the port's CLIP text towers.
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ import torch
 from torch import nn
 
 from vist3a_tpu_torch.io import weight_import as wi
+from vist3a_tpu_torch.nn import clip as clip_mod
 from vist3a_tpu_torch.nn import umt5 as umt5_mod
 from vist3a_tpu_torch.nn import wan_dit, wan_vae
 from vist3a_tpu_torch.nn.encoder import EncoderConfig
@@ -85,6 +86,114 @@ def _fab_umt5(umt5: nn.Module) -> dict[str, torch.Tensor]:
     return {wi.umt5_to_reference(k): v for k, v in umt5.state_dict().items()}
 
 
+_HF_CLIP_LAYER = (("ln1", "layer_norm1"), ("ln2", "layer_norm2"),
+                  ("fc1", "mlp.fc1"), ("fc2", "mlp.fc2"),
+                  ("q", "self_attn.q_proj"), ("k", "self_attn.k_proj"),
+                  ("v", "self_attn.v_proj"), ("o", "self_attn.out_proj"))
+_OPEN_CLIP_LAYER = (("o", "attn.out_proj"), ("ln1", "ln_1"), ("ln2", "ln_2"),
+                    ("fc1", "mlp.c_fc"), ("fc2", "mlp.c_proj"))
+
+
+def _hf_clip_layers(tower: nn.Module, prefix: str) -> dict:
+    out = {}
+    for i, layer in enumerate(tower.layers):
+        for ours, theirs in _HF_CLIP_LAYER:
+            m = getattr(layer, ours)
+            out[f"{prefix}.{i}.{theirs}.weight"] = m.weight.detach()
+            out[f"{prefix}.{i}.{theirs}.bias"] = m.bias.detach()
+    return out
+
+
+def _fab_hf_clip_vision(vision: clip_mod.CLIPVision) -> dict:
+    """`CLIPVision` → HF `CLIPModel`'s vision keys (the pre-LN under HF's
+    historical spelling `pre_layrnorm`)."""
+    v = "vision_model"
+    return {
+        f"{v}.embeddings.patch_embedding.weight": vision.patch.detach(),
+        f"{v}.embeddings.class_embedding": vision.class_embedding.detach(),
+        f"{v}.embeddings.position_embedding.weight":
+            vision.pos_embed.detach(),
+        f"{v}.pre_layrnorm.weight": vision.ln_pre.weight.detach(),
+        f"{v}.pre_layrnorm.bias": vision.ln_pre.bias.detach(),
+        **_hf_clip_layers(vision, f"{v}.encoder.layers"),
+        f"{v}.post_layernorm.weight": vision.ln_post.weight.detach(),
+        f"{v}.post_layernorm.bias": vision.ln_post.bias.detach(),
+        "visual_projection.weight": vision.proj.detach().T.contiguous(),
+    }
+
+
+def _fab_hf_clip_text(text: clip_mod.CLIPText) -> dict:
+    """`CLIPText` → HF `CLIPModel`'s text keys."""
+    t = "text_model"
+    return {
+        f"{t}.embeddings.token_embedding.weight": text.token_embed.detach(),
+        f"{t}.embeddings.position_embedding.weight": text.pos_embed.detach(),
+        **_hf_clip_layers(text, f"{t}.encoder.layers"),
+        f"{t}.final_layer_norm.weight": text.ln_final.weight.detach(),
+        f"{t}.final_layer_norm.bias": text.ln_final.bias.detach(),
+        "text_projection.weight": text.proj.detach().T.contiguous(),
+    }
+
+
+def _fab_open_clip(tower: nn.Module, visual: bool) -> dict:
+    """A `CLIPVision` (visual=True, prefix 'visual.') or a `CLIPText`
+    (unprefixed) → open_clip's keys, q/k/v stacked into `in_proj`."""
+    p0 = "visual." if visual else ""
+    out = {}
+    for i, layer in enumerate(tower.layers):
+        p = f"{p0}transformer.resblocks.{i}"
+        out[f"{p}.attn.in_proj_weight"] = torch.cat(
+            [getattr(layer, n).weight.detach() for n in "qkv"])
+        out[f"{p}.attn.in_proj_bias"] = torch.cat(
+            [getattr(layer, n).bias.detach() for n in "qkv"])
+        for ours, theirs in _OPEN_CLIP_LAYER:
+            m = getattr(layer, ours)
+            out[f"{p}.{theirs}.weight"] = m.weight.detach()
+            out[f"{p}.{theirs}.bias"] = m.bias.detach()
+    if visual:
+        out.update({
+            "visual.conv1.weight": tower.patch.detach(),
+            "visual.class_embedding": tower.class_embedding.detach(),
+            "visual.positional_embedding": tower.pos_embed.detach(),
+            "visual.ln_pre.weight": tower.ln_pre.weight.detach(),
+            "visual.ln_pre.bias": tower.ln_pre.bias.detach(),
+            "visual.ln_post.weight": tower.ln_post.weight.detach(),
+            "visual.ln_post.bias": tower.ln_post.bias.detach(),
+            "visual.proj": tower.proj.detach()})
+    else:
+        out.update({
+            "token_embedding.weight": tower.token_embed.detach(),
+            "positional_embedding": tower.pos_embed.detach(),
+            "ln_final.weight": tower.ln_final.weight.detach(),
+            "ln_final.bias": tower.ln_final.bias.detach(),
+            "text_projection": tower.proj.detach()})
+    return out
+
+
+def _fab_pickscore(vision: clip_mod.CLIPVision, text: clip_mod.CLIPText,
+                   logit_scale: torch.Tensor) -> dict:
+    """PickScore_v1 (HF CLIP-H): both towers and `logit_scale` (the log of
+    the scale the reward multiplies by, `utils/reward.py:159-161`)."""
+    return {**_fab_hf_clip_vision(vision), **_fab_hf_clip_text(text),
+            "logit_scale": logit_scale}
+
+
+def _fab_dfn5b(vision: clip_mod.CLIPVision, text: clip_mod.CLIPText) -> dict:
+    """DFN5B-CLIP-ViT-H-14-378 (open_clip): both towers."""
+    return {**_fab_open_clip(vision, True), **_fab_open_clip(text, False)}
+
+
+def _deployed_scorer(family: str) -> dict:
+    vision_cfg = (clip_mod.CLIP_H_224 if family == "pickscore"
+                  else clip_mod.DFN5B_H_378)
+    vision = wi.on_meta(lambda: clip_mod.CLIPVision(vision_cfg))
+    text = wi.on_meta(lambda: clip_mod.CLIPText(clip_mod.CLIP_H_TEXT))
+    if family == "pickscore":
+        return _fab_pickscore(vision, text,
+                              torch.empty((), device="meta"))
+    return _fab_dfn5b(vision, text)
+
+
 def _deployed_vae():
     cfg = wan_vae.WanVAEConfig()
     return _fab_wan_vae(wi.on_meta(lambda: wan_vae.WanVAEEncoder(cfg)),
@@ -118,12 +227,14 @@ FAMILIES = {
         # the tied copy of the shared embedding
         "ignore": (r"^encoder\.embed_tokens\.weight$",), "size": None},
     "pickscore": {
-        "fab": None,
+        "fab": lambda: _deployed_scorer("pickscore"),
         # HF CLIPModel buffers and the other spelling of the pre-LN
         "ignore": (r"\.position_ids$", r"^vision_model\.pre_layernorm\."),
-        "size": None},
-    "dfn5b": {"fab": None, "ignore": (r"^logit_scale$", r"^logit_bias$"),
-              "size": None},
+        # HF's class embedding is (D,) or (1, 1, D) by version; logit_scale
+        # () or (1,)
+        "size": re.compile(r"(class_embedding|^logit_scale)$")},
+    "dfn5b": {"fab": lambda: _deployed_scorer("dfn5b"),
+              "ignore": (r"^logit_scale$", r"^logit_bias$"), "size": None},
 }
 
 
@@ -131,10 +242,6 @@ def expected_keys(family: str) -> dict:
     """key → shape tuple, or ("size", n) where only the element count is
     layout-stable: the fabricator's inversion of the deployed config."""
     spec = FAMILIES[family]
-    if spec["fab"] is None:
-        raise NotImplementedError(
-            f"{family}: the fabricator waits for the CLIP text towers "
-            "(ROADMAP Queue 1, item 15); validate against load_manifest")
     size = spec["size"]
     return {k: ("size", v.numel()) if size is not None and size.search(k)
             else tuple(v.shape) for k, v in spec["fab"]().items()}

@@ -231,6 +231,20 @@ def run_blocks(blocks, x: torch.Tensor, *, remat_blocks: bool = False,
     return x
 
 
+def run_blocks_with_taps(blocks, x: torch.Tensor, taps, *,
+                         remat_blocks: bool = False, **kwargs
+                         ) -> tuple[torch.Tensor, list[torch.Tensor]]:
+    """`scan_blocks_with_taps`: the blocks in order over x, returning (the
+    last block's output, [the output after block t for t in sorted(taps)]),
+    t counting the blocks given from 0."""
+    want, outs = set(taps), []
+    for t, blk in enumerate(blocks):
+        x = run_blocks((blk,), x, remat_blocks=remat_blocks, **kwargs)
+        if t in want:
+            outs.append(x)
+    return x, outs
+
+
 def init_params(module: nn.Module, generator: torch.Generator) -> None:
     """Fill every parameter of `module` from its own module's distribution."""
     with torch.no_grad():

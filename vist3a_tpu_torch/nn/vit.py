@@ -3,8 +3,10 @@
 Port of `vist3a_tpu/nn/vit.py`: `ViTConfig`, `VIT_LARGE` (ViT-L/14, 4
 register tokens, LayerScale 1.0, LN eps 1e-6, no QK-norm),
 `interpolate_pos_embed`, `patch_embed`, `prepare_tokens` and
-`forward_features`.  The stitched decoder replaces the patch embedding and
-the first `stitch_layer_index` blocks with the stitch conv, so `ChoppedViT`
+`forward_features`, and `block_taps`, the output of every block (the
+layer search's taps, `scan_blocks_with_taps` over the whole trunk).  The
+stitched decoder replaces the patch embedding and the first
+`stitch_layer_index` blocks with the stitch conv, so `ChoppedViT`
 holds only the special tokens, the positional embedding, the blocks after
 the chop and the final norm.  `ViT`, the distillation teacher's trunk, adds
 the 14×14 patch embedding and holds blocks [0, depth); both run the same
@@ -32,7 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vist3a_tpu_torch.nn.layers import (Block, BlockConfig, LayerNorm,
-                                        run_blocks)
+                                        run_blocks, run_blocks_with_taps)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,6 +147,20 @@ def forward_features(vit: ViT, images: torch.Tensor, cfg: ViTConfig, *,
                images.shape[-1] // cfg.patch_size)
     x = prepare_tokens(vit, vit.patch_proj(images), grid_hw, cfg)
     return blocks_and_norm(vit, x.to(vit.cls_token.dtype), cfg, remat=remat)
+
+
+def block_taps(vit: ViT, images: torch.Tensor, cfg: ViTConfig
+               ) -> list[torch.Tensor]:
+    """Images (N, 3, H, W) → the output of every block of the trunk, in
+    order, each (N, 1 + registers + patches, D) in the trunk's dtype,
+    before the final norm: `forward_features` tapped after each block."""
+    grid_hw = (images.shape[-2] // cfg.patch_size,
+               images.shape[-1] // cfg.patch_size)
+    x = prepare_tokens(vit, vit.patch_proj(images), grid_hw, cfg)
+    _, taps = run_blocks_with_taps(vit.blocks.values(),
+                                   x.to(vit.cls_token.dtype),
+                                   range(len(vit.blocks)))
+    return taps
 
 
 def _keys_cubic(x: np.ndarray) -> np.ndarray:

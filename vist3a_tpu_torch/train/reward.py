@@ -8,8 +8,8 @@ Port of `vist3a_tpu/train/reward.py` (the reference's `utils/reward.py`):
     CLIP normalisation;
   * `make_loss_fn` (:117-193): pick loss |target − logit_scale·⟨t, i⟩/100|,
     PE loss 1 − ⟨t, i⟩, mixed 0.25 / 0.25; the text features are inputs
-    (computed off the path, without grad, by the text towers still to
-    come, ROADMAP Queue 1, item 15);
+    (computed off the path, without grad, by the text towers of
+    `nn/clip.py`: `cli/train_vdm.py::build_reward_fns`);
   * `calculate_reward` (:198-256): the stitched decoder on the rollout's
     latents and its decoded video (the feed-forward resize to 448² is
     trilinear align_corners=True, not the antialiased resize of `t23d`),

@@ -238,9 +238,13 @@ def vdm_train_step(state: VDMTrainState, dit: wan_dit.WanDiT,
                    scfg: ca.StitchedConfig, cfg: VDMTrainConfig,
                    latent_shape=(1, 16, 4, 64, 64), render_size: int = 448,
                    pair_budget: int | None = None, reward_text=None,
-                   draws: dict | None = None) -> dict:
+                   draws: dict | None = None,
+                   return_images: bool = False) -> dict:
     """One VDM step, in place on `state`; returns the metrics (losses,
-    the pre-clip `grad_norm`, `skipped`, the rollout's draws).
+    the pre-clip `grad_norm`, `skipped`, the rollout's draws) and, with
+    `return_images` on a reward step, "images": (the decoded frame (1, H,
+    W, 3), the rendered views (V, H, W, 3)) in [0, 1], detached — the
+    every-10-step grid of `cli/train_vdm.py::run`.
 
     video (B, 3, T, H, W) in [−1, 1]; sft_text (B, L, text_dim);
     rl_cond / rl_uncond (1, L, text_dim) rollout prompts; reward_loss_fn
@@ -282,6 +286,7 @@ def vdm_train_step(state: VDMTrainState, dit: wan_dit.WanDiT,
     del pred, target, z_sigma
 
     reward_loss = torch.zeros((), device=device)
+    images = None
     if rl:
         latents0 = d.get("latents0")
         if latents0 is None:
@@ -297,7 +302,7 @@ def vdm_train_step(state: VDMTrainState, dit: wan_dit.WanDiT,
         # reference's reward branch runs under autocast bf16)
         decoded = wan_vae.decode(vae_decoder, lat_un.to(torch.bfloat16),
                                  remat=True).float()
-        reward_loss, _ = calculate_reward(
+        reward_loss, images = calculate_reward(
             lat_un, decoded, stitched, scfg, reward_loss_fn,
             generator=gens[_REWARD], perm=d.get("perm"),
             frame=d.get("frame"), render_size=render_size,
@@ -328,7 +333,8 @@ def vdm_train_step(state: VDMTrainState, dit: wan_dit.WanDiT,
             "grad_norm": gnorm.detach(), "skipped": not finite,
             "num_steps": d["num_steps"],
             "backprop_idx": [int(i) for i in d["backprop_idx"]],
-            "guidance": float(d["guidance"])}
+            "guidance": float(d["guidance"]),
+            **({"images": images} if return_images and images else {})}
 
 
 # --------------------------------------------------------------------------- #
