@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases device,build,kernels,raster,vdm
     python3 chip_smoke.py --phases device,build,cli
     python3 chip_smoke.py --phases device,build,workflows
+    python3 chip_smoke.py --phases device,build,evaluation
 
 Phases, each of which passes or raises (any failure exits non-zero):
   1. device  — the card's name and power limit; fails without CUDA.
@@ -205,6 +206,38 @@ Phases, each of which passes or raises (any failure exits non-zero):
                extraction seconds, the host fit's seconds, the feature
                cache's bytes and the peak memory.  Cut: random weights,
                synthetic scenes and tokenizer files, a few steps.
+  14. evaluation — RE10K novel-view synthesis from its command line and
+               per-scene refinement, at full width (`drive_evaluation`):
+               the whole AnySplat encoder (fp32, the camera trick) and the
+               Wan 2.1 VAE drawn on the card from a seed and written as
+               `anysplat.pth` and `wan_vae/` (fp32) with a stitched
+               checkpoint chopped at 16 (LoRA r64 α32), no UMT5 or DiT;
+               a synthetic RE10K tree (2 sequences × 16 PNG frames at
+               640×360 of moving blobs, `annotations.json` with 3×4
+               extrinsics on a short arc, a `seq_id_map` of all 16 ids);
+               then `cli/nvs_eval.py::main --resolution 512
+               --feedforward_resolution 448`: per sequence pass 1 on the
+               12 context views and a duplicate (S = 13, 2,609,152
+               Gaussians), pass 2 with the 4 targets (S = 17), 4 target
+               renders at 448².  Checks the launches (per sequence 16 ViT,
+               96 masked, 4 composite), 4 gt and 4 pred PNGs a sequence,
+               both CSVs, their PSNR and SSIM finite and equal to this
+               script's float64 recomputation from the PNGs
+               (`EVAL_PSNR_ATOL`, `EVAL_SSIM_ATOL`), and LPIPS of the
+               first sequence's PNGs with seeded random VGG16 weights on
+               the card against the host CPU (`EVAL_LPIPS_RTOL`).  Then
+               `train/post_opt.py::refine` of the first sequence's pass-1
+               Gaussians against its 12 context views at 448² for 50
+               steps (pose refinement on, the default pair budget):
+               finite losses, the mean of the last 10 below the mean of
+               the first 5, one composite launch forward and one backward
+               a step; and a narrow refine (the 48-Gaussian scene of
+               `tests/test_post_opt.py` at 32², 4 steps, the views handed
+               in) card vs host CPU (`POST_OPT_*` limits).  Logs the
+               seconds to write, load, wait for host data (the numpy
+               Lanczos resizes), VAE-encode, run each forward, render,
+               write and score, the seconds a refine step, and the peak
+               memory.  Cut: random weights, synthetic scenes, 50 steps.
 The line before the last lists the kernels as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -228,7 +261,7 @@ from pathlib import Path
 
 PHASES = ("device", "build", "kernels", "raster", "slice", "profile",
           "reference", "decode", "denoise", "cli", "train", "vdm",
-          "workflows")
+          "workflows", "evaluation")
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 (data sheet)
 PEAK_FP32_FLOPS = 67e12       # H100 SXM fp32 outside the tensor cores
 # fp32-accurate products on the TF32 tensor cores (495 TFLOP/s dense), each
@@ -464,6 +497,30 @@ WORKFLOW_CHOP = 16
 PICK_LOGIT_SCALE = 100.0
 # the extra disk the phase's data, features and checkpoints take
 WORKFLOW_EXTRA_BYTES = 4 << 30
+# phase `evaluation`: RE10K novel-view synthesis and per-scene refinement
+EVAL_SEQUENCES = 2
+EVAL_FRAMES = 16               # ids per sequence: 12 context + 4 targets
+EVAL_HW = (360, 640)           # RE10K's frame size
+EVAL_RESOLUTION = 512          # --resolution (the VAE's)
+EVAL_FF_RESOLUTION = 448       # --feedforward_resolution
+EVAL_TARGETS = 4
+EVAL_LORA = TRAIN_LORA
+# per sequence: two stitched forwards (S = 13 and 17), 4 target renders
+EVAL_LAUNCHES_PER_SEQUENCE = {"unmasked": 2 * 8, "masked": 2 * 48,
+                              "composite": EVAL_TARGETS}
+EVAL_PSNR_ATOL = 1e-4          # dB: the CSV's fp32 against float64
+EVAL_SSIM_ATOL = 1e-5
+EVAL_LPIPS_RTOL = 1e-4         # card vs host CPU, fp32 with TF32 off
+EVAL_LPIPS_SEED = 53
+POST_OPT_STEPS = 50
+POST_OPT_SEED = 0
+POST_OPT_NARROW_STEPS = 4
+POST_OPT_NARROW_VIEWS = (2, 1, 0, 1)
+POST_OPT_LOSS_RTOL = 1e-4      # the narrow refine, card vs host CPU
+# each refined parameter within this share of its group's Adam travel
+# (lr·steps): a gradient at the noise floor moves its parameter by up to
+# lr a step either way, a wrong one by O(lr) everywhere
+POST_OPT_PARAM_ADAM_SHARE = 1e-3
 
 
 def log(msg: str) -> None:
@@ -2116,9 +2173,10 @@ def peft_adapter(dit, gen, r: int) -> tuple[dict, dict]:
 
 def write_weights_root(root: Path, src: dict, scfg, lora_cfg, gen) -> dict:
     """The reference layout under `root` from the source modules (on the
-    host): `anysplat.pth` (fp32), `wan_vae/` (fp32), `umt5/` (bf16, HF
-    shards and index), `wan_dit/` (bf16), `anysplat_stitched.pth` and the
-    DiT's PEFT folder `wan_lora/`, and where `src` holds the scorers'
+    host): `anysplat.pth` (fp32), `wan_vae/` (fp32),
+    `anysplat_stitched.pth`, where `src` holds the generator `umt5/`
+    (bf16, HF shards and index), `wan_dit/` (bf16) and the DiT's PEFT
+    folder `wan_lora/`, and where `src` holds the scorers'
     towers (`pick_vision`, `pick_text`, `pe_vision`, `pe_text`)
     `pickscore/` (HF CLIP-H with `logit_scale`, `vocab.json` and
     `merges.txt`) and `dfn5b/` (open_clip), each state dict checked
@@ -2132,9 +2190,10 @@ def write_weights_root(root: Path, src: dict, scfg, lora_cfg, gen) -> dict:
     files = {
         "anysplat_encoder": manifests._fab_anysplat_encoder(src["encoder"]),
         "wan_vae": manifests._fab_wan_vae(src["vae_encoder"],
-                                          src["vae_decoder"]),
-        "umt5_xxl": manifests._fab_umt5(src["umt5"]),
-        "wan_dit": manifests._fab_wan_dit(src["dit"])}
+                                          src["vae_decoder"])}
+    if "dit" in src:
+        files["umt5_xxl"] = manifests._fab_umt5(src["umt5"])
+        files["wan_dit"] = manifests._fab_wan_dit(src["dit"])
     if "pick_vision" in src:
         files["pickscore"] = manifests._fab_pickscore(
             src["pick_vision"], src["pick_text"],
@@ -2148,23 +2207,26 @@ def write_weights_root(root: Path, src: dict, scfg, lora_cfg, gen) -> dict:
             manifests.validate_state_dict(sd, family)
     ck, factors, biases = stitched_checkpoint(src["encoder"], scfg, lora_cfg,
                                               gen)
-    adapter, dit_factors = peft_adapter(src["dit"], gen,
-                                       CLI_DIT_LORA_RANK)
-    for sub in ("wan_vae", "wan_dit", "umt5", "wan_lora"):
-        (root / sub).mkdir(parents=True)
+    (root / "wan_vae").mkdir(parents=True)
     written = {}
     torch.save(files["anysplat_encoder"], root / "anysplat.pth")
     torch.save(ck, root / "anysplat_stitched.pth")
     written["wan_vae"] = write_safetensors(
         root / "wan_vae" / "diffusion_pytorch_model.safetensors",
         files["wan_vae"])
-    written["wan_dit"] = write_safetensors(
-        root / "wan_dit" / "diffusion_pytorch_model.safetensors",
-        files["wan_dit"])
-    written["umt5"] = write_sharded(root / "umt5", files["umt5_xxl"],
-                                    CLI_UMT5_SHARDS)
-    written["wan_lora"] = write_safetensors(
-        root / "wan_lora" / "adapter_model.safetensors", adapter)
+    adapter, dit_factors = {}, {}
+    if "dit" in src:
+        adapter, dit_factors = peft_adapter(src["dit"], gen,
+                                           CLI_DIT_LORA_RANK)
+        for sub in ("wan_dit", "umt5", "wan_lora"):
+            (root / sub).mkdir(parents=True)
+        written["wan_dit"] = write_safetensors(
+            root / "wan_dit" / "diffusion_pytorch_model.safetensors",
+            files["wan_dit"])
+        written["umt5"] = write_sharded(root / "umt5", files["umt5_xxl"],
+                                        CLI_UMT5_SHARDS)
+        written["wan_lora"] = write_safetensors(
+            root / "wan_lora" / "adapter_model.safetensors", adapter)
     for name in ("anysplat.pth", "anysplat_stitched.pth"):
         written[name] = (root / name).stat().st_size
     for family in ("pickscore", "dfn5b"):
@@ -2448,12 +2510,12 @@ def drive_cli(src: dict, scfg, lora_spec: str, tmp: Path, *, tokenize,
             "results": results}
 
 
-def build_cli_sources() -> dict:
+def build_cli_sources(generator: bool = True) -> dict:
     """The modules whose reference-format files phase `cli` writes, drawn on
     the card from a seed and then moved to the host, so the card is free
     for the CLI's own: the whole AnySplat encoder (fp32, with the camera
-    trick of `build_stitched`), the Wan 2.1 VAE (fp32), UMT5-XXL and the
-    Wan 2.1 1.3B DiT (bf16)."""
+    trick of `build_stitched`), the Wan 2.1 VAE (fp32), and with
+    `generator` UMT5-XXL and the Wan 2.1 1.3B DiT (bf16)."""
     import torch
 
     from vist3a_tpu_torch.nn import umt5, wan_dit, wan_vae
@@ -2471,10 +2533,11 @@ def build_cli_sources() -> dict:
     vcfg = wan_vae.WanVAEConfig()
     src["vae_encoder"] = wan_vae.init_encoder(vcfg, gen, device="cuda")
     src["vae_decoder"] = wan_vae.init_decoder(vcfg, gen, device="cuda")
-    src["umt5"] = umt5.init(umt5.UMT5_XXL, gen, device="cuda",
-                            dtype=torch.bfloat16)
-    src["dit"] = wan_dit.init(wan_dit.WAN_1_3B, gen, device="cuda",
-                              dtype=torch.bfloat16)
+    if generator:
+        src["umt5"] = umt5.init(umt5.UMT5_XXL, gen, device="cuda",
+                                dtype=torch.bfloat16)
+        src["dit"] = wan_dit.init(wan_dit.WAN_1_3B, gen, device="cuda",
+                                  dtype=torch.bfloat16)
     torch.cuda.synchronize()
     built = time.perf_counter() - t0
     src = {k: m.to("cpu") for k, m in src.items()}
@@ -3416,14 +3479,16 @@ def workflow_seed(views=WORKFLOW_STITCH_VIEWS) -> int:
 
 
 @contextlib.contextmanager
-def captured(module, name: str, store: dict):
+def captured(module, name: str, store: dict, *, first: bool = False):
     """Wrap `module.<name>`: the arguments and the result of its last call
-    go to store[name] as (args, kwargs, result); restored on exit."""
+    (with `first`, its first) go to store[name] as (args, kwargs, result);
+    restored on exit."""
     fn = getattr(module, name)
 
     def wrap(*args, **kwargs):
         out = fn(*args, **kwargs)
-        store[name] = (args, kwargs, out)
+        if not (first and name in store):
+            store[name] = (args, kwargs, out)
         return out
     setattr(module, name, wrap)
     try:
@@ -3432,8 +3497,8 @@ def captured(module, name: str, store: dict):
         setattr(module, name, fn)
 
 
-def measured_main(label: str, fn, args, *, device: str, timed: tuple = ()
-                  ) -> tuple:
+def measured_main(label: str, fn, args, *, device: str, timed: tuple = (),
+                  phase: str = "workflows") -> tuple:
     """fn(args, device=device) with the launch counts reset before it, the
     peak device memory from its start, the seconds spent reading files
     (`io/load_weights.py`) and in each of `timed` ((module, names) pairs).
@@ -3465,7 +3530,7 @@ def measured_main(label: str, fn, args, *, device: str, timed: tuple = ()
                       for _, names in timed for n in names},
             "peak_bytes": torch.cuda.max_memory_allocated() if cuda
             else None, "launches": _vdm_counts()}
-    log(f"workflows: {label}: {info['seconds']:.1f} s, read "
+    log(f"{phase}: {label}: {info['seconds']:.1f} s, read "
         f"{info['read_s']:.1f} s, peak memory allocated "
         f"{info['peak_bytes']} B, launches {info['launches']}, calls "
         + json.dumps({n: [round(x, 2) for x in v]
@@ -3855,6 +3920,442 @@ def phase_workflows() -> dict:
     return res
 
 
+# --------------------------------------------------------------------------- #
+# phase `evaluation`: RE10K novel-view synthesis, per-scene refinement        #
+# --------------------------------------------------------------------------- #
+def write_re10k(folder: Path, *, sequences=EVAL_SEQUENCES,
+                frames=EVAL_FRAMES, hw=EVAL_HW) -> dict:
+    """A synthetic RE10K test tree written with OpenCV: `seq_XXX/images/
+    frame_XXXX.png` (`scene_frame`'s moving blobs), `annotations.json`
+    with pixel intrinsics and 3×4 extrinsics on a short arc, and beside
+    the tree a `seq_id_map` of every frame.  Returns their paths."""
+    import cv2
+    import numpy as np
+
+    h, w = hw
+    root, ids = folder / "re10k", {}
+    for s in range(sequences):
+        seq = f"seq_{s:03d}"
+        (root / seq / "images").mkdir(parents=True)
+        annos = []
+        for i in range(frames):
+            name = f"images/frame_{i:04d}.png"
+            ok = cv2.imwrite(str(root / seq / name),
+                             scene_frame(i, hw, 60 + s)[:, :, ::-1])
+            check(ok, f"evaluation: cv2 could not write {root / seq / name}")
+            a = 0.02 * (i - frames / 2)          # yaw (rad) round a point
+            c2w = np.eye(4)                      # 2 units ahead
+            c2w[:3, :3] = [[math.cos(a), 0, math.sin(a)], [0, 1, 0],
+                           [-math.sin(a), 0, math.cos(a)]]
+            c2w[:3, 3] = [-2 * math.sin(a), 0, 2 * (1 - math.cos(a))]
+            annos.append({"idx": i, "filepath": f"{seq}/{name}",
+                          "intrinsics": [[0.9 * w, 0, w / 2],
+                                         [0, 0.9 * w, h / 2], [0, 0, 1]],
+                          "extrinsics": c2w[:3].tolist()})
+        (root / seq / "annotations.json").write_text(json.dumps(annos))
+        ids[seq] = list(range(frames))
+    (folder / "seq_id_map.json").write_text(json.dumps(ids))
+    return {"root": root, "seq_id_map": folder / "seq_id_map.json"}
+
+
+def read_png(path):
+    """(H, W, 3) uint8 RGB through OpenCV."""
+    import cv2
+
+    bgr = cv2.imread(str(path), cv2.IMREAD_COLOR)
+    check(bgr is not None, f"evaluation: cannot read {path}")
+    return bgr[:, :, ::-1]
+
+
+def host_metrics(images_dir: Path) -> dict:
+    """Each sequence's mean PSNR and SSIM over its gt / pred PNGs, in
+    float64 numpy in this script (skimage's Gaussian-weighted SSIM: an 11-tap window
+    of σ 1.5, 'valid', C1 = 0.01², C2 = 0.03²), independent of the port."""
+    import numpy as np
+
+    r = np.arange(11) - 5.0
+    win = np.exp(-r ** 2 / (2 * 1.5 ** 2))
+    win /= win.sum()
+
+    def filt(a):
+        h, w = a.shape[-2:]
+        a = sum(win[j] * a[..., j:j + h - 10, :] for j in range(11))
+        return sum(win[j] * a[..., :, j:j + w - 10] for j in range(11))
+
+    out = {}
+    for seq in sorted(p for p in images_dir.iterdir() if p.is_dir()):
+        psnr, ssim = [], []
+        for gt_path in sorted((seq / "gt").glob("*.png")):
+            x = read_png(gt_path).transpose(2, 0, 1) / 255.0
+            y = read_png(seq / "pred" / gt_path.name).transpose(2, 0, 1) \
+                / 255.0
+            psnr.append(-10.0 * np.log10(np.mean((x - y) ** 2)))
+            ux, uy = filt(x), filt(y)
+            vx, vy = filt(x * x) - ux * ux, filt(y * y) - uy * uy
+            vxy = filt(x * y) - ux * uy
+            c1, c2 = 0.01 ** 2, 0.03 ** 2
+            ssim.append(np.mean((2 * ux * uy + c1) * (2 * vxy + c2)
+                                / ((ux ** 2 + uy ** 2 + c1) * (vx + vy + c2))))
+        out[seq.name] = {"psnr": float(np.mean(psnr)),
+                         "ssim": float(np.mean(ssim))}
+    return out
+
+
+def check_metric_files(out_dir: Path, seqs: list, targets: int) -> dict:
+    """The PNGs and CSVs `nvs_eval.main` wrote, the CSV's PSNR and SSIM
+    finite and equal to this script's float64 recomputation from the PNGs.
+    Returns the CSV rows, the host's figures and the largest gaps."""
+    import csv
+
+    import numpy as np
+
+    images = out_dir / "images"
+    for seq in seqs:
+        for kind in ("gt", "pred"):
+            n = len(list((images / seq / kind).glob("*.png")))
+            check(n == targets, f"evaluation: {seq}/{kind}: {n} PNGs")
+    with open(out_dir / "per_sequence.csv", newline="") as f:
+        rows = list(csv.DictReader(f))
+    with open(out_dir / "overall.csv", newline="") as f:
+        overall = list(csv.DictReader(f))
+    check([r["sequence"] for r in rows] == seqs and len(overall) == 1,
+          f"evaluation: CSV rows {rows}, overall {overall}")
+    host = host_metrics(images)
+    gap = {"psnr": 0.0, "ssim": 0.0}
+    for r in rows:
+        for k in gap:
+            v = float(r[k])
+            check(math.isfinite(v), f"evaluation: {r['sequence']} {k} {v}")
+            gap[k] = max(gap[k], abs(v - host[r["sequence"]][k]))
+        log(f"evaluation: {r['sequence']}: CSV psnr {r['psnr']} ssim "
+            f"{r['ssim']}; host float64 {json.dumps(host[r['sequence']])}")
+    check(gap["psnr"] <= EVAL_PSNR_ATOL and gap["ssim"] <= EVAL_SSIM_ATOL,
+          f"evaluation: CSV vs host float64 {gap} (limits {EVAL_PSNR_ATOL} "
+          f"dB, {EVAL_SSIM_ATOL})")
+    for k in gap:
+        mean = float(np.mean([float(r[k]) for r in rows]))
+        check(abs(float(overall[0][k]) - mean) <= 1e-12 * max(1, abs(mean)),
+              f"evaluation: overall {k} {overall[0][k]} vs {mean}")
+    return {"rows": rows, "host": host, "gap": gap}
+
+
+def lpips_card_vs_host(images_dir: Path, seq: str) -> dict:
+    """LPIPS of one sequence's PNGs with seeded random VGG16 weights, on
+    the card and on the host CPU (the same weights and inputs)."""
+    import numpy as np
+    import torch
+
+    from vist3a_tpu_torch.eval import metrics
+
+    pngs = sorted((images_dir / seq / "gt").glob("*.png"))
+
+    def stack(kind):
+        return torch.from_numpy(np.stack([
+            read_png(images_dir / seq / kind / p.name).transpose(2, 0, 1)
+            for p in pngs]).astype(np.float32) / 255.0)
+    gt, pred = stack("gt"), stack("pred")
+    model = metrics.lpips_init(
+        torch.Generator(device="cuda").manual_seed(EVAL_LPIPS_SEED))
+    t0 = time.perf_counter()
+    card = metrics.compute_lpips(model, gt.cuda(), pred.cuda()).cpu()
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    host = metrics.compute_lpips(copy.deepcopy(model).to("cpu"), gt, pred)
+    rel = float((card - host).abs().max() / host.abs().max())
+    check(torch.isfinite(card).all() and bool((host > 0).all())
+          and rel <= EVAL_LPIPS_RTOL,
+          f"evaluation: LPIPS card {card.tolist()} host {host.tolist()} "
+          f"(rel {rel}, limit {EVAL_LPIPS_RTOL})")
+    return {"card": card.tolist(), "host": host.tolist(), "rel": rel,
+            "card_s": card_s}
+
+
+def refine_context(out, ff_pm1, n_src: int, steps: int, *, device: str
+                   ) -> dict:
+    """`train/post_opt.py::refine` of pass 1's Gaussians (`out`, from the
+    feed-forward frames `ff_pm1` (1, 3, S, h, w) in [−1, 1]) against its
+    first `n_src` views (the context, without the duplicate) with their
+    poses and intrinsics, `steps` steps of the deployed config; checks
+    finite losses that fall (the mean of the last 10 below the mean of the
+    first 5) and, on the card, one composite launch each way a step."""
+    import torch
+
+    from vist3a_tpu_torch.train import post_opt
+
+    images = (ff_pm1[0, :, :n_src].float() + 1.0) / 2.0
+    images = images.permute(1, 2, 3, 0)                     # (V, h, w, 3)
+    c2w = out.extrinsic_c2w[0, :n_src].float()
+    k = out.intrinsic_norm[0, :n_src].float()
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    res = post_opt.refine(out.gaussians, images, c2w, k, POST_OPT_SEED,
+                          post_opt.PostOptConfig(max_steps=steps),
+                          device=device)
+    sync()
+    seconds = time.perf_counter() - t0
+    counts = _vdm_counts()
+    losses = res.losses
+    early, late = float(losses[:5].mean()), float(losses[-10:].mean())
+    check(bool(torch.isfinite(losses).all()) and late < early,
+          f"evaluation: post-opt losses {losses.tolist()}")
+    if cuda:
+        want = {"composite": steps, "composite_backward": steps}
+        got = {k: counts[k] for k in want}
+        check(got == want, f"evaluation: post-opt launches {got}, want "
+              f"{want}")
+    info = {"steps": steps, "seconds": seconds, "step_s": seconds / steps,
+            "gaussians": int(out.gaussians.means.shape[1]),
+            "live": int((out.gaussians.opacities[0] > 0.01).sum()),
+            "views": n_src, "early": early, "late": late,
+            "ratio": late / early, "losses": losses.tolist(),
+            "launches": counts,
+            "peak_bytes": torch.cuda.max_memory_allocated() if cuda
+            else None}
+    log(f"evaluation: post-opt {steps} steps over {info['gaussians']} "
+        f"Gaussians ({info['live']} above the prune) and {n_src} views: "
+        f"{seconds:.2f} s ({info['step_s'] * 1e3:.1f} ms a step); loss "
+        f"first 5 {early:.6f}, last 10 {late:.6f} (ratio "
+        f"{info['ratio']:.4f}); launches {counts}; peak "
+        f"{info['peak_bytes']} B")
+    return info
+
+
+def drive_evaluation(src: dict, scfg, tmp: Path, *, device: str = "cuda",
+                     frames: int = EVAL_FRAMES, hw=EVAL_HW, flags: tuple = (),
+                     want_launches: dict | None = None,
+                     refine_steps: int = POST_OPT_STEPS) -> dict:
+    """Write the reference-format files `nvs_eval.main` reads from the
+    source modules `src` (on the host: the AnySplat encoder and the Wan
+    VAE; a stitched checkpoint chopped at the config's layer) and a
+    synthetic RE10K tree under `tmp`, run `cli/nvs_eval.py::main`, check
+    what it wrote (`check_metric_files`) and its launches, then refine its
+    first sequence's pass-1 Gaussians (`refine_context`).  `flags` are
+    added to the command line (the CPU test's sizes)."""
+    import torch
+
+    from vist3a_tpu_torch.cli import arguments, model_loading, nvs_eval
+    from vist3a_tpu_torch.eval import nvs, re10k
+    from vist3a_tpu_torch.nn import wan_vae
+    from vist3a_tpu_torch.stitch import chopped_anysplat as ca
+    from vist3a_tpu_torch.stitch.conv_spec import conv_spec_to_string
+    from vist3a_tpu_torch.stitch.lora import parse_lora_mode
+
+    root = tmp / "weights"
+    root.mkdir(parents=True)
+    t0 = time.perf_counter()
+    written = write_weights_root(root, src, scfg, parse_lora_mode(EVAL_LORA),
+                                 torch.Generator().manual_seed(61))
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    data = write_re10k(tmp / "data", frames=frames, hw=hw)
+    scenes_s = time.perf_counter() - t0
+    log(f"evaluation: files written in {write_s:.1f} s "
+        f"({json.dumps(written['bytes'])} B), scenes in {scenes_s:.1f} s")
+    out_dir = tmp / "results"
+    args = arguments.stitching_nvs_evaluation_argument().parse_args([
+        "--dataset", f"re10k:{data['root']}",
+        "--seq_id_map", str(data["seq_id_map"]),
+        "--checkpoint_path", str(root / "anysplat_stitched.pth"),
+        "--stitching_layer_location", f"enc_blocks_{scfg.stitch_layer_index}",
+        "--stitching_layer_config", conv_spec_to_string(scfg.conv),
+        "--lora_config", EVAL_LORA,
+        "--resolution", str(EVAL_RESOLUTION),
+        "--feedforward_resolution", str(EVAL_FF_RESOLUTION),
+        "--output_dir", str(out_dir), *flags])
+    args.weights_root = str(root)
+    store = {}
+    with captured(ca, "forward_from_video", store, first=True):
+        (modules, result), info = measured_main(
+            "nvs_eval.main", nvs_eval.main, args, device=device,
+            phase="evaluation", timed=(
+                (model_loading, ("load_stitched_model",)),
+                (re10k.Re10KNVSDataset, ("get_data",)),
+                (wan_vae, ("encode",)), (ca, ("forward_with_latent",)),
+                (nvs, ("render", "save_image", "compute_metrics_for_dir"))))
+    check(sorted(modules) == ["stitched", "vae_encoder"],
+          f"evaluation: main loaded {sorted(modules)}")
+    n_vae = same_values("VAE encoder", modules["vae_encoder"].state_dict(),
+                        {k: v.float() for k, v in
+                         src["vae_encoder"].state_dict().items()})
+    del modules
+    seqs = sorted(json.loads(data["seq_id_map"].read_text()))
+    if want_launches is not None:
+        got = {k: info["launches"][k] for k in want_launches}
+        check(got == want_launches, f"evaluation: launches {got}, want "
+              f"{want_launches}")
+    files = check_metric_files(out_dir, seqs, EVAL_TARGETS)
+    lpips = (lpips_card_vs_host(out_dir / "images", seqs[0])
+             if device == "cuda" else None)
+    pass1_args, _, pass1 = store.pop("forward_from_video")
+    check(pass1_args[2].shape[2] == frames - EVAL_TARGETS + 1,
+          f"evaluation: pass 1 ran {pass1_args[2].shape[2]} frames")
+    refined = refine_context(pass1, pass1_args[3], frames - EVAL_TARGETS,
+                             refine_steps, device=device)
+    log(f"evaluation: overall {json.dumps(result['overall'])}; CSV vs host "
+        f"float64 {json.dumps(files['gap'])}; LPIPS card vs host "
+        f"{json.dumps(lpips)}")
+    return {"write_s": write_s, "scenes_s": scenes_s,
+            "bytes": written["bytes"], "info": info, "result": result,
+            "files": files, "lpips": lpips, "post_opt": refined,
+            "compared": {"vae_encoder": n_vae},
+            "pass1_gaussians": int(pass1.gaussians.means.shape[1])}
+
+
+def narrow_refine_scene():
+    """`tests/test_post_opt.py`'s scene in numpy from the same seeds: 48
+    Gaussians, three cameras 0.4 apart looking down +z, normalised
+    intrinsics."""
+    import numpy as np
+    import torch
+
+    from vist3a_tpu_torch.nn.gaussians import Gaussians, build_covariance
+
+    rng = np.random.default_rng(7)
+    g = 48
+    means = rng.normal(0, 0.8, (g, 3)).astype(np.float32)
+    means[:, 2] += 4.0
+    scales = rng.uniform(0.08, 0.3, (g, 3)).astype(np.float32)
+    quats = rng.normal(size=(g, 4)).astype(np.float32)
+    quats /= np.linalg.norm(quats, axis=-1, keepdims=True)
+    harmonics = np.zeros((g, 3, 25), np.float32)
+    harmonics[:, :, 0] = rng.uniform(0.2, 1.5, (g, 3))
+    opacities = rng.uniform(0.35, 0.95, (g,)).astype(np.float32)
+    t = {k: torch.from_numpy(v) for k, v in (
+        ("means", means), ("scales", scales), ("quats", quats),
+        ("harmonics", harmonics), ("opacities", opacities))}
+    gaussians = Gaussians(t["means"][None],
+                          build_covariance(t["scales"], t["quats"])[None],
+                          t["harmonics"][None], t["opacities"][None],
+                          t["scales"][None], t["quats"][None])
+    c2w = torch.eye(4).repeat(3, 1, 1)
+    c2w[:, 0, 3] = torch.tensor([-0.4, 0.0, 0.4])
+    k_norm = torch.tensor([[0.9, 0, 0.5], [0, 0.9, 0.5], [0, 0, 1]]
+                          ).repeat(3, 1, 1)
+    return gaussians, c2w, k_norm
+
+
+def narrow_refine_reference() -> dict:
+    """`refine` of the narrow scene perturbed (means +N(0, 0.05), SH
+    +N(0, 0.15)) against its clean 32² renders, `POST_OPT_NARROW_STEPS`
+    steps with pose refinement and both regularisers, the same views
+    handed in, on the card and on the host CPU: the losses within
+    `POST_OPT_LOSS_RTOL`, every refined parameter within
+    `POST_OPT_PARAM_ADAM_SHARE` of its group's Adam travel, the cameras
+    within that share of how far they moved."""
+    import numpy as np
+    import torch
+
+    from vist3a_tpu_torch.kernels import rasterizer as tr
+    from vist3a_tpu_torch.train import post_opt
+
+    gaussians, c2w, k_norm = narrow_refine_scene()
+    hw = 32
+    ks = k_norm * torch.tensor([[hw], [hw], [1.0]])
+    g = gaussians
+    rgb, _, _ = tr.rasterize(g.means[0], g.covariances[0], g.harmonics[0],
+                             g.opacities[0], torch.linalg.inv(c2w), ks, hw,
+                             hw, pair_budget=4096)
+    target = torch.clamp(rgb, 0.0, 1.0)
+    rng = np.random.default_rng(3)
+    start = g._replace(
+        means=g.means + torch.from_numpy(
+            rng.normal(0, 0.05, g.means.shape).astype(np.float32)),
+        harmonics=g.harmonics + torch.from_numpy(
+            rng.normal(0, 0.15, g.harmonics.shape).astype(np.float32)))
+    cfg = post_opt.PostOptConfig(
+        max_steps=POST_OPT_NARROW_STEPS, lr_pose=1e-3, opacity_reg=0.01,
+        scale_reg=0.01, pair_budget=4096)
+    views = POST_OPT_NARROW_VIEWS
+    _reset_counts()
+    card = post_opt.refine(start, target, c2w, k_norm, 0, cfg, views=views,
+                           device="cuda")
+    counts = {k: _vdm_counts()[k] for k in ("composite",
+                                            "composite_backward")}
+    host = post_opt.refine(start, target, c2w, k_norm, 0, cfg, views=views,
+                           device="cpu")
+    loss_rel = float((card.losses - host.losses).abs().max()
+                     / host.losses.abs().max())
+    cs, _ = post_opt.splats_from_gaussians(card.gaussians)
+    hs, _ = post_opt.splats_from_gaussians(host.gaussians)
+    lr = {"means": cfg.lr_means, "scales": cfg.lr_scales,
+          "quats": cfg.lr_quats, "opacities": cfg.lr_opacities,
+          "sh0": cfg.lr_sh, "shN": cfg.lr_sh / 20}
+    share = {k: float((cs[k].cpu() - hs[k]).abs().max()
+                      / (lr[k] * cfg.max_steps)) for k in hs}
+    moved = float((host.c2w_refined - c2w).abs().max())
+    pose_share = float((card.c2w_refined.cpu() - host.c2w_refined).abs()
+                       .max()) / moved
+    res = {"losses_card": card.losses.tolist(),
+           "losses_host": host.losses.tolist(), "loss_rel": loss_rel,
+           "param_share": share, "pose_share": pose_share,
+           "launches": counts}
+    log(f"evaluation: narrow refine card vs host CPU {json.dumps(res)}")
+    check(counts == {"composite": cfg.max_steps,
+                     "composite_backward": cfg.max_steps},
+          f"evaluation: narrow refine launches {counts}")
+    check(loss_rel <= POST_OPT_LOSS_RTOL
+          and max(share.values()) <= POST_OPT_PARAM_ADAM_SHARE
+          and pose_share <= POST_OPT_PARAM_ADAM_SHARE,
+          f"evaluation: narrow refine card vs host CPU: {res}")
+    return res
+
+
+def phase_evaluation() -> dict:
+    """`cli/nvs_eval.py::main` at full width on reference-format files and
+    a synthetic RE10K tree (`drive_evaluation`; the free disk read first,
+    everything deleted after), the post-optimisation of its first scene,
+    then the narrow refine card vs host CPU."""
+    import torch
+
+    from vist3a_tpu_torch.stitch import chopped_anysplat as ca
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    src = build_cli_sources(generator=False)
+    built_s = time.perf_counter() - t0
+    need = sum(p.numel() * p.element_size() for m in src.values()
+               for p in m.parameters()) * 2
+    tmp = Path(tempfile.mkdtemp(prefix="vist3a_evaluation_"))
+    per_seq = {**EVAL_LAUNCHES_PER_SEQUENCE, **{
+        k: 0 for k in ("natural", "backward", "backward_bf16",
+                       "backward_natural", "composite_backward")}}
+    try:
+        free = shutil.disk_usage(tmp).free
+        check(free >= CLI_DISK_FACTOR * need,
+              f"evaluation: {free} B free under {tmp}; the files need about "
+              f"{need} B (×{CLI_DISK_FACTOR} asked)")
+        res = drive_evaluation(
+            src, ca.StitchedConfig(), tmp,
+            want_launches={k: EVAL_SEQUENCES * v for k, v in per_seq.items()})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        del src
+        torch.cuda.empty_cache()
+    check(res["pass1_gaussians"] == (EVAL_FRAMES - EVAL_TARGETS + 1)
+          * EVAL_FF_RESOLUTION ** 2,
+          f"evaluation: pass 1 gave {res['pass1_gaussians']} Gaussians")
+    res["narrow"] = narrow_refine_reference()
+    res["built_s"] = built_s
+    info = res["info"]
+    # the kernels line's path: the main's launches and the refinement's
+    res["launches"] = {k: info["launches"][k]
+                       + res["post_opt"]["launches"][k]
+                       for k in info["launches"]}
+    log(f"evaluation: sources built in {built_s:.1f} s; main "
+        f"{info['seconds']:.1f} s (read {info['read_s']:.1f} s), peak "
+        f"{info['peak_bytes']} B; calls (s) " + json.dumps(
+            {n: [round(x, 3) for x in v] for n, v in info["calls"].items()})
+        + f"; pass 1 {res['pass1_gaussians']} Gaussians; launches "
+        f"{json.dumps(res['launches'])}")
+    return res
+
+
 def _kernel_entries(timed: dict, raster: list | None,
                     launches: dict) -> list:
     """One entry per kernel entry point, each timed at its main-path
@@ -3864,7 +4365,9 @@ def _kernel_entries(timed: dict, raster: list | None,
     decode, the stitched-decoder slice and the VDM steps that did; for the fp32 forward and the fp32 backward the two
     distillation steps of phase `train`; for the bf16 backward (kernels 4b
     and 5) and the composite backward (kernel 7) the two VDM steps of phase
-    `vdm`.  `launches_by_path` has each path's.  The masked flash entry's
+    `vdm`.  `launches_by_path` has each path's; phases `workflows` and
+    `evaluation` (the NVS main and the post-optimisation: rows 1 bf16, 2,
+    6 and kernel 7) add theirs.  The masked flash entry's
     top-level numbers are those of the global shape, which holds 24 of its
     48 launches and ~92 % of its FLOPs, the natural entry's those of the
     1.3B DiT (the 14B heads are in `shapes`), the fp32 entries' those of the
@@ -3872,21 +4375,22 @@ def _kernel_entries(timed: dict, raster: list | None,
     at S = 13 and kernel 5's those of the re-evaluation (6, 4096, 12, 128),
     and `shapes` carries every measured shape; the composites' are those of
     the first raster view, and `views` carries each view's."""
+    added = ("workflows", "evaluation")
+
     def count(counter, paths):
         by_path = {path: c[counter] for path, c in launches.items()
                    if c is not None and path in paths}
         main = next((by_path[p] for p in paths if p in by_path
-                     and not p.startswith("workflows")), None)
-        # phase `workflows` drives every path of this slice: its launches
-        # add to the main path's
-        extra = sum(n for p, n in by_path.items()
-                    if p.startswith("workflows"))
+                     and not p.startswith(added)), None)
+        # phases `workflows` and `evaluation` drive the paths of slices 11
+        # and 12: their launches add to the main path's
+        extra = sum(n for p, n in by_path.items() if p.startswith(added))
         if extra:
             main = (main or 0) + extra
         return main, by_path
 
     bf16_paths = ("cli", "denoise", "decode", "slice", "vdm",
-                  "workflows_bf16")
+                  "workflows_bf16", "evaluation")
     shape_keys = ("case", "shape", "kernel_ms", "plain_ms", "bound_ms",
                   "library_ms", "max_abs_err_o", "o_excess",
                   "max_abs_err_lse")
@@ -3988,7 +4492,7 @@ def _kernel_entries(timed: dict, raster: list | None,
                                          "share_of_bound")}
                       for x in raster]})
         main, by_path = count("composite_backward",
-                              ("vdm", "workflows_bf16"))
+                              ("vdm", "workflows_bf16", "evaluation"))
         rb = [x["backward"] for x in raster]
         entries.append({
             "name": "rasterize_composite_bwd", "route": "cuda",
@@ -4065,6 +4569,7 @@ def main(argv=None) -> int:
     trained = run("train", phase_train)
     tuned = run("vdm", phase_vdm)
     workflows = run("workflows", phase_workflows)
+    evaluated = run("evaluation", phase_evaluation)
     log(f"seconds by phase {json.dumps(seconds)}; whole script "
         f"{time.perf_counter() - start:.1f} s")
 
@@ -4083,6 +4588,9 @@ def main(argv=None) -> int:
         launches["workflows_fp32"] = {k: fp32[0][k] + fp32[1][k]
                                       for k in fp32[0]}
         launches["workflows_bf16"] = workflows["vdm"]["info"]["launches"]
+    if evaluated:
+        # the NVS main's forwards and renders and the refinement's steps
+        launches["evaluation"] = evaluated["launches"]
     print(json.dumps({"kernels": _kernel_entries(timed, raster, launches)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -62,15 +62,17 @@ def load_anysplat_encoder(root: Path, cfg: EncoderConfig, *,
 def load_wan_vae(root: Path, cfg: WanVAEConfig, *,
                  halves: tuple[str, ...] = ("encoder", "decoder"),
                  device: torch.device | str = "cuda",
-                 dtype: torch.dtype = torch.float32) -> dict:
+                 dtype: torch.dtype | dict = torch.float32) -> dict:
     """{"encoder": WanVAEEncoder, "decoder": WanVAEDecoder} from
-    `{root}/wan_vae`, in `dtype`, only the `halves` asked for built (the
-    whole file is validated and imported all the same)."""
+    `{root}/wan_vae`, in `dtype` (or {half: dtype}), only the `halves`
+    asked for built (the whole file is validated and imported all the
+    same)."""
     sd = load_weights.load_sharded_safetensors(root / "wan_vae")
     state = wi.import_wan_vae(_validate(sd, "wan_vae"), cfg)
     kinds = {"encoder": WanVAEEncoder, "decoder": WanVAEDecoder}
+    dtypes = dtype if isinstance(dtype, dict) else {k: dtype for k in halves}
     return {k: wi.build_module(lambda m=kinds[k]: m(cfg), state[k],
-                               device=device, dtype=dtype)
+                               device=device, dtype=dtypes[k])
             for k in halves}
 
 
@@ -94,12 +96,16 @@ def _to(tree, device):
 
 @torch.no_grad()
 def load_stitched_model(args, *, eval_dtype_bf16: bool = True,
+                        vae_halves: tuple[str, ...] = ("decoder",),
                         device: torch.device | str = "cuda"):
     """The stitched decoder of `args.checkpoint_path` (a torch
     `stitched_model_epoch_N.pth`) on top of the pretrained encoder, and the
-    Wan VAE's decoder (what a request runs; `load_wan_vae` gives both
-    halves).  Returns ({"stitched": StitchedDecoder, "vae":
-    WanVAEDecoder}, scfg), on `device`.
+    Wan VAE's `vae_halves`: "decoder" (the default; what a text→3DGS
+    request runs) in the trunk's dtype, "encoder" (the pixel-input entry
+    `forward_from_video`) in fp32, as the JAX package keeps the VAE.
+    Returns ({"stitched": StitchedDecoder, "vae": WanVAEDecoder,
+    "vae_encoder": WanVAEEncoder}, each half only if asked for, scfg), on
+    `device`.
 
     The order is the JAX package's: the encoder imported in fp32; the
     checkpoint's bias="lora_only" biases set and its LoRA merged, in fp32;
@@ -111,8 +117,9 @@ def load_stitched_model(args, *, eval_dtype_bf16: bool = True,
     scfg = stitched_config(args)
     encoder = load_anysplat_encoder(root, scfg.encoder, device=device)
     dtype = torch.bfloat16 if eval_dtype_bf16 else torch.float32
-    vae = load_wan_vae(root, WanVAEConfig(), halves=("decoder",),
-                       device=device, dtype=dtype)
+    vae = load_wan_vae(root, WanVAEConfig(), halves=vae_halves,
+                       device=device,
+                       dtype={"decoder": dtype, "encoder": torch.float32})
 
     if getattr(args, "checkpoint_path", None):
         sd = load_weights.load_torch_state_dict(args.checkpoint_path)
@@ -156,5 +163,6 @@ def load_stitched_model(args, *, eval_dtype_bf16: bool = True,
                        f"embedding and ViT blocks [0, {k})")
     stitched = skeleton.to_empty(device=device)
     stitched.load_state_dict({n: chopped[n] for n in own}, strict=True)
+    names = {"decoder": "vae", "encoder": "vae_encoder"}
     return ({"stitched": stitched.eval().requires_grad_(False),
-             "vae": vae["decoder"]}, scfg)
+             **{names[k]: m for k, m in vae.items()}}, scfg)

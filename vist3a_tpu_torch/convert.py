@@ -58,6 +58,9 @@ loads a CLIP vision tree (`clip.init`) into a `CLIPVision` (the patch
 kernel HWIO → OIHW; `proj` keeps its (width, projection_dim) layout), and
 `load_jax_clip_text_params` a text tree (`clip.text_init`) into a
 `CLIPText`.
+
+For evaluation: `load_jax_lpips_params` loads an LPIPS-VGG tree into an
+`eval/metrics.py::LPIPSVGG` (HWIO kernels → OIHW).
 """
 
 from __future__ import annotations
@@ -303,3 +306,18 @@ def load_jax_clip_text_params(module: nn.Module, tree: dict) -> nn.Module:
     """Load a CLIP text JAX tree (`clip.text_init`) into a `CLIPText`
     (`proj` keeps its (width, projection_dim) layout)."""
     return _load(module, from_jax_params(tree), ())
+
+
+def load_jax_lpips_params(module: nn.Module, tree: dict) -> nn.Module:
+    """Load an LPIPS-VGG JAX tree (`metrics.lpips_init` or
+    `import_lpips_vgg`: {"convs": [[{kernel HWIO, bias}]], "lins": [(c,)]})
+    into an `LPIPSVGG` (kernels → OIHW)."""
+    sd = {}
+    for s, stage in enumerate(tree["convs"]):
+        for i, conv in enumerate(stage):
+            sd[f"convs.{s}.{i}.weight"] = _tensor(
+                np.asarray(conv["kernel"]).transpose(3, 2, 0, 1))
+            sd[f"convs.{s}.{i}.bias"] = _tensor(conv["bias"])
+    for s, lin in enumerate(tree["lins"]):
+        sd[f"lins.{s}"] = _tensor(lin)
+    return _load(module, sd, ())

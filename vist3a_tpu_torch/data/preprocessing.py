@@ -21,23 +21,27 @@ import functools
 import numpy as np
 
 
-def load_image(path) -> np.ndarray:
-    """RGB image file → float32 (3, H, W) in [0, 1] (ToTensor parity)."""
+def load_rgb(path) -> np.ndarray:
+    """RGB image file → (H, W, 3) uint8: PIL's `convert("RGB")` where PIL
+    imports, `cv2.imread` (BGR → RGB) otherwise."""
     try:
         from PIL import Image
     except ImportError:
         Image = None
     if Image is not None:
         with Image.open(path) as img:
-            rgb = np.asarray(img.convert("RGB"))
-    else:
-        import cv2
+            return np.asarray(img.convert("RGB"))
+    import cv2
 
-        bgr = cv2.imread(str(path), cv2.IMREAD_COLOR)
-        if bgr is None:
-            raise OSError(f"cannot decode {path}")
-        rgb = bgr[:, :, ::-1]
-    arr = rgb.astype(np.float32) / 255.0
+    bgr = cv2.imread(str(path), cv2.IMREAD_COLOR)
+    if bgr is None:
+        raise OSError(f"cannot decode {path}")
+    return bgr[:, :, ::-1]
+
+
+def load_image(path) -> np.ndarray:
+    """RGB image file → float32 (3, H, W) in [0, 1] (ToTensor parity)."""
+    arr = load_rgb(path).astype(np.float32) / 255.0
     return arr.transpose(2, 0, 1)
 
 

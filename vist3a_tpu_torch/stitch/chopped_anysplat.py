@@ -12,9 +12,12 @@ an un-normalised Wan latent (B, 16, T_vae, h, w) and feed-forward images
   4. the VGGT aggregator trunk and the encoder heads → Gaussians.
 
 `forward_with_latent(remat=True)` is the differentiable training entry
-(see there).  The pixel-input `forward_from_video` is not ported: the
-trainer encodes the clip itself (`cli/train_stitching.encode_context`), so
-`StitchedConfig` has no `vae` field.
+(see there).  `forward_from_video` is the pixel-input entry (the NVS
+evaluation's): the frozen Wan VAE encoder under no_grad, then
+`forward_with_latent`; `StitchedConfig.vae` names the VAE's config, as in
+the JAX package.  Nothing after the pre-upsample reads
+`latent_t`: S = (T_vae − 1)·4 + 1 follows the clip (13 at inference, 17
+in the NVS bench's second pass).
 """
 
 from __future__ import annotations
@@ -30,6 +33,8 @@ from vist3a_tpu_torch.nn.encoder import (Encoder, EncoderConfig, EncoderOutput,
                                          cast_trunk_bf16, heads_pipeline)
 from vist3a_tpu_torch.nn.heads import interp_matrix
 from vist3a_tpu_torch.nn.layers import init_params
+from vist3a_tpu_torch.nn import wan_vae
+from vist3a_tpu_torch.nn.wan_vae import WanVAEConfig
 from vist3a_tpu_torch.stitch.conv_spec import (ConvSpec, SpecConv,
                                                parse_conv_spec)
 
@@ -43,6 +48,7 @@ class StitchedConfig:
     conv_spec: str = CANONICAL_CONV_SPEC
     latent_channels: int = 16            # Wan z dim
     latent_t: int = 13                   # frames after the pre-upsample
+    vae: WanVAEConfig = WanVAEConfig()   # frozen Wan VAE (pixel input)
 
     @property
     def conv(self) -> ConvSpec:
@@ -159,3 +165,25 @@ def forward_with_latent(model: StitchedDecoder, latent: torch.Tensor,
         return model(latent, images, cfg, remat=True)
     with torch.inference_mode():
         return model(latent, images, cfg)
+
+
+def forward_from_video(model: StitchedDecoder,
+                       vae_encoder: wan_vae.WanVAEEncoder,
+                       video: torch.Tensor, images: torch.Tensor,
+                       cfg: StitchedConfig, *,
+                       generator: torch.Generator | None = None,
+                       device: torch.device | str = "cuda") -> EncoderOutput:
+    """StitchVAE3D.forward (`models/stitched_model.py:123-163`): a clip
+    (B, 3, T, H, W) in [−1, 1], T ≡ 1 (mod 4), through the frozen Wan VAE
+    encoder (`nn/wan_vae.py::WanVAEEncoder`, in its own dtype) under
+    no_grad — the posterior sample drawn from `generator`, or its mean
+    without one (the JAX package's `key=None`) — then the stitched decoder
+    (`forward_with_latent`, inference entry) with the feed-forward images
+    (B, 3, T, h, w) in [−1, 1]."""
+    device = torch.device(device)
+    dtype = next(vae_encoder.parameters()).dtype
+    with torch.no_grad():
+        mu, logvar = wan_vae.encode(vae_encoder, video.to(device, dtype))
+        latent = mu if generator is None \
+            else wan_vae.sample_posterior(mu, logvar, generator)
+    return forward_with_latent(model, latent, images, cfg, device=device)
