@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases device,build,cli
     python3 chip_smoke.py --phases device,build,workflows
     python3 chip_smoke.py --phases device,build,evaluation
+    python3 chip_smoke.py --phases device,build,generation
 
 Phases, each of which passes or raises (any failure exits non-zero):
   1. device  — the card's name and power limit; fails without CUDA.
@@ -110,9 +111,11 @@ Phases, each of which passes or raises (any failure exits non-zero):
                export of phase 8 (8 + 48 flash and 133 composite launches).
                Checks the latents (1, 16, 4, 64, 64), the files and the
                launch counts; prints the ms per denoise step, peak memory,
-               a profile of 2 denoise steps and, with `profile`, each
-               profiler range's host and device time in a request whose
-               denoise is cut to `T23D_PROFILE_STEPS` steps.
+               a profile of 2 denoise steps and, with `profile`, the host
+               and device time of the ranges `t23d.embed` and
+               `t23d.denoise` in a prompt embedding and a denoise cut to
+               `T23D_PROFILE_STEPS` steps (the decode's ranges are phase
+               `profile`'s, in its decode request).
   10. cli    — the command line on reference-format files at full width:
                the whole AnySplat encoder (fp32, the camera trick of
                phase 5), the Wan 2.1 VAE (fp32), UMT5-XXL and the Wan 1.3B
@@ -238,6 +241,40 @@ Phases, each of which passes or raises (any failure exits non-zero):
                Lanczos resizes), VAE-encode, run each forward, render,
                write and score, the seconds a refine step, and the peak
                memory.  Cut: random weights, synthetic scenes, 50 steps.
+  15. generation — the generation-quality evaluation from its command
+               line at full width (`drive_generation`): the Qwen2.5-VL-7B
+               judge (bf16, 7B `config.json`, 4 safetensors shards), CLIP
+               ViT-L/14 at 224² and LongCLIP-L (text context 248) as HF
+               CLIPModel folders (fp32, quick GELU, a synthetic vocab.json
+               + merges.txt), the aesthetic probe (768 → 1, `.npy`) and
+               MUSIQ-SPAQ (`.npz`), drawn on the card from a seed and
+               written in those layouts (the free disk read first), over
+               phase `cli`'s two request folders (prompt.txt, gs.mp4 of 133
+               orbit views at 448²; run alone, one request through
+               `inference_t23d.run` with the denoise cut to
+               `T23D_PROFILE_STEPS` steps).  Then `gen_eval.main(["t3",
+               ...])` with every scorer but the judge (8 frames a folder):
+               finite scores, CLIPScore and LongCLIP in [0, 100], the JSON
+               equal to the summary printed; `gen_eval.main(["dpg", ...])`
+               with the judge and a stand-in tokenizer (2 prompts × 3
+               questions, one depending on another, 2 frames: 12 judge
+               calls): `dpg_score` in [0, 100] and equal to a recomputation
+               from the recorded answers with the dependency zeroing, the
+               judge's every tensor equal to what was written; one
+               unified-reward call cut to 64 new tokens on one frame; no
+               kernel of the repo launched.  Card vs host CPU: the tiny
+               judge (fp32: the same greedy tokens, logits within 1e-4),
+               the 7B judge cut to 2 vision blocks and 2 text layers (bf16
+               vs fp32: the prefill's logits within
+               `GEN_NARROW_LOGITS_RTOL`), CLIPScore, LongCLIP, the
+               aesthetic score and MUSIQ at full width (fp32, TF32 off:
+               within 1e-4; CLIPScore and LongCLIP by their per-frame
+               cosines before the clamp at 0).  Logs the bytes and seconds written, read and
+               imported, the seconds per scorer per folder, the judge's
+               vision tower, prefill and per-token ms, the peak memory and
+               the launches.  Cut: random weights, stand-in tokenizer and
+               vocabularies, the unified-reward call (deployed: 1,024
+               tokens on each of 8 frames).
 The line before the last lists the kernels as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -248,6 +285,7 @@ import argparse
 import contextlib
 import copy
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -261,7 +299,7 @@ from pathlib import Path
 
 PHASES = ("device", "build", "kernels", "raster", "slice", "profile",
           "reference", "decode", "denoise", "cli", "train", "vdm",
-          "workflows", "evaluation")
+          "workflows", "evaluation", "generation")
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 (data sheet)
 PEAK_FP32_FLOPS = 67e12       # H100 SXM fp32 outside the tensor cores
 # fp32-accurate products on the TF32 tensor cores (495 TFLOP/s dense), each
@@ -461,11 +499,12 @@ DECODE_STAGES = ("decode.vae", "decode.resize", "decode.stitched",
                  "export.mp4_write", "export.ply")
 RENDER_STAGES = ("render.project_sh_table", "render.pairs",
                  "render.composite", "render.background")
-# a whole text→3DGS request: the prompt embedding and the denoise, then the
-# decode's stages
-T23D_STAGES = ("t23d.embed", "t23d.denoise", *DECODE_STAGES)
-# the denoise steps of phase `denoise`'s profiled request
-T23D_PROFILE_STEPS = 5
+# the stages of phase `denoise`'s profiled prompt embedding and denoise
+T23D_STAGES = ("t23d.embed", "t23d.denoise")
+# the denoise steps of phase `denoise`'s profiled prompt embedding and
+# denoise: the profile's event walk takes host time per launch (~2.5 s a
+# denoise step), and the profile `denoise_2_steps` covers the steps alone
+T23D_PROFILE_STEPS = 1
 PROMPT = "a red chair in a garden"
 # phase `cli`: two prompts, the second with a "/" that its folder name drops
 CLI_PROMPTS = (PROMPT, "a wooden boat on a calm lake, seen from bow/stern")
@@ -2021,17 +2060,19 @@ def phase_denoise(model, vae, profile: bool) -> dict:
         profile_call("denoise_2_steps", lambda: t23d.denoise(
             modules["dit"], cond, uncond, two, latents0=z))
         if profile:
-            # every stage of a request, the denoise cut to a few steps:
-            # the profile's event walk takes host time per launch, and a
-            # 50-step request launches ~221,000 kernels
+            # the request's own stages, the prompt embedding and the
+            # denoise cut to a few steps (the decode's and the export's
+            # are profile[decode]'s): the profile's event walk takes host
+            # time per launch, and a 50-step request launches ~221,000
+            # kernels
             short = dataclasses.replace(
                 cfg, num_inference_steps=T23D_PROFILE_STEPS)
-            profile_call(f"t23d_{T23D_PROFILE_STEPS}_steps",
-                         lambda: t23d.text_to_3dgs(
-                             modules, tokenize, PROMPT,
-                             os.path.join(tmp, "prof"), short,
-                             orbit_t=ORBIT_T),
-                         T23D_STAGES, RENDER_STAGES)
+
+            def embed_and_denoise():
+                c, u = t23d.embed_prompts(modules["umt5"], tokenize, PROMPT)
+                t23d.denoise(modules["dit"], c, u, short, latents0=z)
+            profile_call(f"t23d_embed_denoise_{T23D_PROFILE_STEPS}_steps",
+                         embed_and_denoise, T23D_STAGES)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return {"latency_ms": latency, "peak_bytes": peak, "launches": counts,
@@ -2195,7 +2236,7 @@ def write_weights_root(root: Path, src: dict, scfg, lora_cfg, gen) -> dict:
         files["umt5_xxl"] = manifests._fab_umt5(src["umt5"])
         files["wan_dit"] = manifests._fab_wan_dit(src["dit"])
     if "pick_vision" in src:
-        files["pickscore"] = manifests._fab_pickscore(
+        files["pickscore"] = manifests._fab_hf_clip_model(
             src["pick_vision"], src["pick_text"],
             torch.tensor(math.log(PICK_LOGIT_SCALE)))
         files["dfn5b"] = manifests._fab_dfn5b(src["pe_vision"],
@@ -2549,11 +2590,25 @@ def build_cli_sources(generator: bool = True) -> dict:
     return src
 
 
-def phase_cli() -> dict:
+def keep_scene_folders(results: Path) -> str:
+    """Each request folder's prompt.txt and gs.mp4 under `results`, copied
+    to a new temporary folder (phase `generation` scores them, then deletes
+    it)."""
+    keep = Path(tempfile.mkdtemp(prefix="vist3a_scenes_"))
+    for d in sorted(results.iterdir()):
+        if (d / "gs.mp4").is_file():
+            (keep / d.name).mkdir()
+            for f in ("prompt.txt", "gs.mp4"):
+                shutil.copy2(d / f, keep / d.name / f)
+    return str(keep)
+
+
+def phase_cli(keep_scenes: bool = False) -> dict:
     """`cli/inference_t23d.py::main` on full-width reference-format files:
     two prompts through the whole text→3DGS request, the files written from
     seeded modules (`drive_cli`), every check there, the times, the peak
-    memory and the launches."""
+    memory and the launches.  With `keep_scenes`, the requests' prompt.txt
+    and gs.mp4 outlive the phase (`keep_scene_folders`)."""
     import torch
 
     from vist3a_tpu_torch.nn import umt5
@@ -2577,6 +2632,8 @@ def phase_cli() -> dict:
                                        for k, v in per_request.items()})
         for prompt, r in res.pop("results"):
             log(f"cli: '{prompt}': {_check_summary(r, GAUSSIANS)}")
+        if keep_scenes:
+            res["scenes"] = keep_scene_folders(tmp / "results")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         del src
@@ -3503,16 +3560,20 @@ def measured_main(label: str, fn, args, *, device: str, timed: tuple = (),
     peak device memory from its start, the seconds spent reading files
     (`io/load_weights.py`) and in each of `timed` ((module, names) pairs).
     Returns (fn's result, {"seconds", "read_s", "calls": {name: [s]},
-    "peak_bytes", "launches"})."""
+    "peak_bytes", "start_bytes" (allocated when it began), "launches"})."""
     import torch
 
     from vist3a_tpu_torch.io import load_weights
 
     cuda = device == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
+    # what an earlier main left in reference cycles goes first, so the
+    # peak is this main's
+    gc.collect()
     if cuda:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+    start_bytes = torch.cuda.memory_allocated() if cuda else None
     _reset_counts()
     reads, calls = [], []
     t0 = time.perf_counter()
@@ -3529,10 +3590,12 @@ def measured_main(label: str, fn, args, *, device: str, timed: tuple = (),
             "calls": {n: [x for m, _, x in calls if m == n]
                       for _, names in timed for n in names},
             "peak_bytes": torch.cuda.max_memory_allocated() if cuda
-            else None, "launches": _vdm_counts()}
+            else None, "start_bytes": start_bytes,
+            "launches": _vdm_counts()}
     log(f"{phase}: {label}: {info['seconds']:.1f} s, read "
         f"{info['read_s']:.1f} s, peak memory allocated "
-        f"{info['peak_bytes']} B, launches {info['launches']}, calls "
+        f"{info['peak_bytes']} B (at its start {start_bytes} B), launches "
+        f"{info['launches']}, calls "
         + json.dumps({n: [round(x, 2) for x in v]
                       for n, v in info["calls"].items()}))
     return out, info
@@ -4356,6 +4419,758 @@ def phase_evaluation() -> dict:
     return res
 
 
+# --------------------------------------------------------------------------- #
+# phase `generation`: the generation-quality evaluation from its command line #
+# --------------------------------------------------------------------------- #
+# the special tokens of the Qwen2.5-VL tokenizer that the chat template
+# spells (the stand-in tokenizer gives them their ids)
+QWEN_SPECIALS = {"<|im_start|>": 151644, "<|im_end|>": 151645,
+                 "<|vision_start|>": 151652, "<|vision_end|>": 151653,
+                 "<|image_pad|>": 151655}
+QWEN_WORDS = 151643             # the ids below the special tokens
+GEN_SEED = 71
+GEN_NUM_FRAMES = 8              # `gen_eval t3`'s default --num_frames
+GEN_DPG_FRAMES = 2
+GEN_UR_TOKENS = 64              # the unified-reward call (deployed: 1,024)
+GEN_JUDGE_SHARDS = 4
+# DPG-Bench questions a prompt: (question, keyword tuple, dependency); the
+# second depends on the first
+GEN_DPG_QUESTIONS = (
+    ("is there {what}?", "entity - whole ({what})", "0"),
+    ("is {what} in the centre of the view?",
+     "relation - spatial ({what}, centre)", "1"),
+    ("is the scene seen in daylight?", "global - lighting (daylight)", "0"))
+GEN_SCORE_RTOL = 1e-4           # CLIP, aesthetic, MUSIQ: card vs host, fp32
+GEN_TINY_LOGITS_RTOL = 1e-4     # the tiny judge, fp32, of the largest logit
+# the full-width judge cut to 2 vision blocks and 2 text layers, bf16 on the
+# card against fp32 on the host: the prefill logits' largest difference over
+# their largest magnitude (0.0152 at the first run on the card, ~3× that)
+GEN_NARROW_LOGITS_RTOL = 0.05
+GEN_EXTRA_BYTES = 1 << 30
+
+
+def tiny_judge_configs():
+    """`tests/test_qwen_vl.py`'s VCFG / TCFG in the port's classes: 4 vision
+    blocks (1 and 3 full attention), 3 decoder layers of 4 query and 2 kv
+    heads, a 128-token vocabulary."""
+    from vist3a_tpu_torch.nn import qwen_vl
+
+    return (qwen_vl.QwenVLVisionConfig(
+        depth=4, hidden_size=64, intermediate_size=128, num_heads=4,
+        patch_size=2, spatial_merge_size=2, temporal_patch_size=2,
+        tokens_per_second=2, window_size=8, out_hidden_size=48,
+        fullatt_block_indexes=(1, 3)),
+        qwen_vl.QwenVLTextConfig(
+            vocab_size=128, hidden_size=48, intermediate_size=96,
+            num_layers=3, num_heads=4, num_kv_heads=2, rope_theta=1e6,
+            mrope_section=(2, 2, 2), rms_eps=1e-6, tie_embeddings=False,
+            image_token_id=120, video_token_id=121,
+            vision_start_token_id=122, eos_token_ids=()))
+
+
+class StandInQwenTokenizer:
+    """A stand-in for the Qwen2.5-VL tokenizer (its files are not in the
+    repository, and the card machine has no `transformers`): the chat
+    template's special tokens to their ids, every other word or symbol to
+    an id below `n_words` seeded by its text.  An answer decodes to "Yes"
+    or "No" by the parity of its first id, so a judge with random weights
+    answers DPG's questions both ways."""
+
+    def __init__(self, specials: dict, n_words: int):
+        import re
+
+        self.specials = dict(specials)
+        self.n_words = n_words
+        self.pattern = re.compile("|".join(map(re.escape, specials))
+                                  + r"|\w+|[^\s\w]")
+
+    def __call__(self, text, add_special_tokens=False):
+        return {"input_ids": [
+            self.specials.get(t, zlib.crc32(t.encode()) % self.n_words)
+            for t in self.pattern.findall(text)]}
+
+    def decode(self, ids, skip_special_tokens=True):
+        special = set(self.specials.values())
+        ids = [i for i in ids if not (skip_special_tokens and i in special)]
+        return ("Yes" if ids[0] % 2 == 0 else "No") if ids else ""
+
+
+def qwen_config_json(vcfg, tcfg, dtype: str = "bfloat16") -> dict:
+    """A Qwen2.5-VL `config.json` in HF's layout (the text fields at the top
+    level, the vision tower's under `vision_config`)."""
+    return {
+        "architectures": ["Qwen2_5_VLForConditionalGeneration"],
+        "model_type": "qwen2_5_vl", "torch_dtype": dtype,
+        "vocab_size": tcfg.vocab_size, "hidden_size": tcfg.hidden_size,
+        "intermediate_size": tcfg.intermediate_size,
+        "num_hidden_layers": tcfg.num_layers,
+        "num_attention_heads": tcfg.num_heads,
+        "num_key_value_heads": tcfg.num_kv_heads,
+        "rope_theta": tcfg.rope_theta, "rms_norm_eps": tcfg.rms_eps,
+        "rope_scaling": {"type": "mrope",
+                         "mrope_section": list(tcfg.mrope_section)},
+        "tie_word_embeddings": tcfg.tie_embeddings,
+        "image_token_id": tcfg.image_token_id,
+        "video_token_id": tcfg.video_token_id,
+        "vision_start_token_id": tcfg.vision_start_token_id,
+        "eos_token_id": list(tcfg.eos_token_ids),
+        "vision_config": {
+            "depth": vcfg.depth, "hidden_size": vcfg.hidden_size,
+            "intermediate_size": vcfg.intermediate_size,
+            "num_heads": vcfg.num_heads, "in_chans": vcfg.in_channels,
+            "patch_size": vcfg.patch_size,
+            "spatial_merge_size": vcfg.spatial_merge_size,
+            "temporal_patch_size": vcfg.temporal_patch_size,
+            "tokens_per_second": vcfg.tokens_per_second,
+            "window_size": vcfg.window_size,
+            "out_hidden_size": vcfg.out_hidden_size,
+            "fullatt_block_indexes": list(vcfg.fullatt_block_indexes)}}
+
+
+def clip_config_json(vcfg, tcfg) -> dict:
+    """An HF `CLIPModel` `config.json` for a vision and a text config."""
+    return {
+        "architectures": ["CLIPModel"], "model_type": "clip",
+        "projection_dim": vcfg.projection_dim,
+        "vision_config": {
+            "hidden_size": vcfg.hidden_size,
+            "num_hidden_layers": vcfg.num_layers,
+            "num_attention_heads": vcfg.num_heads,
+            "intermediate_size": vcfg.mlp_dim,
+            "patch_size": vcfg.patch_size, "image_size": vcfg.image_size,
+            "hidden_act": vcfg.act, "projection_dim": vcfg.projection_dim},
+        "text_config": {
+            "hidden_size": tcfg.hidden_size,
+            "num_hidden_layers": tcfg.num_layers,
+            "num_attention_heads": tcfg.num_heads,
+            "intermediate_size": tcfg.mlp_dim,
+            "vocab_size": tcfg.vocab_size,
+            "max_position_embeddings": tcfg.context_length,
+            "hidden_act": tcfg.act, "projection_dim": tcfg.projection_dim}}
+
+
+def draw_judge(vcfg, tcfg, dtype, device: str = "cuda") -> dict:
+    """The Qwen2.5-VL judge's two modules with random weights drawn on
+    `device` in `dtype` from `GEN_SEED`: the same values at every call."""
+    import torch
+
+    from vist3a_tpu_torch.nn import qwen_vl
+
+    gen = torch.Generator(device=device).manual_seed(GEN_SEED)
+    return {"judge_vision": qwen_vl.vision_init(vcfg, gen, device, dtype),
+            "judge_text": qwen_vl.text_init(tcfg, gen, device, dtype)}
+
+
+def build_generation_sources(device: str = "cuda", *, judge=None,
+                             clip_cfgs=None, judge_dtype=None) -> dict:
+    """The scorers' models with random weights drawn on `device` from
+    seeds: the Qwen2.5-VL judge (`draw_judge`; by default the 7B configs
+    in bf16), left on `device`, and, moved to the host, CLIP ViT-L/14 and
+    LongCLIP-L (each a vision and a text tower, fp32; by default
+    `CLIP_L_224`, `CLIP_L_TEXT` and `LONGCLIP_L_TEXT`), the aesthetic
+    probe's 768 → 1 head and MUSIQ (fp32, the SPAQ config: the CLI loads
+    no other)."""
+    import torch
+
+    from vist3a_tpu_torch.eval import musiq, scorers
+    from vist3a_tpu_torch.nn import clip, qwen_vl
+
+    cv, ct, lt = clip_cfgs or (scorers.CLIP_L_224, clip.CLIP_L_TEXT,
+                               clip.LONGCLIP_L_TEXT)
+    src = draw_judge(*(judge or (qwen_vl.QWEN25_VL_7B_VISION,
+                                 qwen_vl.QWEN25_VL_7B_TEXT)),
+                     judge_dtype or torch.bfloat16, device)
+    gen = torch.Generator(device=device).manual_seed(GEN_SEED + 3)
+    for name, fn, cfg, dtype in (
+            ("clip_vision", clip.init, cv, torch.float32),
+            ("clip_text", clip.text_init, ct, torch.float32),
+            ("long_vision", clip.init, cv, torch.float32),
+            ("long_text", clip.text_init, lt, torch.float32),
+            ("musiq", musiq.init, musiq.MUSIQConfig(), torch.float32)):
+        src[name] = fn(cfg, gen, device=device, dtype=dtype).to("cpu")
+    d = cv.projection_dim
+    src["aesthetic"] = {
+        "weight": (torch.randn(1, d, generator=gen, device=device)
+                   * d ** -0.5).cpu(),
+        "bias": torch.randn(1, generator=gen, device=device).cpu()}
+    src["logit_scale"] = torch.tensor(math.log(100.0))
+    return src
+
+
+def write_generation_root(root: Path, src: dict, texts) -> dict:
+    """The scorers' files in their released layouts under `root`: `judge/`
+    (an HF Qwen2.5-VL folder: config.json and `GEN_JUDGE_SHARDS` safetensors
+    shards with their index), `clip/` and `longclip/` (HF CLIPModel folders:
+    config.json, model.safetensors, a synthetic vocab.json + merges.txt
+    spelling `texts`), `aesthetic.npy` ({"weight", "bias"}) and
+    `musiq.npz`.  Returns the bytes of each."""
+    import numpy as np
+
+    from vist3a_tpu_torch.eval import musiq
+    from vist3a_tpu_torch.io import manifests
+
+    out = {}
+    judge = root / "judge"
+    judge.mkdir(parents=True)
+    (judge / "config.json").write_text(json.dumps(qwen_config_json(
+        src["judge_vision"].cfg, src["judge_text"].cfg,
+        str(src["judge_text"].embed.dtype).split(".")[-1])))
+    out["judge"] = write_sharded(judge, manifests._fab_qwen_vl(
+        src["judge_vision"], src["judge_text"]), GEN_JUDGE_SHARDS)
+    for name, vis, txt in (("clip", "clip_vision", "clip_text"),
+                           ("longclip", "long_vision", "long_text")):
+        folder = root / name
+        folder.mkdir()
+        (folder / "config.json").write_text(json.dumps(clip_config_json(
+            src[vis].cfg, src[txt].cfg)))
+        vocab = write_clip_tokenizer(folder, texts)
+        check(vocab <= src[txt].cfg.vocab_size,
+              f"generation: {vocab} tokens for a {src[txt].cfg.vocab_size}"
+              " vocabulary")
+        out[name] = write_safetensors(
+            folder / "model.safetensors", manifests._fab_hf_clip_model(
+                src[vis], src[txt], src["logit_scale"]))
+    np.save(root / "aesthetic.npy", {k: v.numpy() for k, v in
+                                     src["aesthetic"].items()})
+    musiq.save_musiq_npz(root / "musiq.npz", musiq.params_tree(src["musiq"]))
+    for name in ("aesthetic.npy", "musiq.npz"):
+        out[name] = (root / name).stat().st_size
+    return out
+
+
+def dpg_csv(path: Path, prompts) -> list:
+    """A DPG-Bench CSV: `GEN_DPG_QUESTIONS` for each prompt; returns its
+    rows."""
+    import csv
+
+    rows = [{"item_id": str(i), "text": p,
+             "question": q.format(what=f"the scene of '{p}'"),
+             "keyword": k.format(what=p.split()[1] if len(p.split()) > 1
+                                 else p),
+             "dependency": dep, "proposition_id": str(j + 1)}
+            for i, p in enumerate(prompts)
+            for j, (q, k, dep) in enumerate(GEN_DPG_QUESTIONS)]
+    with open(path, "w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=list(rows[0]))
+        w.writeheader()
+        w.writerows(rows)
+    return rows
+
+
+def dpg_expected(rows: list, answers: list, prompts: list,
+                 n_frames: int) -> dict:
+    """DPG-Bench's scores recomputed from the judge's recorded answers (in
+    call order: prompt, frame, question), written out here apart from
+    `eval/gen_eval.py`: per frame a question scores 1 for "Yes", then, in
+    question order, one with a parent (other than 0) scoring 0 is zeroed;
+    a prompt's score is the mean over questions, then over frames; the
+    categories take each question's last-frame answer before zeroing (as
+    the reference does).  Also counts the "Yes" answers zeroed."""
+    import numpy as np
+
+    it = iter(answers)
+    per_prompt, cats, zeroed = [], {}, 0
+    for p in prompts:
+        qs = [r for r in rows if r["text"] == p]
+        frame_scores, orig = [], {}
+        for _ in range(n_frames):
+            orig = {int(r["proposition_id"]): float(next(it) == "Yes")
+                    for r in qs}
+            s = dict(orig)
+            for r in qs:
+                q = int(r["proposition_id"])
+                parents = [int(d) for d in r["dependency"].split(",")]
+                if any(d != 0 and s.get(d, 1) == 0 for d in parents):
+                    zeroed += s[q] == 1.0
+                    s[q] = 0
+            frame_scores.append(sum(s.values()) / len(s))
+        per_prompt.append(sum(frame_scores) / len(frame_scores))
+        for r in qs:
+            cat = r["keyword"].split("(")[0].strip()
+            cats.setdefault(cat, []).append(orig[int(r["proposition_id"])])
+    l1 = {}
+    for c, v in cats.items():
+        l1.setdefault(c.split("-")[0].strip(), []).extend(v)
+    return {"dpg_score": float(np.mean(per_prompt) * 100),
+            "l1": {k: float(np.mean(v) * 100) for k, v in l1.items()},
+            "l2": {k: float(np.mean(v) * 100) for k, v in sorted(cats.items())},
+            "zeroed": int(zeroed)}
+
+
+@contextlib.contextmanager
+def judge_timings(store: dict, sync):
+    """Wrap `nn/qwen_vl.py`'s `vision_features` and `text_forward`: each
+    call's seconds (after `sync()`) go to store["vision"] and, with the
+    number of tokens it ran, to store["text"]; restored on exit."""
+    from vist3a_tpu_torch.nn import qwen_vl
+
+    saved = qwen_vl.vision_features, qwen_vl.text_forward
+    store.setdefault("vision", [])
+    store.setdefault("text", [])
+
+    def vision(*a, **k):
+        sync()
+        t0 = time.perf_counter()
+        out = saved[0](*a, **k)
+        sync()
+        store["vision"].append(time.perf_counter() - t0)
+        return out
+
+    def text(model, embeds, *a, **k):
+        sync()
+        t0 = time.perf_counter()
+        out = saved[1](model, embeds, *a, **k)
+        sync()
+        store["text"].append((embeds.shape[0], time.perf_counter() - t0))
+        return out
+    qwen_vl.vision_features, qwen_vl.text_forward = vision, text
+    try:
+        yield store
+    finally:
+        qwen_vl.vision_features, qwen_vl.text_forward = saved
+
+
+def judge_summary(store: dict) -> dict:
+    """Judge calls from `judge_timings`: the vision tower's, the prefills'
+    and the decode steps' ms."""
+    import numpy as np
+
+    pre = [s for n, s in store["text"] if n > 1]
+    steps = [s for n, s in store["text"] if n == 1]
+    return {"calls": len(store["vision"]),
+            "vision_ms": [round(s * 1e3, 2) for s in store["vision"]],
+            "prefill_tokens": [n for n, _ in store["text"] if n > 1],
+            "prefill_ms": [round(s * 1e3, 2) for s in pre],
+            "decode_steps": len(steps),
+            "ms_per_token": float(np.mean(steps) * 1e3) if steps else None}
+
+
+def _run_main(label: str, argv: list, *, device: str, tokenizer=None,
+              extra=()) -> tuple:
+    """`cli/gen_eval.py::main(argv)` with the launch counts reset before
+    it, its printed output captured and logged, the peak device memory
+    from its start, the seconds reading files and in `extra` ((module,
+    names) pairs).  Returns (its result, what it printed, info)."""
+    import io
+
+    from vist3a_tpu_torch.cli import gen_eval as cli
+
+    printed = io.StringIO()
+
+    def call(a, device):
+        with contextlib.redirect_stdout(printed):
+            return cli.main(a, tokenizer, device=device)
+    result, info = measured_main(label, call, argv, device=device,
+                                 timed=extra, phase="generation")
+    log(f"generation: {label} printed {' '.join(printed.getvalue().split())}")
+    return result, printed.getvalue(), info
+
+
+def drive_generation(src: dict, tmp: Path, scenes: Path, *,
+                     device: str = "cuda", tokenizer=None,
+                     num_frames: int = GEN_NUM_FRAMES,
+                     dpg_frames: int = GEN_DPG_FRAMES,
+                     ur_tokens: int = GEN_UR_TOKENS) -> dict:
+    """Write the scorers' files from the source modules `src` under
+    `tmp/weights` (the judge's are dropped from `src` once written, and
+    drawn again for the check), then run `cli/gen_eval.py::main` over the
+    {prompt.txt, gs.mp4} folders under `scenes`: `t3` with every scorer
+    but the judge (random weights never write a parseable score line),
+    `dpg` with the judge and `tokenizer` (2 frames a folder, 3 questions a
+    prompt, one depending on another), then one unified-reward call on one
+    frame with `ur_tokens` new tokens.  Checks the scores, the files, the
+    judge's weights as written, the dependency zeroing and that no kernel
+    of the repo launched."""
+    import numpy as np
+    import torch
+
+    from vist3a_tpu_torch.cli import gen_eval as cli
+    from vist3a_tpu_torch.eval import gen_eval, qwen_judge
+
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    folders = gen_eval.discover_prompt_folders(scenes)
+    prompts = [p for _, p in folders]
+    check(folders, f"generation: no prompt folders under {scenes}")
+    root, out = tmp / "weights", tmp / "results"
+    root.mkdir(parents=True)
+    out.mkdir()
+    t0 = time.perf_counter()
+    written = write_generation_root(root, src, prompts)
+    write_s = time.perf_counter() - t0
+    judge_cfgs = (src["judge_vision"].cfg, src["judge_text"].cfg,
+                  src["judge_text"].embed.dtype)
+    del src["judge_vision"], src["judge_text"]
+    if cuda:
+        torch.cuda.empty_cache()
+    log(f"generation: files written in {write_s:.1f} s "
+        f"({json.dumps(written)} B)")
+
+    # t3: CLIPScore, LongCLIP, aesthetic, MUSIQ, each call timed
+    t3_path = out / "t3.json"
+    scorer_s, build = {}, cli.build_scorers
+
+    def timed_build(*a, **k):
+        def timed(name, fn):
+            def call(*x):
+                sync()
+                t0 = time.perf_counter()
+                v = fn(*x)
+                sync()
+                scorer_s.setdefault(name, []).append(time.perf_counter() - t0)
+                return v
+            return call
+        return {n: timed(n, f) for n, f in build(*a, **k).items()}
+    cli.build_scorers = timed_build
+    try:
+        t3, printed, t3_info = _run_main("gen_eval t3", [
+            "t3", "--folder_path", str(scenes), "--eval_save_path",
+            str(t3_path), "--num_frames", str(num_frames), "--clip_path",
+            str(root / "clip"), "--longclip_path", str(root / "longclip"),
+            "--aesthetic_probe", str(root / "aesthetic.npy"),
+            "--musiq_weights", str(root / "musiq.npz")], device=device,
+            extra=((gen_eval, ("sample_video_frames",)),))
+    finally:
+        cli.build_scorers = build
+    check(json.loads(t3_path.read_text()) == t3, "generation: t3 JSON")
+    check(json.loads(printed) == t3["summary"],
+          "generation: t3 printed summary != the JSON's")
+    check([r["prompt"] for r in t3["per_prompt"]] == prompts,
+          f"generation: t3 rows {[r['prompt'] for r in t3['per_prompt']]}")
+    for row in t3["per_prompt"]:
+        scores = {k: row[k] for k in ("clip", "longclip", "aesthetic",
+                                      "musiq")}
+        check(all(np.isfinite(v) for v in scores.values()),
+              f"generation: non-finite {scores}")
+        check(all(0.0 <= row[k] <= 100.0 for k in ("clip", "longclip")),
+              f"generation: CLIP scores {scores} outside [0, 100]")
+
+    # dpg: the 7B judge's VQA
+    csv_path = tmp / "dpg.csv"
+    rows = dpg_csv(csv_path, prompts)
+    answers, store, timings = [], {}, {}
+    make_vqa = qwen_judge.make_vqa_judge
+
+    def recording_vqa(*a, **k):
+        vqa = make_vqa(*a, **k)
+
+        def recorded(image, question):
+            answers.append(vqa(image, question))
+            return answers[-1]
+        return recorded
+    qwen_judge.make_vqa_judge = recording_vqa
+    try:
+        with captured(qwen_judge, "load_judge", store), \
+                judge_timings(timings, sync):
+            dpg, _, dpg_info = _run_main("gen_eval dpg", [
+                "dpg", "--folder_path", str(scenes), "--csv", str(csv_path),
+                "--res_path", str(out / "dpg.json"), "--num_frames",
+                str(dpg_frames), "--model-path", str(root / "judge")],
+                device=device, tokenizer=tokenizer,
+                extra=((qwen_judge, ("load_judge",)),))
+    finally:
+        qwen_judge.make_vqa_judge = make_vqa
+    check(json.loads((out / "dpg.json").read_text()) == dpg,
+          "generation: dpg JSON")
+    check(0.0 <= dpg["dpg_score"] <= 100.0,
+          f"generation: dpg_score {dpg['dpg_score']}")
+    check(len(answers) == len(rows) * dpg_frames,
+          f"generation: {len(answers)} judge calls")
+    want = dpg_expected(rows, answers, prompts, dpg_frames)
+    zeroed = want.pop("zeroed")
+    check(want == {k: dpg[k] for k in want},
+          f"generation: dpg {dpg} != the recomputation {want}")
+    dpg_judge = judge_summary(timings)
+    vis, txt, tok, _, _ = store.pop("load_judge")[2]
+
+    # one unified-reward call, cut to `ur_tokens` new tokens
+    judge = qwen_judge.make_unified_reward_judge(vis, txt, tok,
+                                                 max_new_tokens=ur_tokens)
+    frame = gen_eval.sample_video_frames(folders[0][0] / "gs.mp4", 1)[0]
+    timings = {}
+    _reset_counts()
+    with judge_timings(timings, sync):
+        t0 = time.perf_counter()
+        text = judge([frame], prompts[0])
+        sync()
+        ur_s = time.perf_counter() - t0
+    ur = {**judge_summary(timings), "seconds": ur_s, "answer": text}
+    check(_vdm_counts() == dict.fromkeys(_vdm_counts(), 0),
+          f"generation: unified reward launched {_vdm_counts()}")
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    # the loaded judge against the written values, drawn again
+    want = draw_judge(*judge_cfgs, device)
+    n_judge = sum(same_values(f"judge {k}", m.state_dict(),
+                              want[f"judge_{k}"].state_dict())
+                  for k, m in (("vision", vis), ("text", txt)))
+    del vis, txt, judge, want
+    if cuda:
+        torch.cuda.empty_cache()
+    # the t3 main's scorers run in fp32, the dpg main's judge in bf16
+    launches = {"generation_fp32": t3_info["launches"],
+                "generation_bf16": dpg_info["launches"]}
+    check(all(v == 0 for c in launches.values() for v in c.values()),
+          f"generation: the mains launched {launches}")
+    return {"write_s": write_s, "bytes": written, "t3": t3,
+            "t3_info": t3_info, "scorer_s": scorer_s, "dpg": dpg,
+            "dpg_info": dpg_info, "dpg_judge": dpg_judge,
+            "dpg_zeroed": zeroed,
+            "answers": answers, "unified_reward": ur,
+            "judge_tensors_compared": n_judge, "peak_bytes": peak,
+            "launches": launches}
+
+
+def clip_cosines(vision, text_fn, frames, prompt: str):
+    """The per-frame cosines of `scorers.make_clip_scorer(vision, text_fn)`
+    before its clamp at 0, as a float64 numpy vector."""
+    import torch
+
+    from vist3a_tpu_torch.eval import scorers
+    from vist3a_tpu_torch.nn import clip as clip_mod
+
+    px = scorers._frames_to_clip_input(frames, vision.cfg.image_size,
+                                       vision.patch.device)
+    with torch.no_grad():
+        img = clip_mod.image_features(vision, px)
+    txt = torch.as_tensor(text_fn(prompt)).to(img).reshape(-1)
+    return (img @ (txt / torch.linalg.vector_norm(txt))).double().cpu().numpy()
+
+
+def generation_reference(scenes: Path, root: Path) -> dict:
+    """Card against host CPU: (1) the tiny judge of `tiny_judge_configs`
+    (fp32): the greedy tokens identical, the logits within
+    `GEN_TINY_LOGITS_RTOL` of their largest; (2) the 7B judge cut to 2
+    vision blocks (the second full attention) and 2 text layers, bf16 on
+    the card and fp32 on the host, on a frame of `scenes`: the prefill's
+    last logits within `GEN_NARROW_LOGITS_RTOL`; (3) CLIPScore, LongCLIP,
+    the aesthetic score and MUSIQ from the files under `root` on 2 frames,
+    fp32 (TF32 off) both sides: within `GEN_SCORE_RTOL`, CLIPScore and
+    LongCLIP by their per-frame cosines before the clamp at 0, relative
+    to the largest."""
+    import numpy as np
+    import torch
+
+    from vist3a_tpu_torch.cli import gen_eval as cli
+    from vist3a_tpu_torch.eval import gen_eval, qwen_judge, scorers
+    from vist3a_tpu_torch.eval.metrics import full_fp32
+    from vist3a_tpu_torch.nn import qwen_vl
+
+    def rel(a, b):
+        a, b = a.float().cpu(), b.float().cpu()
+        return float((a - b).abs().max() / b.abs().max())
+
+    res = {}
+    folder, prompt = gen_eval.discover_prompt_folders(scenes)[0]
+    frames = gen_eval.sample_video_frames(folder / "gs.mp4", 2)
+    with full_fp32():
+        # (1) the tiny judge
+        vcfg, tcfg = tiny_judge_configs()
+        gen = torch.Generator().manual_seed(GEN_SEED + 1)
+        host = (qwen_vl.vision_init(vcfg, gen, "cpu"),
+                qwen_vl.text_init(tcfg, gen, "cpu"))
+        card = tuple(copy.deepcopy(m).to("cuda") for m in host)
+        grid = (1, 8, 8)
+        patches = torch.randn(64, vcfg.patch_dim, generator=gen)
+        ids = np.asarray([5, 6, 7, 122] + [120] * 16 + [123, 9, 10, 11, 12])
+        pos, delta = qwen_vl.get_rope_index(ids, [grid], tcfg, vcfg)
+        out = {}
+        for side, (vis, txt), dev in (("host", host, "cpu"),
+                                      ("card", card, "cuda")):
+            with torch.no_grad():
+                img = qwen_vl.vision_features(vis, patches.to(dev), grid)
+                emb = qwen_vl.embed_tokens(txt, torch.from_numpy(ids), img)
+                logits = qwen_vl.text_forward(txt, emb,
+                                              torch.from_numpy(pos))[0]
+            out[side] = (logits, qwen_vl.greedy_generate(
+                txt, ids, img, pos, delta, max_new_tokens=8))
+        res["tiny"] = {"logits_rel": rel(out["card"][0], out["host"][0]),
+                       "tokens_card": out["card"][1],
+                       "tokens_host": out["host"][1]}
+        check(out["card"][1] == out["host"][1]
+              and res["tiny"]["logits_rel"] <= GEN_TINY_LOGITS_RTOL,
+              f"generation: tiny judge card vs host {res['tiny']}")
+
+        # (2) the full-width judge, cut
+        vcfg = dataclasses.replace(qwen_vl.QWEN25_VL_7B_VISION, depth=2,
+                                   fullatt_block_indexes=(1,))
+        tcfg = dataclasses.replace(qwen_vl.QWEN25_VL_7B_TEXT, num_layers=2)
+        gen = torch.Generator(device="cuda").manual_seed(GEN_SEED + 2)
+        card = (qwen_vl.vision_init(vcfg, gen, "cuda"),
+                qwen_vl.text_init(tcfg, gen, "cuda"))
+        host = tuple(copy.deepcopy(m).to("cpu") for m in card)
+        card = tuple(m.to(torch.bfloat16) for m in card)
+        patches, grid = qwen_judge.preprocess_image(frames[0], vcfg)
+        tok = StandInQwenTokenizer(QWEN_SPECIALS, QWEN_WORDS)
+        ids = qwen_judge.build_chat_ids(tok, qwen_judge.VQA_WRAPPER.format(
+            question=f"is there {prompt}?"), patches.shape[0] // 4)
+        pos, _ = qwen_vl.get_rope_index(ids, [grid], tcfg, vcfg)
+        out = {}
+        for side, (vis, txt), dev in (("host", host, "cpu"),
+                                      ("card", card, "cuda")):
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                img = qwen_vl.vision_features(
+                    vis, torch.from_numpy(patches).to(dev), grid)
+                emb = qwen_vl.embed_tokens(txt, torch.from_numpy(ids), img)
+                logits = qwen_vl.text_forward(txt, emb, torch.from_numpy(pos),
+                                              last_only=True)[0]
+            out[side] = (img, logits, time.perf_counter() - t0)
+        res["narrow"] = {"tokens": len(ids), "patches": patches.shape[0],
+                         "vision_rel": rel(out["card"][0], out["host"][0]),
+                         "logits_rel": rel(out["card"][1], out["host"][1]),
+                         "argmax_card": int(out["card"][1].argmax()),
+                         "argmax_host": int(out["host"][1].argmax()),
+                         "host_s": out["host"][2]}
+        del card, host, out
+        torch.cuda.empty_cache()
+        check(res["narrow"]["logits_rel"] <= GEN_NARROW_LOGITS_RTOL,
+              f"generation: cut judge card vs host {res['narrow']}")
+
+        # (3) the scorers from the files
+        args = cli.t3_argument().parse_args([
+            "--folder_path", str(scenes), "--clip_path", str(root / "clip"),
+            "--longclip_path", str(root / "longclip"),
+            "--aesthetic_probe", str(root / "aesthetic.npy"),
+            "--musiq_weights", str(root / "musiq.npz")])
+        scores, cosines = {}, {}
+        make_clip = scorers.make_clip_scorer
+        for dev in ("cuda", "cpu"):
+            towers = []
+
+            def keeping(vision, text_fn):
+                towers.append((vision, text_fn))
+                return make_clip(vision, text_fn)
+            scorers.make_clip_scorer = keeping
+            try:
+                fns = cli.build_scorers(args, device=dev)
+            finally:
+                scorers.make_clip_scorer = make_clip
+            t0 = time.perf_counter()
+            scores[dev] = {
+                "clip": fns["clip"](frames, prompt),
+                "longclip": fns["longclip"](frames, prompt),
+                "aesthetic": fns["aesthetic"](frames),
+                "musiq": fns["musiq"](frames)}
+            scores[dev]["seconds"] = time.perf_counter() - t0
+            # CLIPScore and LongCLIP clamp each frame's cosine at 0: the
+            # cosines before the clamp are what the two sides compare
+            cosines[dev] = {k: clip_cosines(vision, text_fn, frames, prompt)
+                            for k, (vision, text_fn)
+                            in zip(("clip", "longclip"), towers)}
+            del fns, towers
+        res["scores"] = {
+            k: {"card": scores["cuda"][k], "host": scores["cpu"][k],
+                "rel": abs(scores["cuda"][k] - scores["cpu"][k])
+                / abs(scores["cpu"][k])}
+            for k in ("aesthetic", "musiq")}
+        for k in ("clip", "longclip"):
+            card, host = cosines["cuda"][k], cosines["cpu"][k]
+            res["scores"][k] = {
+                "card": scores["cuda"][k], "host": scores["cpu"][k],
+                "cos_card": card.tolist(), "cos_host": host.tolist(),
+                "rel": float(np.abs(card - host).max()
+                             / np.abs(host).max())}
+        res["scores_s"] = {k: scores[k]["seconds"] for k in scores}
+    log(f"generation: card vs host CPU {json.dumps(res)}")
+    check(all(v["rel"] <= GEN_SCORE_RTOL for v in res["scores"].values()),
+          f"generation: scorers card vs host {res['scores']}")
+    return res
+
+
+def scene_folders(out_dir: Path) -> Path:
+    """One text→3DGS request through the CLI's request loop
+    `cli/inference_t23d.py::run` (what `main` runs once it has loaded its
+    files) on modules drawn from seeds, the denoise cut to
+    `T23D_PROFILE_STEPS` steps as phase `denoise`'s profiled request is:
+    one {prompt.txt, gs.mp4, ...} folder under `out_dir`."""
+    import torch
+
+    from vist3a_tpu_torch.cli import inference_t23d
+    from vist3a_tpu_torch.pipelines import t23d
+
+    cfg = dataclasses.replace(t23d.T23DConfig(),
+                              num_inference_steps=T23D_PROFILE_STEPS)
+    modules = {**build_generator(cfg), "vae": build_vae(),
+               "stitched": build_stitched()}
+    t0 = time.perf_counter()
+    results = inference_t23d.run(modules, fake_tokenizer(cfg.umt5), [PROMPT],
+                                 str(out_dir), cfg)
+    log(f"generation: one {T23D_PROFILE_STEPS}-step request for its scene "
+        f"in {time.perf_counter() - t0:.1f} s: "
+        f"{_check_summary(results[0][1], GAUSSIANS)}")
+    del modules
+    torch.cuda.empty_cache()
+    return out_dir
+
+
+def phase_generation(scenes: str | None = None) -> dict:
+    """`cli/gen_eval.py::main` (t3 and dpg) at full width on the scorers'
+    released layouts written from seeded modules (`drive_generation`; the
+    free disk read first, everything deleted after), over phase `cli`'s two
+    request folders (`scenes`) or, when that phase did not run, one
+    request's folder (`scene_folders`); then the card against the host
+    (`generation_reference`)."""
+    import torch
+
+    torch.cuda.empty_cache()
+    tmp = Path(tempfile.mkdtemp(prefix="vist3a_generation_"))
+    try:
+        if scenes is None:
+            scenes = scene_folders(tmp / "scenes")
+        t0 = time.perf_counter()
+        src = build_generation_sources()
+        built_s = time.perf_counter() - t0
+        params = {k: sum(p.numel() for p in m.parameters())
+                  for k, m in src.items() if hasattr(m, "parameters")}
+        need = sum(p.numel() * p.element_size() for m in src.values()
+                   if hasattr(m, "parameters")
+                   for p in m.parameters()) + GEN_EXTRA_BYTES
+        log(f"generation: sources drawn on the card in {built_s:.1f} s (the "
+            f"judge kept there, the rest moved to the host): "
+            f"{json.dumps(params)} parameters; the judge "
+            f"{params['judge_vision'] + params['judge_text']}")
+        free = shutil.disk_usage(tmp).free
+        check(free >= CLI_DISK_FACTOR * need,
+              f"generation: {free} B free under {tmp}; the files need about "
+              f"{need} B (×{CLI_DISK_FACTOR} asked)")
+        res = drive_generation(
+            src, tmp, Path(scenes),
+            tokenizer=StandInQwenTokenizer(QWEN_SPECIALS, QWEN_WORDS))
+        del src
+        res["reference"] = generation_reference(Path(scenes),
+                                                tmp / "weights")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        if scenes is not None:
+            shutil.rmtree(scenes, ignore_errors=True)
+        torch.cuda.empty_cache()
+    res["params"] = params
+    t3i, dpgi = res["t3_info"], res["dpg_info"]
+    calls = t3i["calls"]["sample_video_frames"]
+    log(f"generation: t3 main {t3i['seconds']:.1f} s (read "
+        f"{t3i['read_s']:.1f} s, frames {sum(calls):.2f} s over "
+        f"{len(calls)} folders), peak {t3i['peak_bytes']} B; seconds per "
+        f"scorer per folder " + json.dumps(
+            {k: [round(x, 3) for x in v] for k, v in res["scorer_s"].items()})
+        + f"; summary {json.dumps(res['t3']['summary'])}")
+    load_s = dpgi["calls"]["load_judge"][0]
+    log(f"generation: dpg main {dpgi['seconds']:.1f} s (the judge's "
+        f"{res['bytes']['judge']} B written in {res['write_s']:.1f} s with "
+        f"the other files, read in {dpgi['read_s']:.1f} s, imported and "
+        f"placed in {load_s - dpgi['read_s']:.1f} s), peak "
+        f"{dpgi['peak_bytes']} B; "
+        f"dpg_score {res['dpg']['dpg_score']}, l1 "
+        f"{json.dumps(res['dpg']['l1'])}; answers {res['answers']}; "
+        f"children zeroed {res['dpg_zeroed']}; judge "
+        f"{json.dumps(res['dpg_judge'])}")
+    log(f"generation: unified reward {json.dumps(res['unified_reward'])}; "
+        f"judge tensors equal to what was written "
+        f"{res['judge_tensors_compared']}; peak {res['peak_bytes']} B; "
+        f"launches of the repo's kernels on the mains "
+        f"{json.dumps(res['launches'])}")
+    return res
+
+
 def _kernel_entries(timed: dict, raster: list | None,
                     launches: dict) -> list:
     """One entry per kernel entry point, each timed at its main-path
@@ -4365,9 +5180,11 @@ def _kernel_entries(timed: dict, raster: list | None,
     decode, the stitched-decoder slice and the VDM steps that did; for the fp32 forward and the fp32 backward the two
     distillation steps of phase `train`; for the bf16 backward (kernels 4b
     and 5) and the composite backward (kernel 7) the two VDM steps of phase
-    `vdm`.  `launches_by_path` has each path's; phases `workflows` and
+    `vdm`.  `launches_by_path` has each path's; phases `workflows`,
     `evaluation` (the NVS main and the post-optimisation: rows 1 bf16, 2,
-    6 and kernel 7) add theirs.  The masked flash entry's
+    6 and kernel 7) and `generation` (the gen_eval mains, none: the t3
+    main's fp32 scorers as `generation_fp32`, the dpg main's bf16 judge
+    as `generation_bf16`) add theirs.  The masked flash entry's
     top-level numbers are those of the global shape, which holds 24 of its
     48 launches and ~92 % of its FLOPs, the natural entry's those of the
     1.3B DiT (the 14B heads are in `shapes`), the fp32 entries' those of the
@@ -4375,7 +5192,7 @@ def _kernel_entries(timed: dict, raster: list | None,
     at S = 13 and kernel 5's those of the re-evaluation (6, 4096, 12, 128),
     and `shapes` carries every measured shape; the composites' are those of
     the first raster view, and `views` carries each view's."""
-    added = ("workflows", "evaluation")
+    added = ("workflows", "evaluation", "generation")
 
     def count(counter, paths):
         by_path = {path: c[counter] for path, c in launches.items()
@@ -4390,7 +5207,7 @@ def _kernel_entries(timed: dict, raster: list | None,
         return main, by_path
 
     bf16_paths = ("cli", "denoise", "decode", "slice", "vdm",
-                  "workflows_bf16", "evaluation")
+                  "workflows_bf16", "evaluation", "generation_bf16")
     shape_keys = ("case", "shape", "kernel_ms", "plain_ms", "bound_ms",
                   "library_ms", "max_abs_err_o", "o_excess",
                   "max_abs_err_lse")
@@ -4424,7 +5241,8 @@ def _kernel_entries(timed: dict, raster: list | None,
                  "fwd"),
                 ("flash_attention_bwd", F32_BWD_SOURCE, 397, "backward",
                  "bwd")):
-            main, by_path = count(counter, ("train", "workflows_fp32"))
+            main, by_path = count(counter, ("train", "workflows_fp32",
+                                            "generation_fp32"))
             entries.append({
                 "name": kname, "route": "cuda", "source": source,
                 "replaces": f"vist3a_tpu/kernels/flash_attention.py:{line}",
@@ -4458,7 +5276,8 @@ def _kernel_entries(timed: dict, raster: list | None,
         if not rs:
             continue
         r = rs[0]
-        main, by_path = count(counter, ("vdm", "workflows_bf16"))
+        main, by_path = count(counter, ("vdm", "workflows_bf16",
+                                        "generation_bf16"))
         entries.append({
             "name": kname, "route": "cuda", "source": source,
             "replaces": f"vist3a_tpu/kernels/flash_attention.py:{line}",
@@ -4492,7 +5311,8 @@ def _kernel_entries(timed: dict, raster: list | None,
                                          "share_of_bound")}
                       for x in raster]})
         main, by_path = count("composite_backward",
-                              ("vdm", "workflows_bf16", "evaluation"))
+                              ("vdm", "workflows_bf16", "evaluation",
+                               "generation_bf16"))
         rb = [x["backward"] for x in raster]
         entries.append({
             "name": "rasterize_composite_bwd", "route": "cuda",
@@ -4565,11 +5385,13 @@ def main(argv=None) -> int:
     decoded = run("decode", phase_decode, model, vae, profile)
     denoised = run("denoise", phase_denoise, model, vae, profile)
     del model, vae
-    served = run("cli", phase_cli)
+    served = run("cli", phase_cli, "generation" in phases)
     trained = run("train", phase_train)
     tuned = run("vdm", phase_vdm)
     workflows = run("workflows", phase_workflows)
     evaluated = run("evaluation", phase_evaluation)
+    generated = run("generation", phase_generation,
+                    served and served.get("scenes"))
     log(f"seconds by phase {json.dumps(seconds)}; whole script "
         f"{time.perf_counter() - start:.1f} s")
 
@@ -4591,6 +5413,9 @@ def main(argv=None) -> int:
     if evaluated:
         # the NVS main's forwards and renders and the refinement's steps
         launches["evaluation"] = evaluated["launches"]
+    if generated:
+        # the gen_eval mains: no kernel of the repo on their path
+        launches.update(generated["launches"])
     print(json.dumps({"kernels": _kernel_entries(timed, raster, launches)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

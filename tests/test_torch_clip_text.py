@@ -225,7 +225,7 @@ def test_fabricators_invert_the_importers(family):
     vision = tclip.init(vcfg, gen, "cpu")
     text = tclip.text_init(tcfg, gen, "cpu")
     if family == "pickscore":
-        sd = tmf._fab_pickscore(vision, text, torch.tensor(4.6))
+        sd = tmf._fab_hf_clip_model(vision, text, torch.tensor(4.6))
         back_v = tclip.import_hf_clip_vision(sd, 2)
         back_t = tclip.import_hf_clip_text(sd, 2)
     else:

@@ -60,7 +60,11 @@ kernel HWIO → OIHW; `proj` keeps its (width, projection_dim) layout), and
 `CLIPText`.
 
 For evaluation: `load_jax_lpips_params` loads an LPIPS-VGG tree into an
-`eval/metrics.py::LPIPSVGG` (HWIO kernels → OIHW).
+`eval/metrics.py::LPIPSVGG` (HWIO kernels → OIHW);
+`load_jax_qwen_vision_params` and `load_jax_qwen_text_params` load the
+Qwen2.5-VL judge's trees into a `QwenVLVision` and a `QwenVLText` (the
+bare `patch_embed` and `lm_head` transposed to (out, in)), and
+`load_jax_musiq_params` a MUSIQ tree into an `eval/musiq.py::MUSIQ`.
 """
 
 from __future__ import annotations
@@ -320,4 +324,35 @@ def load_jax_lpips_params(module: nn.Module, tree: dict) -> nn.Module:
             sd[f"convs.{s}.{i}.bias"] = _tensor(conv["bias"])
     for s, lin in enumerate(tree["lins"]):
         sd[f"lins.{s}"] = _tensor(lin)
+    return _load(module, sd, ())
+
+
+def load_jax_qwen_vision_params(module: nn.Module, tree: dict) -> nn.Module:
+    """Load a Qwen2.5-VL vision JAX tree (`qwen_vl.vision_init` or the
+    vision half of `import_hf_qwen_vl`) into a `QwenVLVision`: the stacked
+    blocks split, the bare `patch_embed` (patch_dim, D) → (D, patch_dim)."""
+    sd = from_jax_params({k: v for k, v in tree.items()
+                          if k != "patch_embed"})
+    sd["patch_embed"] = _tensor(np.asarray(tree["patch_embed"]).T)
+    return _load(module, sd, ())
+
+
+def load_jax_qwen_text_params(module: nn.Module, tree: dict) -> nn.Module:
+    """Load a Qwen2.5-VL text JAX tree (`qwen_vl.text_init` or the text
+    half of `import_hf_qwen_vl`) into a `QwenVLText`: the stacked layers
+    split, the bare `lm_head` (D, V) → (V, D)."""
+    sd = from_jax_params({k: v for k, v in tree.items() if k != "lm_head"})
+    if "lm_head" in tree:
+        sd["lm_head"] = _tensor(np.asarray(tree["lm_head"]).T)
+    return _load(module, sd, ())
+
+
+def load_jax_musiq_params(module: nn.Module, tree: dict) -> nn.Module:
+    """Load a MUSIQ JAX tree (`musiq.init`, `load_musiq_npz` or
+    `musiq_convert.convert_state_dict`: its blocks a list of dicts) into
+    an `eval/musiq.py::MUSIQ`."""
+    sd = from_jax_params({k: v for k, v in tree.items() if k != "blocks"})
+    for i, blk in enumerate(tree["blocks"]):
+        sd.update({f"blocks.{i}.{k}": v
+                   for k, v in from_jax_params(blk).items()})
     return _load(module, sd, ())

@@ -11,13 +11,17 @@ extrinsics of the requested frame ids.
 
 The JAX package resizes with Pillow's `Image.LANCZOS`.  Pillow is optional
 in the port (OpenCV's `INTER_LANCZOS4` computes something else), so
-`lanczos_resize` is Pillow's 8-bit two-pass resample written in numpy
+`pil_resize` is Pillow's 8-bit two-pass resample written in numpy
 (`ImagingResample`, `libImaging/Resample.c`): per output pixel the
-Lanczos-3 taps over a support of 3·max(scale, 1) input pixels, normalised
-in double, rounded to 22-bit fixed point away from zero, accumulated in
-integers from 1 << 21, shifted and clipped to uint8 after the horizontal
-and again after the vertical pass.  A pass whose size does not change is
-skipped, as Pillow skips it.  The result equals Pillow's byte for byte.
+filter's taps over a support of (the filter's support)·max(scale, 1)
+input pixels, normalised in double, rounded to 22-bit fixed point away
+from zero, accumulated in integers from 1 << 21, shifted and clipped to
+uint8 after the horizontal and again after the vertical pass.  A pass
+whose size does not change is skipped, as Pillow skips it.  The filters
+are Lanczos-3 (`lanczos_resize`, the RE10K frames) and Keys' bicubic with
+a = −0.5 and support 2 (`bicubic_resize`, the Qwen judge's
+`eval/qwen_judge.py::preprocess_image`).  The result equals Pillow's byte
+for byte.
 
 Images decode with PIL where it imports and with `cv2.imread` otherwise
 (`data/preprocessing.py::load_rgb`): a PNG decodes to the same bytes
@@ -38,7 +42,6 @@ import numpy as np
 from vist3a_tpu_torch.data.preprocessing import load_rgb
 
 PRECISION_BITS = 32 - 8 - 2          # Pillow's fixed-point coefficients
-LANCZOS_SUPPORT = 3.0
 
 
 def _sinc(x: float) -> float:
@@ -55,21 +58,38 @@ def _lanczos(x: float) -> float:
     return 0.0
 
 
+def _bicubic(x: float) -> float:
+    """Pillow's `bicubic_filter`: Keys' cubic with a = −0.5 on (−2, 2)."""
+    a = -0.5
+    if x < 0.0:
+        x = -x
+    if x < 1.0:
+        return ((a + 2.0) * x - (a + 3.0)) * x * x + 1
+    if x < 2.0:
+        return (((x - 5) * x + 8) * x - 4) * a
+    return 0.0
+
+
+# Pillow's filters by name: (the function, its support)
+FILTERS = {"lanczos": (_lanczos, 3.0), "bicubic": (_bicubic, 2.0)}
+
+
 @functools.lru_cache(maxsize=32)
-def _coefficients(n_in: int, n_out: int) -> np.ndarray:
+def _coefficients(n_in: int, n_out: int, filt: str) -> np.ndarray:
     """Pillow's `precompute_coeffs` + `normalize_coeffs_8bpc` as a dense
     (n_in, n_out) matrix of its 22-bit fixed-point weights (integers held
     in float64)."""
+    fn, filter_support = FILTERS[filt]
     scale = n_in / n_out
     filterscale = max(scale, 1.0)
-    support = LANCZOS_SUPPORT * filterscale
+    support = filter_support * filterscale
     ss = 1.0 / filterscale
     kk = np.zeros((n_in, n_out), np.float64)
     for xx in range(n_out):
         center = (xx + 0.5) * scale
         xmin = max(int(center - support + 0.5), 0)      # C casts truncate
         xmax = min(int(center + support + 0.5), n_in) - xmin
-        w = [_lanczos((x + xmin - center + 0.5) * ss) for x in range(xmax)]
+        w = [fn((x + xmin - center + 0.5) * ss) for x in range(xmax)]
         total = 0.0
         for v in w:                                     # C's summation order
             total += v
@@ -79,27 +99,41 @@ def _coefficients(n_in: int, n_out: int) -> np.ndarray:
     return np.where(kk < 0, np.trunc(-0.5 + fixed), np.trunc(0.5 + fixed))
 
 
-def _pass(image: np.ndarray, n_out: int, axis: int) -> np.ndarray:
+def _pass(image: np.ndarray, n_out: int, axis: int, filt: str) -> np.ndarray:
     """One of Pillow's passes along `axis` of an (H, W, C) uint8 image.
     Every product and partial sum is an integer below 2³¹ (Pillow sums in
-    int32), so the float64 matrix product is exact in any order."""
-    k = _coefficients(image.shape[axis], n_out)
+    int32), so the float64 matrix product is exact in any order; a sum
+    below zero or above 255 is clipped, as Pillow's `clip8` does."""
+    k = _coefficients(image.shape[axis], n_out, filt)
     src = np.moveaxis(image, axis, -1).astype(np.float64)   # (..., n_in)
     acc = (src @ k).astype(np.int64) + (1 << (PRECISION_BITS - 1))
     out = np.clip(acc >> PRECISION_BITS, 0, 255).astype(np.uint8)
     return np.ascontiguousarray(np.moveaxis(out, -1, axis))
 
 
-def lanczos_resize(image: np.ndarray, size_wh: tuple[int, int]) -> np.ndarray:
+def pil_resize(image: np.ndarray, size_wh: tuple[int, int],
+               filt: str) -> np.ndarray:
     """(H, W, C) uint8 → (h, w, C) uint8, `PIL.Image.resize((w, h),
-    Image.LANCZOS)` bit for bit: the horizontal pass, then the vertical."""
+    filter)` bit for bit for the 8-bit `filt` ∈ FILTERS: the horizontal
+    pass, then the vertical; a pass whose size does not change is
+    skipped."""
     w, h = size_wh
     out = np.ascontiguousarray(image)
     if w != out.shape[1]:
-        out = _pass(out, w, 1)
+        out = _pass(out, w, 1, filt)
     if h != out.shape[0]:
-        out = _pass(out, h, 0)
+        out = _pass(out, h, 0, filt)
     return out
+
+
+def lanczos_resize(image: np.ndarray, size_wh: tuple[int, int]) -> np.ndarray:
+    """`PIL.Image.resize((w, h), Image.LANCZOS)` bit for bit."""
+    return pil_resize(image, size_wh, "lanczos")
+
+
+def bicubic_resize(image: np.ndarray, size_wh: tuple[int, int]) -> np.ndarray:
+    """`PIL.Image.resize((w, h), Image.BICUBIC)` bit for bit."""
+    return pil_resize(image, size_wh, "bicubic")
 
 
 def _rescale_k(intrinsic: np.ndarray, scale: float,

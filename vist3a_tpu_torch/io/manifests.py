@@ -12,12 +12,15 @@ tuple or `('size', n)` where only the element count is layout-stable).
   * `fabricate_from(manifest)` is a zeros state dict of those keys and
     shapes (broadcast views, free at any size);
   * the fabricators `_fab_anysplat_encoder`, `_fab_wan_vae`, `_fab_wan_dit`,
-    `_fab_umt5`, `_fab_pickscore` and `_fab_dfn5b` invert the importers over
+    `_fab_umt5`, `_fab_hf_clip_model` and `_fab_dfn5b` invert the importers over
     the port's modules: given a module (for the scorers, a `CLIPVision` and
     a `CLIPText`), each returns the reference-named state dict holding
     that module's values (the reference's own shapes for the size-only
     keys); `_fab_hf_clip_vision`, `_fab_hf_clip_text` and `_fab_open_clip`
-    are their per-tower pieces;
+    are their per-tower pieces; `_fab_hf_clip_model` writes an HF
+    CLIPModel (PickScore's layout, and the generation evaluation's CLIP-L
+    and LongCLIP-L) and `_fab_qwen_vl` the Qwen2.5-VL judge's HF state
+    dict under either key prefix;
   * `expected_keys(family)` is that inversion over the family's deployed
     config built on the meta device, so it costs nothing, as
     `jax.eval_shape` costs nothing there.
@@ -35,6 +38,7 @@ from torch import nn
 
 from vist3a_tpu_torch.io import weight_import as wi
 from vist3a_tpu_torch.nn import clip as clip_mod
+from vist3a_tpu_torch.nn import qwen_vl
 from vist3a_tpu_torch.nn import umt5 as umt5_mod
 from vist3a_tpu_torch.nn import wan_dit, wan_vae
 from vist3a_tpu_torch.nn.encoder import EncoderConfig
@@ -170,17 +174,66 @@ def _fab_open_clip(tower: nn.Module, visual: bool) -> dict:
     return out
 
 
-def _fab_pickscore(vision: clip_mod.CLIPVision, text: clip_mod.CLIPText,
-                   logit_scale: torch.Tensor) -> dict:
-    """PickScore_v1 (HF CLIP-H): both towers and `logit_scale` (the log of
-    the scale the reward multiplies by, `utils/reward.py:159-161`)."""
+def _fab_hf_clip_model(vision: clip_mod.CLIPVision, text: clip_mod.CLIPText,
+                       logit_scale: torch.Tensor) -> dict:
+    """An HF `CLIPModel`: both towers, both projections and `logit_scale`
+    (the log of the logits' scale).  PickScore_v1 (HF CLIP-H; the reward
+    multiplies by the scale, `utils/reward.py:159-161`) and the generation
+    evaluation's CLIP-L / LongCLIP-L are such files."""
     return {**_fab_hf_clip_vision(vision), **_fab_hf_clip_text(text),
             "logit_scale": logit_scale}
+
 
 
 def _fab_dfn5b(vision: clip_mod.CLIPVision, text: clip_mod.CLIPText) -> dict:
     """DFN5B-CLIP-ViT-H-14-378 (open_clip): both towers."""
     return {**_fab_open_clip(vision, True), **_fab_open_clip(text, False)}
+
+
+def _fab_qwen_vl(vision: qwen_vl.QwenVLVision, text: qwen_vl.QwenVLText, *,
+                 legacy: bool = False) -> dict:
+    """`QwenVLVision` and `QwenVLText` → HF
+    `Qwen2_5_VLForConditionalGeneration`'s state dict under the prefixes
+    `model.visual.` / `model.language_model.` (transformers ≥ 4.52), or
+    with `legacy` `visual.` / `model.`: the inverse of
+    `qwen_vl.import_hf_qwen_vl` (the patch embed as the conv3d weight
+    (D, C, tp, ps, ps))."""
+    vp, tp = ("visual.", "model.") if legacy else (
+        "model.visual.", "model.language_model.")
+    vcfg = vision.cfg
+    out = {f"{vp}patch_embed.proj.weight": vision.patch_embed.detach().reshape(
+        vcfg.hidden_size, vcfg.in_channels, vcfg.temporal_patch_size,
+        vcfg.patch_size, vcfg.patch_size)}
+
+    def lin(ours, theirs):
+        out[f"{theirs}.weight"] = ours.weight.detach()
+        if ours.bias is not None:
+            out[f"{theirs}.bias"] = ours.bias.detach()
+
+    for i, blk in enumerate(vision.blocks):
+        b = f"{vp}blocks.{i}"
+        out[f"{b}.norm1.weight"] = blk.norm1.detach()
+        out[f"{b}.norm2.weight"] = blk.norm2.detach()
+        lin(blk.qkv, f"{b}.attn.qkv")
+        lin(blk.proj, f"{b}.attn.proj")
+        for name in ("gate", "up", "down"):
+            lin(getattr(blk.mlp, name), f"{b}.mlp.{name}_proj")
+    out[f"{vp}merger.ln_q.weight"] = vision.merger.ln_q.detach()
+    lin(vision.merger.fc1, f"{vp}merger.mlp.0")
+    lin(vision.merger.fc2, f"{vp}merger.mlp.2")
+    out[f"{tp}embed_tokens.weight"] = text.embed.detach()
+    out[f"{tp}norm.weight"] = text.ln_f.detach()
+    for i, layer in enumerate(text.layers):
+        b = f"{tp}layers.{i}"
+        out[f"{b}.input_layernorm.weight"] = layer.ln1.detach()
+        out[f"{b}.post_attention_layernorm.weight"] = layer.ln2.detach()
+        for name in "qkvo":
+            lin(getattr(layer, name), f"{b}.self_attn.{name}_proj")
+        for name in ("gate", "up", "down"):
+            lin(getattr(layer.mlp, name), f"{b}.mlp.{name}_proj")
+    if text.lm_head is not None:
+        out["lm_head.weight"] = text.lm_head.detach()
+    return out
 
 
 def _deployed_scorer(family: str) -> dict:
@@ -189,8 +242,8 @@ def _deployed_scorer(family: str) -> dict:
     vision = wi.on_meta(lambda: clip_mod.CLIPVision(vision_cfg))
     text = wi.on_meta(lambda: clip_mod.CLIPText(clip_mod.CLIP_H_TEXT))
     if family == "pickscore":
-        return _fab_pickscore(vision, text,
-                              torch.empty((), device="meta"))
+        return _fab_hf_clip_model(vision, text,
+                                  torch.empty((), device="meta"))
     return _fab_dfn5b(vision, text)
 
 

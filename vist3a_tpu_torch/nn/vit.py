@@ -16,25 +16,21 @@ dict names them as the JAX stack does.  The JAX trunk's `mask_token` (for
 masked-image pretraining) is read by no forward here and is not held.
 
 `interpolate_pos_embed` reproduces `jax.image.resize(method="bicubic",
-antialias=True)` as two (out, in) weight matrices built in numpy by the rule
-of `jax.image.scale_and_translate`: Keys cubic (a = −0.5), the kernel
-widened by 1/scale when downsampling, weights normalised per output sample.
-`F.interpolate(mode="bicubic", antialias=True)` differs from it in kernel
-support, normalisation and edges.
+antialias=True)` as two (out, in) weight matrices
+(`ops/resize.py::resize_matrix`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import functools
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from vist3a_tpu_torch.nn.layers import (Block, BlockConfig, LayerNorm,
                                         run_blocks, run_blocks_with_taps)
+from vist3a_tpu_torch.ops.resize import resize_matrix
 
 
 @dataclasses.dataclass(frozen=True)
@@ -163,28 +159,6 @@ def block_taps(vit: ViT, images: torch.Tensor, cfg: ViTConfig
     return taps
 
 
-def _keys_cubic(x: np.ndarray) -> np.ndarray:
-    out = ((1.5 * x - 2.5) * x) * x + 1.0
-    out = np.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
-    return np.where(x >= 2.0, 0.0, out)
-
-
-@functools.lru_cache(maxsize=16)
-def bicubic_antialias_matrix(n_in: int, n_out: int) -> np.ndarray:
-    """(n_out, n_in) weights of `jax.image.resize(..., "bicubic",
-    antialias=True)` along one axis (scale n_out/n_in, no translation)."""
-    inv_scale = n_in / n_out
-    kernel_scale = max(inv_scale, 1.0)
-    sample = (np.arange(n_out, dtype=np.float64) + 0.5) * inv_scale - 0.5
-    x = np.abs(sample[None, :] - np.arange(n_in, dtype=np.float64)[:, None]) \
-        / kernel_scale
-    w = _keys_cubic(x)
-    total = w.sum(axis=0, keepdims=True)
-    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
-                 w / np.where(total != 0, total, 1.0), 0.0)
-    return np.ascontiguousarray(w.T).astype(np.float32)
-
-
 def interpolate_pos_embed(pos_embed: torch.Tensor, grid_h: int,
                           grid_w: int) -> torch.Tensor:
     """(1, 1+M², D) → (1, 1+grid_h·grid_w, D); bicubic antialias resize of
@@ -195,8 +169,8 @@ def interpolate_pos_embed(pos_embed: torch.Tensor, grid_h: int,
         return pos_embed
     d = pos_embed.shape[-1]
     grid = pos_embed[0, 1:].float().reshape(m, m, d)
-    wh = torch.from_numpy(bicubic_antialias_matrix(m, grid_h)).to(grid.device)
-    ww = torch.from_numpy(bicubic_antialias_matrix(m, grid_w)).to(grid.device)
+    wh = torch.from_numpy(resize_matrix(m, grid_h)).to(grid.device)
+    ww = torch.from_numpy(resize_matrix(m, grid_w)).to(grid.device)
     grid = torch.einsum("oh,hwd->owd", wh, grid)
     grid = torch.einsum("pw,owd->opd", ww, grid)
     out = torch.cat([pos_embed[:, :1].float(),
