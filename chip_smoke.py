@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases device,build,kernels,train
     python3 chip_smoke.py --phases device,build,kernels,raster,vdm
     python3 chip_smoke.py --phases device,build,cli
+    python3 chip_smoke.py --phases device,build,cli14b
     python3 chip_smoke.py --phases device,build,workflows
     python3 chip_smoke.py --phases device,build,evaluation
     python3 chip_smoke.py --phases device,build,generation
@@ -138,6 +139,36 @@ Phases, each of which passes or raises (any failure exits non-zero):
                w + scaling·Δ computed here from the written factors, then
                the cast).  Prints the seconds spent writing, reading and
                importing, each request's latency and the peak memory.
+  10b. cli14b — VIST3A-14B from its command line on files
+               (`drive_cli14b`): the Wan 2.1 14B DiT (14.3 B parameters,
+               bf16) drawn on the card part by part from seeds and written
+               as 41 diffusers shards, a PEFT adapter r8 α16 on its 320
+               sites, `anysplat.pth` with a VGGT-shaped point head, and
+               phase `cli`'s UMT5, VAE and stitched checkpoint (linked; run
+               alone, written here first).  `load_stitched_model`,
+               `load_generator(model_id=CLI14B_MODEL_ID)` and
+               `inference_t23d.run` on one prompt at CLI14B_STEPS UniPC
+               steps with CFG: the folder (prompt.txt, gs.mp4, depth.mp4,
+               gaussians.ply with 2,609,152 Gaussians) and every DiT
+               tensor equal, bit for bit, to its part drawn again (merged
+               where the adapter is, each site also within half a bf16
+               spacing of a float64 merge).  Then the validation views of that
+               request (`render_validation`: `viz.render_projections` at
+               512² with its pairs against the render's budget,
+               `render_camera_poses`, a 60-view wobbling interpolation
+               through `render`, its depth through
+               `apply_color_map_to_image`, laid out and written as
+               validation.png; the drawing and the colour map card vs host
+               CPU); one 14B block at 4096 tokens through the kernel route
+               and through `plain_attention` on the card (`block_check_14b`:
+               the self-attention's output on the block's own q, k, v and
+               the block's output, each within 2⁻⁵ of its range); the
+               stitched decoder with the point head (`drive_point_decode`:
+               the head as written, one decode, the depth the points' z)
+               and a narrow point-head decoder card vs host CPU.  Logs the
+               `Benchmarker`'s stage times and memory, ms per denoise step,
+               the host's peak resident set while the DiT loaded, the
+               bytes and the launches (paths `cli14b` and `cli14b_point`).
   11. train — stitching distillation at full width, fp32 (TF32 off):
                the teacher (the whole `EncoderConfig()` encoder, ~1.19 B
                parameters), the stitch conv and the Wan 2.1 VAE encoder
@@ -290,6 +321,7 @@ import json
 import math
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -298,7 +330,7 @@ import zlib
 from pathlib import Path
 
 PHASES = ("device", "build", "kernels", "raster", "slice", "profile",
-          "reference", "decode", "denoise", "cli", "train", "vdm",
+          "reference", "decode", "denoise", "cli", "cli14b", "train", "vdm",
           "workflows", "evaluation", "generation")
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 (data sheet)
 PEAK_FP32_FLOPS = 67e12       # H100 SXM fp32 outside the tensor cores
@@ -501,6 +533,9 @@ RENDER_STAGES = ("render.project_sh_table", "render.pairs",
                  "render.composite", "render.background")
 # the stages of phase `denoise`'s profiled prompt embedding and denoise
 T23D_STAGES = ("t23d.embed", "t23d.denoise")
+# the functions of a request `text_to_3dgs` calls, timed one by one
+T23D_REQUEST_STAGES = ("embed_prompts", "denoise", "decode_and_reconstruct",
+                       "export_artifacts")
 # the denoise steps of phase `denoise`'s profiled prompt embedding and
 # denoise: the profile's event walk takes host time per launch (~2.5 s a
 # denoise step), and the profile `denoise_2_steps` covers the steps alone
@@ -518,6 +553,43 @@ CLI_DIT_LORA_ALPHA = 16
 CLI_UMT5_SHARDS = 3
 # free disk asked of the temporary folder, as a multiple of the files' size
 CLI_DISK_FACTOR = 1.2
+# phase `cli14b`: the paper's second model, VIST3A-14B, from its command
+# line: the Wan 2.1 14B DiT (drawn part by part: the DiT outside its
+# blocks from CLI14B_SEED, block i from CLI14B_SEED + 1 + i), one prompt
+CLI14B_MODEL_ID = "Wan-AI/Wan2.1-T2V-14B-Diffusers"
+CLI14B_PROMPT = "a stone lighthouse on a cliff above the sea at dusk"
+CLI14B_SEED = 43
+# the request's UniPC steps, cut from the deployed 50 so that the whole
+# script stays near ~950 s: the phase logs the ms a step (824.8 at 50 steps
+# alone on an H100 at 700 W), and a 50-step request takes 50 × that plus
+# the rest
+CLI14B_STEPS = 10
+# VGGT-1B's point head, added to `anysplat.pth`
+CLI14B_POINT_SEED = 47
+# the validation views: `render_projections` and `render_camera_poses` at
+# 512², a wobbling interpolation of CLI14B_TRAJECTORY views at 448², of
+# which CLI14B_TRAJECTORY_SHOWN (and 4 as red cameras) are laid out
+CLI14B_VIEWS = 512
+CLI14B_TRAJECTORY = 60
+CLI14B_TRAJECTORY_SHOWN = 4
+# the wobble's radius, of the scene's scale (the mean distance of the
+# points from the origin)
+CLI14B_WOBBLE = 0.05
+# drawing, card vs host CPU: the alphas are clip(r − distance + ½) of fp32
+# pixel coordinates up to the resolution, each rounded to ~res·2⁻²⁴ and
+# summed in other orders; 8 such roundings, 2.4e-4 at 512²
+CLI14B_DRAW_ROUNDINGS = 8
+# disk asked besides `anysplat.pth` (the adapter, the results)
+CLI14B_EXTRA_BYTES = 2 << 30
+# host memory asked, as a multiple of the DiT's bytes: its shards in
+# /dev/shm, the loader's copy of them (the merged sites come after it is
+# freed) and `anysplat.pth` with the point head
+CLI14B_RAM_FACTOR = 2.3
+# the 14B DiT's shards go to a memory-backed folder, as the card machine's
+# disk takes ~45 GiB of writes a call (`shard_parent`); the folder's name
+# holds the writing process's id, so that a later run removes the shards
+# of a run killed before its cleanup (`sweep_stale_shards`)
+CLI14B_SHARD_PREFIX = "vist3a_cli14b_dit_"
 # phase `workflows`: the three command lines on files on disk.  The DL3DV
 # tree: 2 scenes of 21 frames at DL3DV's `images_4` size, one of them
 # captioned over frames 0-14; a one-scene ScanNet tree; two prompts
@@ -1342,7 +1414,7 @@ def stage_times(model, cfg, latent, images) -> None:
         log(f"stages: {name}: {ms:.3f} ms")
 
 
-def narrow_config():
+def narrow_config(pred_head_type: str = "depth"):
     from vist3a_tpu_torch.nn.aggregator import AggregatorConfig
     from vist3a_tpu_torch.nn.encoder import EncoderConfig
     from vist3a_tpu_torch.nn.heads import (CameraHeadConfig, DPTConfig,
@@ -1358,9 +1430,13 @@ def narrow_config():
         camera=CameraHeadConfig(dim_in=2 * d, trunk_depth=1, num_heads=2),
         depth=DPTConfig(dim_in=2 * d, features=16,
                         out_channels=(8, 16, 16, 16), head2_features=8),
+        point=DPTConfig(dim_in=2 * d, features=16,
+                        out_channels=(8, 16, 16, 16), head2_features=8,
+                        activation="inv_log", output_dim=4),
         gs=GSHeadConfig(dim_in=2 * d, features=16,
                         out_channels=(8, 16, 16, 16), output_dim=84,
-                        head2_features=16, pos_embed=False))
+                        head2_features=16, pos_embed=False),
+        pred_head_type=pred_head_type)
     return ca.StitchedConfig(encoder=ecfg, stitch_layer_index=2,
                              conv_spec=f"conv3d_k5x3x3_o{d}_s1x2x2_p2x1x1")
 
@@ -1369,12 +1445,19 @@ def phase_reference() -> dict:
     """Narrow widths at the full spatial shape (5 frames of 448², P = 1029):
     the card runs the kernel (ViT N = 1029, frame 1040, global 5200), the
     host CPU the plain attention, on the same bf16 weights and inputs."""
+    return {**narrow_decoder_errors(narrow_config(), "reference"),
+            **reference_dit()}
+
+
+def narrow_decoder_errors(cfg, label: str) -> dict:
+    """A narrow stitched decoder of config `cfg` on the card and on the host
+    CPU, the same bf16 weights and inputs: each output's max |Δ| / max
+    |ref|, within 2⁻⁵."""
     import torch
 
     from vist3a_tpu_torch.kernels import flash_attention as fa
     from vist3a_tpu_torch.stitch import chopped_anysplat as ca
 
-    cfg = narrow_config()
     gen = torch.Generator().manual_seed(1)
     model = ca.init(cfg, gen, device="cpu", dtype=torch.bfloat16)
     model.encoder.camera_head.pose_branch.fc2.bias.copy_(
@@ -1407,13 +1490,13 @@ def phase_reference() -> dict:
     # pixels that cross the 10 % confidence quantile between the two runs
     errs["conf_mask_disagree"] = (out.conf_valid_mask.cpu()
                                   != ref.conf_valid_mask).float().mean().item()
-    log(f"reference: card vs host CPU, max |Δ| / max |ref|: {errs}")
+    log(f"{label}: card vs host CPU, max |Δ| / max |ref|: {errs}")
     # Both sides run a bf16 trunk but round at different places (kernel
     # vs plain softmax, cuBLAS vs CPU matmuls); 2^-5 of the output's range
     # separates that rounding from a wrong layout or mask.
     bad = {k: v for k, v in errs.items() if not v <= 2 ** -5}
-    check(not bad, f"card and host CPU disagree: {bad}")
-    return {**errs, **reference_dit()}
+    check(not bad, f"{label}: card and host CPU disagree: {bad}")
+    return errs
 
 
 def reference_dit() -> dict:
@@ -2190,16 +2273,17 @@ def stitched_checkpoint(encoder, scfg, lora_cfg, gen) -> tuple:
     return ck, factors, biases
 
 
-def peft_adapter(dit, gen, r: int) -> tuple[dict, dict]:
+def peft_adapter(cfg, gen, r: int) -> tuple[dict, dict]:
     """A PEFT adapter of rank r on q/k/v/o of both attention blocks of every
-    DiT block, lora_B nonzero: ({"base_model.model.blocks.{i}.attn1.to_q.
-    lora_A.weight": (r, in), "….lora_B.weight": (out, r), ...}, the same
-    factors keyed by the port's weight names {name: (A, B)})."""
+    block of a DiT of config `cfg`, lora_B nonzero: ({"base_model.model.
+    blocks.{i}.attn1.to_q.lora_A.weight": (r, in), "….lora_B.weight":
+    (out, r), ...}, the same factors keyed by the port's weight names
+    {name: (A, B)})."""
     import torch
 
     adapter, factors = {}, {}
-    d = dit.cfg.dim
-    for i in range(dit.cfg.num_layers):
+    d = cfg.dim
+    for i in range(cfg.num_layers):
         for attn in ("attn1", "attn2"):
             for proj, ours in (("to_q", "q"), ("to_k", "k"), ("to_v", "v"),
                                ("to_out.0", "o")):
@@ -2232,8 +2316,9 @@ def write_weights_root(root: Path, src: dict, scfg, lora_cfg, gen) -> dict:
         "anysplat_encoder": manifests._fab_anysplat_encoder(src["encoder"]),
         "wan_vae": manifests._fab_wan_vae(src["vae_encoder"],
                                           src["vae_decoder"])}
-    if "dit" in src:
+    if "umt5" in src:
         files["umt5_xxl"] = manifests._fab_umt5(src["umt5"])
+    if "dit" in src:
         files["wan_dit"] = manifests._fab_wan_dit(src["dit"])
     if "pick_vision" in src:
         files["pickscore"] = manifests._fab_hf_clip_model(
@@ -2256,16 +2341,18 @@ def write_weights_root(root: Path, src: dict, scfg, lora_cfg, gen) -> dict:
         root / "wan_vae" / "diffusion_pytorch_model.safetensors",
         files["wan_vae"])
     adapter, dit_factors = {}, {}
+    if "umt5" in src:
+        (root / "umt5").mkdir(parents=True)
+        written["umt5"] = write_sharded(root / "umt5", files["umt5_xxl"],
+                                        CLI_UMT5_SHARDS)
     if "dit" in src:
-        adapter, dit_factors = peft_adapter(src["dit"], gen,
+        adapter, dit_factors = peft_adapter(src["dit"].cfg, gen,
                                            CLI_DIT_LORA_RANK)
-        for sub in ("wan_dit", "umt5", "wan_lora"):
+        for sub in ("wan_dit", "wan_lora"):
             (root / sub).mkdir(parents=True)
         written["wan_dit"] = write_safetensors(
             root / "wan_dit" / "diffusion_pytorch_model.safetensors",
             files["wan_dit"])
-        written["umt5"] = write_sharded(root / "umt5", files["umt5_xxl"],
-                                        CLI_UMT5_SHARDS)
         written["wan_lora"] = write_safetensors(
             root / "wan_lora" / "adapter_model.safetensors", adapter)
     for name in ("anysplat.pth", "anysplat_stitched.pth"):
@@ -2401,14 +2488,55 @@ def expected_stitched(stitched, src: dict, written: dict, lora_cfg,
     return out
 
 
-def expected_dit(src_dit, factors: dict, scaling: float) -> dict:
-    """The DiT's parameters after the PEFT merge, on the host: w, or at a
-    site bf16(w + (B@A)·α/r) computed in fp32."""
-    out = {k: v.detach().cpu() for k, v in src_dit.state_dict().items()}
+def expected_dit(src_dit, factors: dict, scaling: float,
+                 device) -> dict:
+    """The DiT's parameters after the PEFT merge, in bf16: w, or at a site
+    bf16(w + (B@A)·α/r) computed in fp32 from the written w on `device`,
+    where the loader merges (`merged_site`)."""
+    import torch
+
+    out = {k: v.detach() for k, v in src_dit.state_dict().items()}
     for name, (a, b) in factors.items():
-        w = out[name]
-        out[name] = (w.float() + (b.float() @ a.float()) * scaling).to(w.dtype)
-    return out
+        out[name] = merged_site(out[name], a, b, scaling, device)
+    return {k: v.to(torch.bfloat16) for k, v in out.items()}
+
+
+def merged_site(w, a, b, scaling: float, device):
+    """bf16(w + (B@A)·α/r) from the written w (in the file's dtype) as
+    `apply_peft_lora` computes it on `device`: the same operations, so the
+    same bits."""
+    import torch
+
+    delta = b.to(device, torch.float32) @ a.to(device, torch.float32)
+    return (w.to(device).float() + delta * scaling).to(torch.bfloat16)
+
+
+def near_merge(label: str, got: dict, written: dict, factors: dict,
+               scaling: float) -> float:
+    """Each PEFT site of `got` (bf16) against w + (B@A)·α/r computed in
+    float64 from the written w and factors, apart from the loader's code,
+    on `got`'s device: within half a bf16 spacing of that value (the
+    rounding of one cast) plus 2⁻²⁰ of |w| + |B|@|A|·α/r (the loader's
+    fp32 sum).  A site rounded twice, or merged from other values, lands a
+    spacing off.  Returns the largest error as a share of that limit."""
+    import torch
+
+    worst = 0.0
+    for name, (a, b) in factors.items():
+        g = got[name]
+        dev = g.device
+        w = written[name].to(dev, torch.float64)
+        a64, b64 = a.to(dev, torch.float64), b.to(dev, torch.float64)
+        x = w + (b64 @ a64) * scaling
+        slack = 2.0 ** -20 * (w.abs() + (b64.abs() @ a64.abs()) * scaling)
+        # x = m·2^e, m in [½, 1): bf16's spacing there is 2^(e-8)
+        spacing = torch.ldexp(torch.ones_like(x), torch.frexp(x)[1] - 8)
+        err = (g.double() - x).abs() / (spacing / 2 + slack)
+        worst = max(worst, float(err.max()))
+        bad = int((err > 1).sum())
+        check(bad == 0, f"{label}: {name}: {bad} values off the float64 "
+              f"merge by more than half a bf16 spacing")
+    return worst
 
 
 def same_values(label: str, got: dict, want: dict) -> int:
@@ -2530,9 +2658,12 @@ def drive_cli(src: dict, scfg, lora_spec: str, tmp: Path, *, tokenize,
         "stitched decoder", modules["stitched"].state_dict(),
         expected_stitched(modules["stitched"], src, written, lora_cfg,
                           written["checkpoint"]))
+    scaling = CLI_DIT_LORA_ALPHA / CLI_DIT_LORA_RANK
     n_dit = same_values("DiT", modules["dit"].state_dict(), expected_dit(
-        src["dit"], written["dit_factors"],
-        CLI_DIT_LORA_ALPHA / CLI_DIT_LORA_RANK))
+        src["dit"], written["dit_factors"], scaling, device))
+    site_err = near_merge("DiT", modules["dit"].state_dict(),
+                          src["dit"].state_dict(), written["dit_factors"],
+                          scaling)
     n_umt5 = same_values("UMT5", modules["umt5"].state_dict(), {
         k: v.to(torch.bfloat16) for k, v in src["umt5"].state_dict().items()})
     dt = next(modules["vae"].parameters()).dtype
@@ -2548,15 +2679,15 @@ def drive_cli(src: dict, scfg, lora_spec: str, tmp: Path, *, tokenize,
                          "umt5": n_umt5, "vae_decoder": n_vae},
             "merged_sites": {"stitched": len(written["factors"]),
                              "dit": len(written["dit_factors"])},
-            "results": results}
+            "dit_site_err_share": site_err, "results": results}
 
 
-def build_cli_sources(generator: bool = True) -> dict:
+def build_cli_sources(generator: bool = True, *, dit: bool = True) -> dict:
     """The modules whose reference-format files phase `cli` writes, drawn on
     the card from a seed and then moved to the host, so the card is free
     for the CLI's own: the whole AnySplat encoder (fp32, with the camera
     trick of `build_stitched`), the Wan 2.1 VAE (fp32), and with
-    `generator` UMT5-XXL and the Wan 2.1 1.3B DiT (bf16)."""
+    `generator` UMT5-XXL and (with `dit`) the Wan 2.1 1.3B DiT (bf16)."""
     import torch
 
     from vist3a_tpu_torch.nn import umt5, wan_dit, wan_vae
@@ -2577,8 +2708,9 @@ def build_cli_sources(generator: bool = True) -> dict:
     if generator:
         src["umt5"] = umt5.init(umt5.UMT5_XXL, gen, device="cuda",
                                 dtype=torch.bfloat16)
-        src["dit"] = wan_dit.init(wan_dit.WAN_1_3B, gen, device="cuda",
-                                  dtype=torch.bfloat16)
+        if dit:
+            src["dit"] = wan_dit.init(wan_dit.WAN_1_3B, gen, device="cuda",
+                                      dtype=torch.bfloat16)
     torch.cuda.synchronize()
     built = time.perf_counter() - t0
     src = {k: m.to("cpu") for k, m in src.items()}
@@ -2603,12 +2735,14 @@ def keep_scene_folders(results: Path) -> str:
     return str(keep)
 
 
-def phase_cli(keep_scenes: bool = False) -> dict:
+def phase_cli(keep_scenes: bool = False, keep_weights: bool = False) -> dict:
     """`cli/inference_t23d.py::main` on full-width reference-format files:
     two prompts through the whole text→3DGS request, the files written from
     seeded modules (`drive_cli`), every check there, the times, the peak
     memory and the launches.  With `keep_scenes`, the requests' prompt.txt
-    and gs.mp4 outlive the phase (`keep_scene_folders`)."""
+    and gs.mp4 outlive the phase (`keep_scene_folders`); with
+    `keep_weights` the weights root does (moved to a new temporary folder,
+    `res["weights"]`, for phase `cli14b`)."""
     import torch
 
     from vist3a_tpu_torch.nn import umt5
@@ -2634,6 +2768,10 @@ def phase_cli(keep_scenes: bool = False) -> dict:
             log(f"cli: '{prompt}': {_check_summary(r, GAUSSIANS)}")
         if keep_scenes:
             res["scenes"] = keep_scene_folders(tmp / "results")
+        if keep_weights:
+            res["weights"] = tempfile.mkdtemp(prefix="vist3a_cli_weights_")
+            os.rename(tmp / "weights", Path(res["weights"]) / "weights")
+            res["weights"] = str(Path(res["weights"]) / "weights")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         del src
@@ -2647,7 +2785,724 @@ def phase_cli(keep_scenes: bool = False) -> dict:
         f"every file passed its manifest and every key was consumed "
         f"(`main` raises otherwise); parameters "
         f"equal to what was written {res['compared']} (LoRA-merged sites "
-        f"{res['merged_sites']})")
+        f"{res['merged_sites']}, off the float64 merge by at most "
+        f"{res['dit_site_err_share']:.4f} of half a bf16 spacing and the "
+        f"fp32 sum's rounding)")
+    return res
+
+
+def draw_dit_part(cfg, part, device="cuda", dtype=None):
+    """Part `part` of a DiT of config `cfg` with random weights drawn on
+    `device` in `dtype` (bf16 by default): block `part` (a `WanBlock`)
+    from CLI14B_SEED + 1 + part, or for None the DiT without its blocks
+    from CLI14B_SEED.  The same values at every call, one part at a time
+    on the card."""
+    import torch
+
+    from vist3a_tpu_torch.nn import wan_dit
+    from vist3a_tpu_torch.nn.layers import build_random
+
+    gen = torch.Generator(device=device).manual_seed(
+        CLI14B_SEED + (0 if part is None else 1 + part))
+    if part is None:
+        return build_random(lambda: wan_dit.WanDiT(
+            dataclasses.replace(cfg, num_layers=0)), gen, device,
+            dtype or torch.bfloat16)
+    return build_random(lambda: wan_dit.WanBlock(cfg), gen, device,
+                        dtype or torch.bfloat16)
+
+
+def _dit_parts(cfg) -> list:
+    return [None, *range(cfg.num_layers)]
+
+
+def _part_prefix(part) -> str:
+    return "" if part is None else f"blocks.{part}."
+
+
+def write_dit_by_parts(folder: Path, cfg, device="cuda", dtype=None) -> int:
+    """A diffusers `WanTransformer3DModel` folder of the DiT of config `cfg`
+    drawn part by part in `dtype` (`draw_dit_part`): one safetensors
+    shard a part, named as diffusers names its shards, and the index.
+    Returns the bytes written."""
+    from vist3a_tpu_torch.io import manifests
+
+    folder.mkdir(parents=True)
+    parts = _dit_parts(cfg)
+    weight_map, total = {}, 0
+    for i, part in enumerate(parts):
+        sd = manifests._fab_wan_dit(
+            draw_dit_part(cfg, part, device, dtype), _part_prefix(part))
+        shard = (f"diffusion_pytorch_model-{i + 1:05d}-of-"
+                 f"{len(parts):05d}.safetensors")
+        total += write_safetensors(folder / shard, sd)
+        weight_map.update({k: shard for k in sd})
+        del sd
+    (folder / "diffusion_pytorch_model.safetensors.index.json").write_text(
+        json.dumps({"metadata": {"total_size": total},
+                    "weight_map": weight_map}))
+    return total
+
+
+def check_dit_by_parts(dit, factors: dict, scaling: float,
+                       device="cuda", dtype=None) -> dict:
+    """Every parameter of the loaded DiT equal, bit for bit, to its part
+    drawn again from its seed in `dtype` (`draw_dit_part`) on `device`
+    and cast to bf16, at a PEFT site to the merge of `merged_site` there,
+    and each site near the float64 merge (`near_merge`).  Returns how many
+    tensors were compared and the largest site error as a share of
+    `near_merge`'s limit."""
+    import torch
+
+    n, worst, own = 0, 0.0, dit.state_dict()
+    for part in _dit_parts(dit.cfg):
+        prefix = _part_prefix(part)
+        written = {prefix + k: v for k, v in draw_dit_part(
+            dit.cfg, part, device, dtype).state_dict().items()}
+        sites = {k: f for k, f in factors.items() if k in written}
+        want = {k: (merged_site(v, *sites[k], scaling, device)
+                    if k in sites else v.to(torch.bfloat16))
+                for k, v in written.items()}
+        got = {k: v for k, v in own.items()
+               if (k.startswith(prefix) if prefix
+                   else not k.startswith("blocks."))}
+        n += same_values(f"DiT {prefix or 'outside the blocks'}", got, want)
+        worst = max(worst, near_merge(f"DiT {prefix}", got, written, sites,
+                                      scaling))
+    return {"tensors": n, "site_err_share": worst}
+
+
+def write_point_anysplat(base: Path, out: Path, point_cfg,
+                         device="cuda") -> dict:
+    """`base` (an AnySplat state dict) with a VGGT-shaped point head, a
+    `DPTHead(point_cfg)` drawn on `device` from CLI14B_POINT_SEED, saved as
+    `out`.  Returns the head's values under the port's names, on the
+    host."""
+    import torch
+
+    from vist3a_tpu_torch.io import load_weights
+    from vist3a_tpu_torch.io import weight_import as wi
+    from vist3a_tpu_torch.nn.heads import DPTHead
+    from vist3a_tpu_torch.nn.layers import build_random
+
+    gen = torch.Generator(device=device).manual_seed(CLI14B_POINT_SEED)
+    head = build_random(lambda: DPTHead(point_cfg), gen, device,
+                        torch.float32)
+    values = {f"point_head.{k}": v.cpu()
+              for k, v in head.state_dict().items()}
+    sd = load_weights.load_torch_state_dict(base)
+    sd.update({"encoder." + wi.encoder_to_reference(k): v
+               for k, v in values.items()})
+    torch.save(sd, out)
+    return values
+
+
+@contextlib.contextmanager
+def peak_rss(out: list):
+    """This process's resident set when the block starts and its largest
+    while it runs (sampled every 50 ms), appended to `out` as {"start",
+    "peak"} in bytes."""
+    import threading
+
+    page = os.sysconf("SC_PAGE_SIZE")
+
+    def rss():
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * page
+    start = rss()
+    peak, stop = [start], threading.Event()
+
+    def sample():
+        while not stop.wait(0.05):
+            peak[0] = max(peak[0], rss())
+    thread = threading.Thread(target=sample, daemon=True)
+    thread.start()
+    try:
+        yield out
+    finally:
+        stop.set()
+        thread.join()
+        out.append({"start": start, "peak": max(peak[0], rss())})
+
+
+def _image_ok(name: str, img, shape=None) -> None:
+    """An image of the validation views: finite, of `shape`, not
+    constant."""
+    import numpy as np
+
+    check(shape is None or tuple(img.shape) == tuple(shape),
+          f"{name}: shape {tuple(img.shape)}, want {shape}")
+    check(bool(np.isfinite(img).all()), f"{name}: non-finite values")
+    check(float(img.max()) > float(img.min()), f"{name}: constant image")
+
+
+def render_validation(out, folder: Path, bench, *, device="cuda",
+                      views: int = CLI14B_VIEWS, image: int = IMAGE,
+                      trajectory: int = CLI14B_TRAJECTORY,
+                      label: str = "") -> dict:
+    """The 3-D validation views of one request's decoder output `out`
+    (`viz`): `render_projections` of its Gaussians (their pair counts
+    against the render's budget logged), `render_camera_poses` of its
+    cameras (white) and 4 views of a trajectory (red), the trajectory
+    itself — `interpolate_extrinsics` from the first camera to the last
+    with a `generate_wobble_transformation` sway, rendered through
+    `render` — and its depth through `apply_color_map_to_image`, laid out
+    with `hcat`, `vcat`, `add_label` and `add_border` and written as
+    `folder/validation.png`.  Each image checked finite, of its shape and
+    not constant; on the card the drawing and the colour map also against
+    the host CPU.  Stage times go to the `Benchmarker` `bench`."""
+    import numpy as np
+    import torch
+
+    from vist3a_tpu_torch import viz
+    from vist3a_tpu_torch.eval.nvs import save_image
+    from vist3a_tpu_torch.kernels import rasterizer as tr
+    from vist3a_tpu_torch.nn.splat_decoder import render
+    from vist3a_tpu_torch.viz.validation_in_3d import projection_cameras
+
+    g = out.gaussians
+    n_gauss = g.means.shape[1]
+    res = {}
+    with bench.time("viz.projections"):
+        proj = viz.render_projections(g, views, extra_label=label,
+                                      device=device)
+    _image_ok("projections", proj)
+    check(proj.shape[:3] == (1, 3, 3) and proj.shape[3] > views
+          and proj.shape[4] >= views, f"projections {proj.shape}")
+    budget = tr.default_pair_budget(n_gauss)
+    pairs = []
+    with torch.inference_mode():
+        for c2w, k, name in projection_cameras(g):
+            viewmat = torch.linalg.inv(torch.from_numpy(
+                c2w[0].astype(np.float32)).to(device))
+            kk = torch.from_numpy(k[0].astype(np.float32)).to(device) \
+                * torch.tensor([[views], [views], [1.0]], device=device)
+            _, p = tr.view_pairs(g.means[0], g.covariances[0],
+                                 g.harmonics[0], g.opacities[0], viewmat,
+                                 kk, views, views, budget)
+            pairs.append({"view": name, "pairs": p.total,
+                          "cut": max(0, p.total - budget)})
+    res["projection_pairs"] = {"budget": budget, "views": pairs}
+    log(f"cli14b: render_projections at {views}²: pairs per view against "
+        f"the budget {budget} (default_pair_budget({n_gauss})) "
+        + json.dumps(pairs))
+
+    ex = out.extrinsic_c2w[0].float().cpu().numpy().astype(np.float64)
+    kn = out.intrinsic_norm[0].float().cpu().numpy().astype(np.float64)
+    t = np.linspace(0.0, 1.0, trajectory)
+    with bench.time("viz.trajectory"):
+        radius = np.asarray(CLI14B_WOBBLE * float(out.scene_scale))
+        traj = viz.interpolate_extrinsics(ex[0], ex[-1], t) \
+            @ viz.generate_wobble_transformation(radius, t)
+        traj_k = viz.interpolate_intrinsics(kn[0], kn[-1], t)
+        with torch.inference_mode():
+            r = render(g, torch.from_numpy(traj)[None],
+                       torch.from_numpy(traj_k)[None], (image, image),
+                       device=device)
+        frames = r.color[0].cpu().numpy()
+    _image_ok("trajectory", frames, (trajectory, 3, image, image))
+    with bench.time("viz.color_map"):
+        depth, alpha = r.depth[0], r.alpha[0]
+        # the depth range of the covered pixels (`torch.quantile` takes at
+        # most 2²⁴ values, so every k-th)
+        seen = depth[alpha > 0.5]
+        lo, hi = ((torch.quantile(seen[::max(1, seen.numel() >> 22)],
+                                  torch.tensor([0.01, 0.99], device=device))
+                   .tolist()) if seen.numel() else (0.0, 1.0))
+        depth01 = ((depth - lo) / max(hi - lo, 1e-12)).clamp(0, 1)
+        colored = viz.apply_color_map_to_image(depth01)
+        if torch.device(device).type == "cuda":
+            host = viz.apply_color_map_to_image(depth01.cpu().numpy())
+            check(np.array_equal(colored.cpu().numpy(), host),
+                  "apply_color_map: card and host CPU differ")
+        colored = colored.cpu().numpy()
+    _image_ok("depth colours", colored, (trajectory, 3, image, image))
+
+    shown = np.linspace(0, trajectory - 1, CLI14B_TRAJECTORY_SHOWN) \
+        .round().astype(int)
+    near, far = torch.quantile(
+        out.depth.flatten()[::max(1, out.depth.numel() >> 22)].float(),
+        torch.tensor([0.05, 0.5], device=out.depth.device)).tolist()
+    s = ex.shape[0]
+    batch = {"context": {"extrinsics": ex[None], "intrinsics": kn[None],
+                         "near": np.full((1, s), near),
+                         "far": np.full((1, s), far)},
+             "target": {"extrinsics": traj[None, shown].astype(np.float64),
+                        "intrinsics": traj_k[None, shown].astype(np.float64),
+                        "near": np.full((1, len(shown)), near),
+                        "far": np.full((1, len(shown)), far)}}
+    with bench.time("viz.camera_poses"):
+        poses = viz.render_camera_poses(batch, views, device=device)
+    _image_ok("camera poses", poses)
+    check(poses.shape[:2] == (3, 3) and poses.shape[3] >= views,
+          f"camera poses {poses.shape}")
+    if torch.device(device).type == "cuda":
+        with bench.time("viz.camera_poses_host"):
+            host = viz.render_camera_poses(batch, views, device="cpu")
+        res["poses_card_vs_host"] = float(np.abs(poses - host).max())
+        limit = CLI14B_DRAW_ROUNDINGS * views * 2.0 ** -24
+        check(res["poses_card_vs_host"] <= limit,
+              f"render_camera_poses: card and host CPU differ by "
+              f"{res['poses_card_vs_host']} (limit {limit})")
+
+    with bench.time("viz.layout"):
+        rows = [viz.hcat(*proj[0]), viz.hcat(*poses),
+                viz.hcat(*(viz.vcat(viz.add_label(frames[i], f"view {i}"),
+                                    colored[i]) for i in shown))]
+        sheet = viz.add_border(viz.vcat(*rows, align="left", gap=16))
+        png = folder / "validation.png"
+        save_image(sheet, png)
+    _image_ok("validation sheet", sheet)
+    check(png.is_file() and png.stat().st_size > 0, f"{png} not written")
+    res.update({"projections": list(proj.shape), "poses": list(poses.shape),
+                "trajectory": list(frames.shape),
+                "sheet": list(sheet.shape), "png_bytes": png.stat().st_size,
+                "near_far": [near, far], "wobble_radius": float(radius)})
+    return res
+
+
+def drive_cli14b(base: Path, tmp: Path, scfg, *, tokenize, device="cuda",
+                 steps: int = CLI14B_STEPS, point_cfg=None,
+                 viz_sizes: dict | None = None, flags: tuple = (),
+                 dit_dir: Path | None = None, dit_dtype=None) -> dict:
+    """Phase `cli14b`'s request on files.  Under `tmp/weights`: the DiT of
+    CLI14B_MODEL_ID in diffusers shards drawn part by part in `dit_dtype`
+    (bf16 by default; `write_dit_by_parts`), a PEFT adapter r8 α16 on its
+    q/k/v/o, `anysplat.pth` = `base`'s with a VGGT-shaped point head
+    (`write_point_anysplat`; `point_cfg`, by default `EncoderConfig().point`)
+    and links to `base`'s `wan_vae/`, `umt5/` and stitched checkpoint (phase
+    `cli`'s files).  Then the command line's loaders and request —
+    `load_stitched_model`, `load_generator`, `inference_t23d.run` on
+    CLI14B_PROMPT at `steps` UniPC steps — with the DiT checked bit for bit
+    part by part (`check_dit_by_parts`) and the validation views of the
+    request's output (`render_validation`, `viz_sizes` its sizes).  The
+    stitched checkpoint is of `scfg`'s chop and conv; `flags` are added to
+    the command line; with `dit_dir` the DiT's folder is written there and
+    linked as `wan_dit/`.  Returns the `Benchmarker`'s times and memory,
+    the bytes, the host's resident set while the generator loaded, the
+    seconds of the loader's calls and of the request's stages, the
+    launches of the request and the views, the run's summary, and what the
+    point-head decode needs (`args`, the head's values)."""
+    import torch
+
+    from vist3a_tpu_torch.cli import arguments, inference_t23d, model_loading
+    from vist3a_tpu_torch.core.profiling import Benchmarker
+    from vist3a_tpu_torch.io import load_weights, manifests
+    from vist3a_tpu_torch.io import weight_import as wi
+    from vist3a_tpu_torch.nn import wan_dit
+    from vist3a_tpu_torch.nn.encoder import EncoderConfig
+    from vist3a_tpu_torch.pipelines import t23d
+    from vist3a_tpu_torch.stitch.conv_spec import conv_spec_to_string
+
+    cuda = torch.device(device).type == "cuda"
+    bench = Benchmarker(device)
+    root, out_dir = tmp / "weights", tmp / "results"
+    root.mkdir(parents=True)
+    model_id, prompt = CLI14B_MODEL_ID, CLI14B_PROMPT
+    dit_cfg = wan_dit.config_from_model_id(model_id)
+    written = {}
+    with bench.time("write.dit"):
+        folder = root / "wan_dit" if dit_dir is None else dit_dir / "wan_dit"
+        written["wan_dit"] = write_dit_by_parts(folder, dit_cfg, device,
+                                                dit_dtype)
+        if dit_dir is not None:
+            (root / "wan_dit").symlink_to(folder)
+    with bench.time("write.other"):
+        adapter, factors = peft_adapter(dit_cfg,
+                                        torch.Generator().manual_seed(22),
+                                        CLI_DIT_LORA_RANK)
+        (root / "wan_lora").mkdir()
+        written["wan_lora"] = write_safetensors(
+            root / "wan_lora" / "adapter_model.safetensors", adapter)
+        point = write_point_anysplat(
+            base / "anysplat.pth", root / "anysplat.pth",
+            point_cfg or EncoderConfig().point, device)
+        written["anysplat.pth"] = (root / "anysplat.pth").stat().st_size
+        for name in ("wan_vae", "umt5", "anysplat_stitched.pth"):
+            (root / name).symlink_to((base / name).resolve())
+    (root / "prompts.txt").write_text(prompt + "\n")
+    args = arguments.inference_vist3a_argument().parse_args([
+        "--weights_root", str(root),
+        "--checkpoint_path", str(root / "anysplat_stitched.pth"),
+        "--transformer_lora_path", str(root / "wan_lora"),
+        "--input_texts_path", str(root / "prompts.txt"),
+        "--output_dir", str(out_dir), "--model_id", model_id,
+        "--stitching_layer_location", f"enc_blocks_{scfg.stitch_layer_index}",
+        "--stitching_layer_config", conv_spec_to_string(scfg.conv),
+        "--lora_config", CLI_LORA_SPEC, *flags])
+
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    rss, calls = [], []
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    with bench.time("load.stitched"):
+        modules, loaded = model_loading.load_stitched_model(args,
+                                                            device=device)
+    with bench.time("load.generator"), peak_rss(rss), \
+            timed_calls(load_weights, ("load_sharded_safetensors",), calls,
+                        sync), \
+            timed_calls(manifests, ("validate_state_dict",), calls, sync), \
+            timed_calls(wi, ("import_umt5", "import_wan_dit",
+                             "apply_peft_lora", "build_module"), calls,
+                        sync):
+        modules.update(inference_t23d.load_generator(
+            root, model_id, args.transformer_lora_path, device=device))
+    load_calls = {}
+    for name, _, x in calls:
+        load_calls.setdefault(name, []).append(round(x, 2))
+    load_peak = torch.cuda.max_memory_allocated() if cuda else None
+    check(modules["dit"].cfg == dit_cfg, f"the DiT loaded as "
+          f"{modules['dit'].cfg}, want {dit_cfg}")
+    log(f"cli14b: files written and loaded, seconds so far "
+        + json.dumps({k: round(v[0], 1)
+                      for k, v in bench.execution_times.items()})
+        + f"; load_generator's calls (s) {json.dumps(load_calls)}")
+    cfg = inference_t23d.request_config(args, dit_cfg, loaded,
+                                        num_inference_steps=steps)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    store, stages = {}, []
+    _reset_counts()
+    with bench.time("request"), captured(t23d, "text_to_3dgs", store), \
+            timed_calls(t23d, T23D_REQUEST_STAGES, stages, sync):
+        results = inference_t23d.run(modules, tokenize, [prompt],
+                                     str(out_dir), cfg, device=device)
+    request_peak = torch.cuda.max_memory_allocated() if cuda else None
+    stage_s = {name: s for name, _, s in stages}
+    result = store["text_to_3dgs"][2]
+    log(f"cli14b: request {bench.execution_times['request'][0]:.1f} s, "
+        f"stages (s) {json.dumps({n: round(x, 2) for n, _, x in stages})}")
+    folder = out_dir / prompt[:100].replace("/", "")
+    check([p for p, _ in results] == [prompt], "cli14b: prompts run")
+    check((folder / "prompt.txt").read_text() == prompt,
+          f"cli14b: {folder}/prompt.txt")
+    views = render_validation(result.output, folder, bench, device=device,
+                              label="(14B)", **(viz_sizes or {}))
+    launches = _vdm_counts()
+    with bench.time("check.dit"):
+        dit_check = check_dit_by_parts(
+            modules["dit"], factors, CLI_DIT_LORA_ALPHA / CLI_DIT_LORA_RANK,
+            device, dit_dtype)
+    del modules, result, store
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return {"bench": bench, "bytes": written,
+            "peak_bytes": {"load": load_peak, "request": request_peak},
+            "host_rss_load_generator": rss[0],
+            "launches": {k: launches[k] for k in
+                         ("unmasked", "masked", "natural", "composite")},
+            "compared": {"dit": dit_check["tensors"]},
+            "merged_sites": len(factors),
+            "dit_site_err_share": dit_check["site_err_share"],
+            "stages_s": stage_s, "steps": steps, "load_calls": load_calls,
+            "results": results, "views": views, "args": args,
+            "point": point}
+
+
+def drive_point_decode(args, point: dict, *, device="cuda",
+                       frames: int = 13, image: int = IMAGE,
+                       latent_hw: int = 64) -> dict:
+    """The stitched decoder with the AnySplat file's point head
+    (`load_stitched_model` on phase `cli14b`'s files, its config's encoder
+    taking the point branch): its point head equal, bit for bit, to
+    `point` (what was written), then one decode through
+    `forward_with_latent` of a random latent and images (bf16 cascades, as
+    the inference decode): the depth is the points' z, bit for bit, and
+    the confidence above 1.  Returns the launches and a summary."""
+    import torch
+
+    from vist3a_tpu_torch.cli import model_loading
+    from vist3a_tpu_torch.stitch import chopped_anysplat as ca
+
+    cuda = torch.device(device).type == "cuda"
+    depth_config = model_loading.stitched_config
+
+    def point_config(a):
+        scfg = depth_config(a)
+        return dataclasses.replace(scfg, encoder=dataclasses.replace(
+            scfg.encoder, pred_head_type="point"))
+    t0 = time.perf_counter()
+    model_loading.stitched_config = point_config
+    try:
+        modules, scfg = model_loading.load_stitched_model(args,
+                                                          device=device)
+    finally:
+        model_loading.stitched_config = depth_config
+    load_s = time.perf_counter() - t0
+    model = modules["stitched"]
+    n_point = same_values("point head", {
+        k: v for k, v in model.encoder.state_dict().items()
+        if k.startswith("point_head.")}, point)
+    scfg = dataclasses.replace(scfg, encoder=dataclasses.replace(
+        scfg.encoder, head_dtype="bfloat16"))
+    gen = torch.Generator().manual_seed(CLI14B_POINT_SEED + 1)
+    t_lat = (frames - 1) // 4 + 1
+    latent = torch.randn(1, 16, t_lat, latent_hw, latent_hw,
+                         generator=gen).to(torch.bfloat16)
+    images = (torch.rand(1, 3, frames, image, image, generator=gen) * 2
+              - 1).to(torch.bfloat16)
+    if cuda:
+        torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        out = ca.forward_with_latent(model, latent, images, scfg,
+                                     device=device)
+    if cuda:
+        torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    launches = _vdm_counts()
+    g = frames * image * image
+    check(tuple(out.gaussians.means.shape) == (1, g, 3)
+          and tuple(out.depth.shape) == (1, frames, image, image, 1),
+          f"point decode: means {tuple(out.gaussians.means.shape)}, depth "
+          f"{tuple(out.depth.shape)}")
+    check(torch.equal(out.depth.reshape(-1),
+                      out.gaussians.means[..., 2].reshape(-1)),
+          "point decode: the depth is not the points' z")
+    check(float(out.depth_conf.min()) > 1.0,
+          "point decode: a confidence ≤ 1 (expp1)")
+    for name, x in (("means", out.gaussians.means),
+                    ("opacities", out.gaussians.opacities),
+                    ("depth_conf", out.depth_conf),
+                    ("extrinsic_c2w", out.extrinsic_c2w)):
+        check(bool(torch.isfinite(x).all()), f"point decode: non-finite "
+              f"{name}")
+    summary = {"load_s": load_s, "decode_s": decode_s,
+               "point_head_tensors": n_point,
+               "means_range": [float(out.gaussians.means.min()),
+                               float(out.gaussians.means.max())],
+               "live": int((out.gaussians.opacities > 0).sum())}
+    return {"launches": {k: launches[k] for k in ("unmasked", "masked",
+                                                  "natural", "composite")},
+            "summary": summary}
+
+
+def block_check_14b(cfg) -> dict:
+    """Block 0 of the 14B DiT (`draw_dit_part`, the values of the written
+    file) at the full token count — x (2, 4096, 5120), 226 text tokens,
+    the (4, 32, 32) grid's RoPE — on the card twice, bf16 weights and
+    activations (the kernel route at head_dim 128 is bf16): through the
+    attention dispatch (row 3, one launch) and with its self-attention on
+    `ops/attention.py::plain_attention`.  Two comparisons, in fp32, each
+    within 2⁻⁵ of the plain one's range (the limit of `reference_dit`):
+    the self-attention's output, the kernel's against `plain_attention`
+    on the same q, k, v (those the dispatch was given in the block), and
+    the block's output.  The block's output sees attention only through
+    its gate (0.1·N(0, 1) here) and is dominated by the residual, so the
+    first is the check that holds row 3."""
+    import torch
+
+    from vist3a_tpu_torch.kernels import flash_attention as fa
+    from vist3a_tpu_torch.nn import wan_dit
+    from vist3a_tpu_torch.ops.attention import plain_attention
+
+    blk = draw_dit_part(cfg, 0)
+    gen = torch.Generator(device="cuda").manual_seed(CLI14B_SEED - 1)
+    x = torch.randn(2, 4096, cfg.dim, generator=gen, device="cuda") \
+        .to(torch.bfloat16)
+    text = torch.randn(2, 226, cfg.dim, generator=gen, device="cuda") \
+        .to(torch.bfloat16)
+    temb6 = 0.1 * torch.randn(2, 6, cfg.dim, generator=gen, device="cuda")
+    rope = tuple(t.cuda() for t in wan_dit.rope_tables(cfg, 4, 32, 32))
+    store = {}
+    with torch.inference_mode():
+        before = fa.launches_natural
+        with captured(wan_dit, "dot_product_attention", store, first=True):
+            out = blk(x, text, temb6, rope).float()
+        launched = fa.launches_natural - before
+        (q, k, v), kw, attn = store["dot_product_attention"]
+        attn_ref = plain_attention(q, k, v).float()
+        dispatch = wan_dit.dot_product_attention
+        wan_dit.dot_product_attention = \
+            lambda q, k, v, impl="auto": plain_attention(q, k, v)
+        try:
+            ref = blk(x, text, temb6, rope).float()
+        finally:
+            wan_dit.dot_product_attention = dispatch
+    check(launched == 1, f"14B block: {launched} natural launches, want 1")
+    check(kw.get("impl", "auto") == "auto" and tuple(q.shape) == (
+        2, 4096, cfg.num_heads, cfg.head_dim), f"14B block: the first "
+        f"attention call is not the self-attention: {tuple(q.shape)} {kw}")
+    errs = {}
+    for name, got, want in (("attention", attn.float(), attn_ref),
+                            ("block", out, ref)):
+        check(bool(torch.isfinite(got).all()), f"14B block: non-finite "
+              f"{name} output")
+        diff = (got - want).abs()
+        errs[name] = {"max": (diff.max() / want.abs().max()).item(),
+                      "mean": (diff.mean() / want.abs().mean()).item()}
+    log(f"cli14b: one 14B block (dim {cfg.dim}, {cfg.num_heads} heads of "
+        f"{cfg.head_dim}, 4096 tokens), kernel route vs plain_attention on "
+        f"the card, max |Δ| / max |ref| and mean |Δ| / mean |ref|: "
+        f"{json.dumps(errs)}, natural launches {launched}")
+    for name, e in errs.items():
+        check(e["max"] <= 2 ** -5, f"14B block: the kernel route and plain "
+              f"attention disagree on the {name} output {e}")
+    return errs
+
+
+def _mem_available() -> int:
+    """The host's available memory (/proc/meminfo), in bytes."""
+    with open("/proc/meminfo") as f:
+        info = dict(line.split(":", 1) for line in f)
+    return int(info["MemAvailable"].split()[0]) * 1024
+
+
+def shard_parent() -> Path:
+    """Where phase `cli14b` writes the 14B DiT's shards: $VIST3A_SHARD_DIR,
+    else /dev/shm where it is writable (memory-backed), else the temporary
+    folder."""
+    if os.environ.get("VIST3A_SHARD_DIR"):
+        return Path(os.environ["VIST3A_SHARD_DIR"])
+    shm = Path("/dev/shm")
+    if shm.is_dir() and os.access(shm, os.W_OK):
+        return shm
+    return Path(tempfile.gettempdir())
+
+
+def sweep_stale_shards(parent: Path) -> list[str]:
+    """Remove the folders under `parent` that phase `cli14b` wrote
+    (CLI14B_SHARD_PREFIX<pid>_…, this user's) whose process has ended: a
+    run killed before its `finally` leaves 28.6 GB of shards, in memory
+    where the parent is /dev/shm.  Returns the names removed."""
+    gone = []
+    for d in parent.glob(CLI14B_SHARD_PREFIX + "*"):
+        pid = d.name[len(CLI14B_SHARD_PREFIX):].split("_", 1)[0]
+        if not pid.isdigit() or d.stat().st_uid != os.getuid():
+            continue
+        try:
+            os.kill(int(pid), 0)
+            continue
+        except ProcessLookupError:
+            pass
+        except PermissionError:
+            continue
+        shutil.rmtree(d, ignore_errors=True)
+        gone.append(d.name)
+    return gone
+
+
+def _exit_on_term(signum, frame):
+    raise SystemExit(128 + signum)
+
+
+def phase_cli14b(base: str | None = None) -> dict:
+    """VIST3A-14B from its command line (`drive_cli14b`) on phase `cli`'s
+    files (`base`, deleted after) or, run alone, on files this phase writes
+    from the sources of phase `cli` without the 1.3B DiT; then the 14B
+    block check (`block_check_14b`) and the point-head decode
+    (`drive_point_decode`) with its narrow card-vs-host reference.  The
+    14B DiT's 28.6 GB of shards go to a memory-backed folder
+    (`shard_parent`), so that the disk, which holds phase `cli`'s files
+    meanwhile, takes that much less writing in a run; the stale shards of
+    a killed run are removed first, and a SIGTERM runs the cleanup."""
+    import torch
+
+    from vist3a_tpu_torch.io import weight_import as wi
+    from vist3a_tpu_torch.nn import umt5, wan_dit
+    from vist3a_tpu_torch.stitch import chopped_anysplat as ca
+    from vist3a_tpu_torch.stitch.lora import parse_lora_mode
+
+    torch.cuda.empty_cache()
+    parent = shard_parent()
+    swept = sweep_stale_shards(parent)
+    if swept:
+        log(f"cli14b: removed the shards of ended runs under {parent}: "
+            f"{swept}")
+    term = signal.signal(signal.SIGTERM, _exit_on_term)
+    tmp = Path(tempfile.mkdtemp(prefix="vist3a_cli14b_"))
+    shm = Path(tempfile.mkdtemp(
+        prefix=f"{CLI14B_SHARD_PREFIX}{os.getpid()}_", dir=parent))
+    cfg = wan_dit.config_from_model_id(CLI14B_MODEL_ID)
+    n_dit = sum(p.numel() for p in wi.on_meta(
+        lambda: wan_dit.WanDiT(cfg)).parameters())
+    try:
+        if base is not None:
+            # phase `cli`'s 1.3B DiT, which this phase does not read: its
+            # pages may be held in the host's memory
+            shutil.rmtree(Path(base) / "wan_dit")
+        ram = _mem_available()
+        check(ram >= CLI14B_RAM_FACTOR * 2 * n_dit,
+              f"cli14b: {ram} B of host memory available; the DiT's shards "
+              f"and their load need about {CLI14B_RAM_FACTOR} × {2 * n_dit}"
+              f" B")
+        if base is None:
+            src = build_cli_sources(dit=False)
+            base_bytes = sum(p.numel() * p.element_size()
+                             for m in src.values() for p in m.parameters())
+            encoder_bytes = sum(p.numel() * p.element_size()
+                                for p in src["encoder"].parameters())
+        else:
+            base_bytes = 0
+            encoder_bytes = (Path(base) / "anysplat.pth").stat().st_size
+        # `anysplat.pth` again with its point head, and the DiT where its
+        # shards share the disk
+        need = encoder_bytes + base_bytes + CLI14B_EXTRA_BYTES + (
+            2 * n_dit if shm.stat().st_dev == tmp.stat().st_dev else 0)
+        free = shutil.disk_usage(tmp).free
+        check(free >= CLI_DISK_FACTOR * need,
+              f"cli14b: {free} B free under {tmp}; the files need about "
+              f"{need} B (×{CLI_DISK_FACTOR} asked)")
+        if base is None:
+            t0 = time.perf_counter()
+            (tmp / "base").mkdir()
+            write_weights_root(tmp / "base", src, ca.StitchedConfig(),
+                               parse_lora_mode(CLI_LORA_SPEC),
+                               torch.Generator().manual_seed(21))
+            del src
+            log(f"cli14b: run alone, phase cli's files without the 1.3B DiT "
+                f"written in {time.perf_counter() - t0:.1f} s")
+            base = str(tmp / "base")
+        res = drive_cli14b(Path(base), tmp, ca.StitchedConfig(),
+                           tokenize=fake_tokenizer(umt5.UMT5_XXL),
+                           dit_dir=shm)
+        res["ram_available"] = ram
+        (prompt, summary), = res.pop("results")
+        log(f"cli14b: '{prompt}': {_check_summary(summary, GAUSSIANS)}")
+        res["block"] = block_check_14b(cfg)
+        point = drive_point_decode(res.pop("args"), res.pop("point"))
+        res["point"] = point
+        res["point_reference"] = narrow_decoder_errors(
+            narrow_config("point"), "cli14b point head")
+    finally:
+        shutil.rmtree(shm, ignore_errors=True)
+        shutil.rmtree(tmp, ignore_errors=True)
+        if base is not None:
+            shutil.rmtree(base, ignore_errors=True)
+        signal.signal(signal.SIGTERM, term)
+        torch.cuda.empty_cache()
+    bench = res.pop("bench")
+    with tempfile.TemporaryDirectory() as d:
+        bench.dump(Path(d) / "times.json")
+        bench.dump_memory(Path(d) / "memory.json")
+        dumped = {k: json.loads((Path(d) / f"{k}.json").read_text())
+                  for k in ("times", "memory")}
+    res["times"] = dumped["times"]
+    stages, steps = res["stages_s"], res["steps"]
+    ms_step = 1e3 * stages["denoise"] / steps
+    rest = res["times"]["request"][0] - stages["denoise"]
+    res["ms_per_step"] = ms_step
+    log(f"cli14b: Benchmarker dump (s) {json.dumps(dumped['times'])}; "
+        f"dump_memory {json.dumps(dumped['memory'])}")
+    log(f"cli14b: VIST3A-14B, {n_dit} DiT parameters ({res['compared']['dit']}"
+        f" tensors equal to what was written, {res['merged_sites']} PEFT "
+        f"sites merged, off the float64 merge by at most "
+        f"{res['dit_site_err_share']:.4f} of half a bf16 spacing and the "
+        f"fp32 sum's rounding): files "
+        f"{json.dumps(res['bytes'])} B; host "
+        f"resident set while load_generator ran (B) "
+        f"{json.dumps(res['host_rss_load_generator'])}; peak memory "
+        f"allocated (B) "
+        f"{json.dumps(res['peak_bytes'])}; request stages (s) "
+        f"{json.dumps(stages)}: {steps} UniPC steps (deployed 50) at "
+        f"{ms_step:.1f} ms a step, so a 50-step request "
+        f"{50 * ms_step / 1e3 + rest:.1f} s; launches {res['launches']}; "
+        f"views {json.dumps(res['views'])}")
+    log(f"cli14b: point-head decode {json.dumps(point['summary'])}, launches "
+        f"{point['launches']}")
     return res
 
 
@@ -5180,7 +6035,9 @@ def _kernel_entries(timed: dict, raster: list | None,
     decode, the stitched-decoder slice and the VDM steps that did; for the fp32 forward and the fp32 backward the two
     distillation steps of phase `train`; for the bf16 backward (kernels 4b
     and 5) and the composite backward (kernel 7) the two VDM steps of phase
-    `vdm`.  `launches_by_path` has each path's; phases `workflows`,
+    `vdm`.  `launches_by_path` has each path's; phases `cli14b` (the 14B
+    request and its validation views as `cli14b`, the point-head decode as
+    `cli14b_point`), `workflows`,
     `evaluation` (the NVS main and the post-optimisation: rows 1 bf16, 2,
     6 and kernel 7) and `generation` (the gen_eval mains, none: the t3
     main's fp32 scorers as `generation_fp32`, the dpg main's bf16 judge
@@ -5192,7 +6049,7 @@ def _kernel_entries(timed: dict, raster: list | None,
     at S = 13 and kernel 5's those of the re-evaluation (6, 4096, 12, 128),
     and `shapes` carries every measured shape; the composites' are those of
     the first raster view, and `views` carries each view's."""
-    added = ("workflows", "evaluation", "generation")
+    added = ("cli14b", "workflows", "evaluation", "generation")
 
     def count(counter, paths):
         by_path = {path: c[counter] for path, c in launches.items()
@@ -5207,7 +6064,8 @@ def _kernel_entries(timed: dict, raster: list | None,
         return main, by_path
 
     bf16_paths = ("cli", "denoise", "decode", "slice", "vdm",
-                  "workflows_bf16", "evaluation", "generation_bf16")
+                  "cli14b", "cli14b_point", "workflows_bf16", "evaluation",
+                  "generation_bf16")
     shape_keys = ("case", "shape", "kernel_ms", "plain_ms", "bound_ms",
                   "library_ms", "max_abs_err_o", "o_excess",
                   "max_abs_err_lse")
@@ -5385,7 +6243,9 @@ def main(argv=None) -> int:
     decoded = run("decode", phase_decode, model, vae, profile)
     denoised = run("denoise", phase_denoise, model, vae, profile)
     del model, vae
-    served = run("cli", phase_cli, "generation" in phases)
+    served = run("cli", phase_cli, "generation" in phases,
+                 "cli14b" in phases)
+    served14b = run("cli14b", phase_cli14b, served and served.get("weights"))
     trained = run("train", phase_train)
     tuned = run("vdm", phase_vdm)
     workflows = run("workflows", phase_workflows)
@@ -5400,6 +6260,8 @@ def main(argv=None) -> int:
                 "decode": decoded and {**decoded["launches"], "natural": 0},
                 "denoise": denoised and denoised["launches"],
                 "cli": served and served["launches"],
+                "cli14b": served14b and served14b["launches"],
+                "cli14b_point": served14b and served14b["point"]["launches"],
                 "train": trained and trained["launches"],
                 "vdm": tuned and tuned["launches"]}
     if workflows:

@@ -26,6 +26,8 @@
 import argparse
 import dataclasses
 import functools
+import os
+import subprocess
 import sys
 from pathlib import Path
 
@@ -205,6 +207,93 @@ def test_main_on_reference_files_at_tiny_sizes(tiny_gate_off, tmp_path,
     assert theirs.keys() == mine.keys()
     assert all(theirs[k].dtype == torch.bfloat16
                and torch.equal(theirs[k], mine[k]) for k in theirs)
+
+
+@pytest.mark.parametrize("dit_dtype", [torch.bfloat16, torch.float32])
+def test_cli14b_on_files_at_tiny_sizes(tiny_gate_off, tmp_path,
+                                      monkeypatch, dit_dtype):
+    """Phase `cli14b`'s own code on the CPU (`chip_smoke.drive_cli14b`,
+    `drive_point_decode`): phase `cli`'s files without the DiT, then a DiT
+    written part by part in bf16 or fp32, loaded under the 14B model id
+    (the tiny config in its place), one request, the DiT held bit for bit
+    and its merged sites within half a bf16 spacing of the float64 merge
+    (an fp32 file merged after a cast to bf16 is a spacing off), the
+    validation views and their PNG, and the point-head decode from the
+    file with the point head added."""
+    _, tcfg = tiny_gate_off
+    point_cfg = dataclasses.replace(
+        tcfg.encoder.depth, activation="inv_log", output_dim=4)
+    ecfg = dataclasses.replace(tcfg.encoder, point=point_cfg)
+    monkeypatch.setattr(tml, "EncoderConfig", lambda: ecfg)
+    ucfg, dcfg = tumt5.UMT5Config(**UMT5), tdit.WanDiTConfig(**DIT)
+    vcfg = tvae.WanVAEConfig(**VAE)
+    monkeypatch.setattr(tumt5, "UMT5_XXL", ucfg)
+    monkeypatch.setattr(tdit, "config_from_model_id", lambda m: dcfg)
+    monkeypatch.setattr(tt, "T23DConfig", functools.partial(
+        tt.T23DConfig, width=64, height=64, feedforward_size=56, vae=vcfg,
+        umt5=ucfg))
+    request = tt.text_to_3dgs
+    monkeypatch.setattr(tt, "text_to_3dgs", lambda *a, **k: request(
+        *a, **{**k, "orbit_t": 0}))
+    gen = torch.Generator().manual_seed(7)
+    src = {"encoder": build_random(lambda: Encoder(tcfg.encoder), gen,
+                                   "cpu", torch.float32),
+           "vae_encoder": tvae.init_encoder(vcfg, gen, device="cpu"),
+           "vae_decoder": tvae.init_decoder(vcfg, gen, device="cpu"),
+           "umt5": tumt5.init(ucfg, gen, "cpu", torch.bfloat16)}
+    src["encoder"].camera_head.pose_branch.fc2.bias.copy_(
+        torch.from_numpy(CAMERA_BIAS))
+    base = tmp_path / "base"
+    base.mkdir()
+    chip_smoke.write_weights_root(base, src, tcfg, parse_lora_mode(LORA),
+                                  torch.Generator().manual_seed(21))
+    assert sorted(p.name for p in base.iterdir()) == [
+        "anysplat.pth", "anysplat_stitched.pth", "umt5", "wan_vae"]
+    res = chip_smoke.drive_cli14b(
+        base, tmp_path, tcfg, tokenize=chip_smoke.fake_tokenizer(ucfg),
+        device="cpu", steps=2, point_cfg=point_cfg, flags=(
+            "--num_frames", "5"),
+        viz_sizes={"views": 24, "image": 32, "trajectory": 6},
+        dit_dtype=dit_dtype)
+    (prompt, summary), = res["results"]
+    assert prompt == chip_smoke.CLI14B_PROMPT and summary["latents_finite"]
+    assert _tensors_in(res["results"]) == []
+    assert res["compared"]["dit"] == len(tdit.init(dcfg, gen, "cpu")
+                                         .state_dict())
+    assert res["merged_sites"] == DIT["num_layers"] * 2 * 4
+    assert res["dit_site_err_share"] <= 1
+    shards = sorted((tmp_path / "weights" / "wan_dit").iterdir())
+    assert len(shards) == DIT["num_layers"] + 2          # and the index
+    assert res["stages_s"].keys() == set(chip_smoke.T23D_REQUEST_STAGES)
+    assert res["launches"] == {"unmasked": 0, "masked": 0, "natural": 0,
+                               "composite": 0}
+    views = res["views"]
+    assert views["projections"][:3] == [1, 3, 3]
+    assert views["trajectory"] == [6, 3, 32, 32]
+    assert views["png_bytes"] > 0
+    assert {"write.dit", "load.generator", "request", "viz.projections",
+            "viz.layout", "check.dit"} <= res["bench"].execution_times.keys()
+    point = chip_smoke.drive_point_decode(res["args"], res["point"],
+                                          device="cpu", frames=5, image=56,
+                                          latent_hw=8)
+    assert point["summary"]["point_head_tensors"] == len(res["point"]) > 0
+    assert point["summary"]["live"] > 0
+
+
+def test_sweep_stale_shards_removes_only_ended_runs(tmp_path):
+    """Phase `cli14b`'s shard folders of a process that has ended are
+    removed; those of a live process and other folders stay."""
+    ended = subprocess.Popen([sys.executable, "-c", "pass"])
+    ended.wait()
+    prefix = chip_smoke.CLI14B_SHARD_PREFIX
+    for name in (f"{prefix}{ended.pid}_a", f"{prefix}{os.getpid()}_b",
+                 f"{prefix}x_c", "other"):
+        (tmp_path / name).mkdir()
+        (tmp_path / name / "shard").write_bytes(b"0")
+    assert chip_smoke.sweep_stale_shards(tmp_path) == [
+        f"{prefix}{ended.pid}_a"]
+    assert sorted(p.name for p in tmp_path.iterdir()) == sorted([
+        f"{prefix}{os.getpid()}_b", f"{prefix}x_c", "other"])
 
 
 def test_run_shards_prompts_and_names_folders(tmp_path, monkeypatch):

@@ -170,10 +170,15 @@ def test_anysplat_encoder_import_matches_jax():
     del want["vit.mask_token"]            # read and dropped by the port
     got = twi.import_anysplat_encoder(_torch(sd), tcfg.encoder)
     _assert_equal(got, want)
-    # the point head has no place in the port (its branch is not ported)
+    # the depth configuration skips a point head (its import into the
+    # point-head encoder is `test_torch_point_head.py`'s); another stray
+    # key still raises
+    _assert_equal(twi.import_anysplat_encoder(
+        {**_torch(sd), "encoder.point_head.norm.weight": torch.zeros(1)},
+        tcfg.encoder), want)
     with pytest.raises(KeyError, match="not consumed"):
         twi.import_anysplat_encoder(
-            {**_torch(sd), "encoder.point_head.norm.weight": torch.zeros(1)},
+            {**_torch(sd), "encoder.pose_head.norm.weight": torch.zeros(1)},
             tcfg.encoder)
     # the fabricator inverts the importer over the port's module
     enc = twi.build_module(lambda: Encoder(tcfg.encoder), got, device="cpu")
@@ -276,6 +281,50 @@ def test_apply_peft_lora_matches_jax(dit_sd):
     with pytest.raises(KeyError, match="not consumed"):
         twi.apply_peft_lora(base, {"base_model.model.blocks.0.attn1.to_q."
                                    "lora_C.weight": torch.zeros(1)})
+
+
+@pytest.mark.parametrize("file_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("layout", [
+    DIT,                        # narrow, as the 1.3B
+    dict(dim=80, ffn_dim=112, num_layers=4, num_heads=10, freq_dim=32,
+         text_dim=24)])             # wider and deeper, as the 14B
+def test_peft_merge_cast_per_site_is_the_cast_after(layout, file_dtype):
+    """Each site merged in fp32 from the file's values and cast to bf16 at
+    once (`dtype=`, what `load_generator` asks for) gives the module
+    `build_module` makes from the fp32 merge, bit for bit, on bf16 and on
+    fp32 files and an adapter on every site.  On fp32 files, merging into
+    weights already cast to bf16 rounds twice and differs."""
+    cfg = tdit.WanDiTConfig(**layout)
+    gen = torch.Generator().manual_seed(9)
+    base = {k: v.to(file_dtype) for k, v in twi.import_wan_dit(
+        tmf._fab_wan_dit(tdit.init(cfg, gen, "cpu")), cfg).items()}
+    adapter, r = {}, 8
+    for i in range(cfg.num_layers):
+        for attn in ("attn1", "attn2"):
+            for proj in ("to_q", "to_k", "to_v", "to_out.0"):
+                p = f"base_model.model.blocks.{i}.{attn}.{proj}"
+                adapter[f"{p}.lora_A.weight"] = torch.randn(
+                    r, cfg.dim, generator=gen) / cfg.dim ** 0.5
+                adapter[f"{p}.lora_B.weight"] = torch.randn(
+                    cfg.dim, r, generator=gen) * 1e-2
+    fp32 = twi.apply_peft_lora(base, adapter)
+    cast = twi.apply_peft_lora(base, adapter, dtype=torch.bfloat16,
+                               device="cpu")
+    merged = {k for k in cast if not torch.equal(cast[k].to(file_dtype),
+                                                 base[k])}
+    assert len(merged) == cfg.num_layers * 8
+    assert all(fp32[k].dtype == torch.float32 for k in merged)
+    assert all(cast[k].dtype == torch.bfloat16 for k in merged)
+    want, got = (twi.build_module(lambda: tdit.WanDiT(cfg), sd, device="cpu",
+                                  dtype=torch.bfloat16).state_dict()
+                 for sd in (fp32, cast))
+    assert want.keys() == got.keys()
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    twice = twi.apply_peft_lora({k: v.to(torch.bfloat16)
+                                 for k, v in base.items()}, adapter,
+                                dtype=torch.bfloat16)
+    same = all(torch.equal(twice[k], got[k]) for k in merged)
+    assert same == (file_dtype == torch.bfloat16)
 
 
 # --------------------------------------------------------------------------- #

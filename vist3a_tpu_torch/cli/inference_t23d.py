@@ -108,30 +108,36 @@ def load_generator(root: Path, model_id: str, lora_path=None, *,
                    device: torch.device | str = "cuda") -> dict:
     """{"umt5": UMT5Encoder, "dit": WanDiT} in bf16 from `{root}/umt5` and
     `{root}/wan_dit`, each checked against its manifest; a PEFT adapter at
-    `lora_path` merged into the DiT in fp32 before the cast."""
+    `lora_path` merged into the DiT's sites in fp32 from the file's values,
+    each site moved to `device`, merged there and cast to bf16 at once.
+    The host holds one file's tensors at a time (28.6 GB at 14B, where the
+    fp32 sites alone would be 33.5); the DiT is built before UMT5 is
+    placed, so the merged sites (16.8 GB at 14B) and UMT5 (11.4) are not
+    on the card together."""
     from vist3a_tpu_torch.io import load_weights, manifests
     from vist3a_tpu_torch.io import weight_import as wi
     from vist3a_tpu_torch.nn import umt5, wan_dit
 
-    sd = load_weights.load_sharded_safetensors(root / "umt5")
-    manifests.validate_state_dict(sd, "umt5_xxl")
-    ucfg = umt5.UMT5_XXL
-    out = {"umt5": wi.build_module(
-        lambda: umt5.UMT5Encoder(ucfg), wi.import_umt5(sd, ucfg),
-        device=device, dtype=torch.bfloat16)}
-    del sd
     sd = manifests.validate_wan_dit(
         load_weights.load_sharded_safetensors(root / "wan_dit"))
     # `--model_id` picks the DiT's widths (`inference_t23d.py:55`), the
     # file its depth
     cfg = wi.dit_config(sd, wan_dit.config_from_model_id(model_id))
     state = wi.import_wan_dit(sd, cfg)
+    del sd
     if lora_path:
         state = wi.apply_peft_lora(
-            state, load_weights.load_sharded_safetensors(lora_path))
-    out["dit"] = wi.build_module(lambda: wan_dit.WanDiT(cfg), state,
-                                 device=device, dtype=torch.bfloat16)
-    return out
+            state, load_weights.load_sharded_safetensors(lora_path),
+            dtype=torch.bfloat16, device=device)
+    dit = wi.build_module(lambda: wan_dit.WanDiT(cfg), state, device=device,
+                          dtype=torch.bfloat16)
+    del state
+    sd = load_weights.load_sharded_safetensors(root / "umt5")
+    manifests.validate_state_dict(sd, "umt5_xxl")
+    ucfg = umt5.UMT5_XXL
+    return {"umt5": wi.build_module(
+        lambda: umt5.UMT5Encoder(ucfg), wi.import_umt5(sd, ucfg),
+        device=device, dtype=torch.bfloat16), "dit": dit}
 
 
 def main(args, tokenize: Callable | None = None, *,
@@ -151,19 +157,26 @@ def main(args, tokenize: Callable | None = None, *,
         tokenize = hf_tokenizer(root / "umt5")
     with open(args.input_texts_path) as f:
         prompts = [line.strip() for line in f if line.strip()]
-    # the inference decode runs the DPT cascades in bf16 (the t23d
-    # default; `load_stitched_model`'s config keeps the fp32 setting)
-    scfg = dataclasses.replace(
-        scfg, encoder=dataclasses.replace(scfg.encoder,
-                                          head_dtype="bfloat16"))
-    cfg = t23d.T23DConfig(
-        num_frames=args.num_frames, flow_shift=args.flow_shift,
-        guidance_scale=float(str(args.cfg_scale).split(",")[0]),
-        dit=modules["dit"].cfg, stitched=scfg)
+    cfg = request_config(args, modules["dit"].cfg, scfg)
     rank, world = process_grid()
     return modules, run(modules, tokenize, prompts, args.output_dir, cfg,
                         process_index=rank, process_count=world,
                         device=device)
+
+
+def request_config(args, dit_cfg, scfg, **over) -> t23d.T23DConfig:
+    """The T23DConfig of a request from the flags (`--num_frames`,
+    `--flow_shift`, the first `--cfg_scale`), the loaded DiT's config and
+    the stitched decoder's, with its DPT cascades in bf16 (the inference
+    decode; `load_stitched_model`'s config keeps the fp32 setting); `over`
+    replaces fields (`num_inference_steps`)."""
+    scfg = dataclasses.replace(
+        scfg, encoder=dataclasses.replace(scfg.encoder,
+                                          head_dtype="bfloat16"))
+    return t23d.T23DConfig(
+        num_frames=args.num_frames, flow_shift=args.flow_shift,
+        guidance_scale=float(str(args.cfg_scale).split(",")[0]),
+        dit=dit_cfg, stitched=scfg, **over)
 
 
 if __name__ == "__main__":

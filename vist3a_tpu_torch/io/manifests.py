@@ -7,7 +7,9 @@ tuple or `('size', n)` where only the element count is layout-stable).
   * `load_manifest(family)` parses a manifest;
   * `validate_state_dict(sd, family)` fails loudly, listing every missing,
     unconsumed (beyond the family's documented ignore patterns) and
-    mis-shaped key, before an import;
+    mis-shaped key, before an import (VGGT-1B's point head in the AnySplat
+    file is optional, and checked whole where present: the manifest, a
+    copy of the JAX package's, lacks it);
   * `validate_wan_dit(sd)` picks the DiT manifest by the file's depth;
   * `fabricate_from(manifest)` is a zeros state dict of those keys and
     shapes (broadcast views, free at any size);
@@ -75,12 +77,14 @@ def _fab_wan_vae(encoder: nn.Module, decoder: nn.Module
     return out
 
 
-def _fab_wan_dit(dit: nn.Module) -> dict[str, torch.Tensor]:
+def _fab_wan_dit(dit: nn.Module, prefix: str = ""
+                 ) -> dict[str, torch.Tensor]:
     """`WanDiT` → the `WanTransformer3DModel` state dict, the scale-shift
-    tables (6, D) and (2, D) as (1, 6, D) and (1, 2, D)."""
+    tables (6, D) and (2, D) as (1, 6, D) and (1, 2, D).  With `prefix`
+    (`blocks.<i>.`), `dit` is that part of a DiT (a `WanBlock`)."""
     out = {}
     for k, v in dit.state_dict().items():
-        ref = wi.dit_to_reference(k)
+        ref = wi.dit_to_reference(prefix + k)
         out[ref] = v[None] if wi.DIT_BY_SIZE.search(ref) else v
     return out
 
@@ -264,6 +268,11 @@ FAMILIES = {
         # derived from VGGT-1B) the unused track head
         "ignore": wi.ANYSPLAT_IGNORE,
         "size": None,
+        # VGGT-1B's point head, checked whole where a file has any of it
+        "optional": ((r"^encoder\.point_head\.", lambda: {
+            k: tuple(v.shape) for k, v in _fab_anysplat_encoder(
+                wi.encoder_skeleton(EncoderConfig(pred_head_type="point")))
+            .items() if k.startswith("encoder.point_head.")}),),
     },
     "wan_vae": {"fab": _deployed_vae, "ignore": (), "size": wi.VAE_BY_SIZE},
     "wan_dit_1_3b": {
@@ -313,8 +322,13 @@ def load_manifest(family: str) -> dict:
 def validate_state_dict(sd: dict, family: str) -> bool:
     """Raise ValueError listing every key of the family's manifest that
     `sd` misses, every key of `sd` outside it and its ignore patterns, and
-    every shape (or, for size entries, element count) that differs."""
+    every shape (or, for size entries, element count) that differs.  A
+    family's optional part (the AnySplat file's point head) joins the
+    manifest where `sd` has a key of it."""
     exp = load_manifest(family)
+    for pattern, part in FAMILIES[family].get("optional", ()):
+        if any(re.search(pattern, k) for k in sd):
+            exp.update(part())
     ignore = [re.compile(p) for p in FAMILIES[family]["ignore"]]
     missing = sorted(k for k in exp if k not in sd)
     extra = sorted(k for k in sd if k not in exp

@@ -132,6 +132,7 @@ _ENC_TO_REF: Rules = (
     (r"^camera_head\.modulation\.", "camera_head.poseLN_modulation.1."),
     (r"^camera_head\.", "camera_head."),
     (r"^depth_head\.", "depth_head."),
+    (r"^point_head\.", "point_head."),
     (r"^gs_head\.", "gaussian_param_head."),
 )
 _ENC_FROM_REF: Rules = (
@@ -141,6 +142,7 @@ _ENC_FROM_REF: Rules = (
     (r"^camera_head\.poseLN_modulation\.1\.", "camera_head.modulation."),
     (r"^camera_head\.", "camera_head."),
     (r"^depth_head\.", "depth_head."),
+    (r"^point_head\.", "point_head."),
     (r"^gaussian_param_head\.", "gs_head."),
 )
 # inside a DPT / GS head: the port's module names (the JAX tree's) and the
@@ -166,7 +168,8 @@ _HEAD_FROM_REF: Rules = (
     (r"^scratch\.output_conv2\.2\.", "output_conv2.1."),
     (r"^input_merger\.0\.", "input_merger."),
 )
-_HEAD_PREFIX = re.compile(r"^(depth_head|gs_head|gaussian_param_head)\.")
+_HEAD_PREFIX = re.compile(
+    r"^(depth_head|point_head|gs_head|gaussian_param_head)\.")
 _VIT_BLOCK = re.compile(r"^vit\.blocks\.(\d+)\.")
 # keys of the AnySplat hub file the port never reads (`io/manifests.py`)
 ANYSPLAT_IGNORE = (r"^decoder\.", r"^encoder\.track_head\.",
@@ -214,17 +217,20 @@ def import_anysplat_encoder(sd: dict, cfg: EncoderConfig = EncoderConfig(),
                             ) -> dict[str, torch.Tensor]:
     """The AnySplat hub state dict (`lhjiang/anysplat`: `encoder.aggregator.*`,
     `encoder.camera_head.*`, `encoder.depth_head.*`,
-    `encoder.gaussian_param_head.*`) → the state dict of `Encoder(cfg,
+    `encoder.gaussian_param_head.*`, and in files derived from VGGT-1B
+    `encoder.point_head.*`) → the state dict of `Encoder(cfg,
     vit_start=0)`.  The splatting decoder and the track head are ignored;
-    a point head has no place in the port (its branch is not ported) and
-    raises as an unconsumed key."""
+    the point head is imported when `cfg.pred_head_type` is "point" (a file
+    without one then raises) and skipped otherwise, as the depth path never
+    reads it."""
     def from_reference(key):
         return (encoder_from_reference(key[len(prefix):])
                 if key.startswith(prefix) else None)
 
+    ignore = ANYSPLAT_IGNORE if cfg.pred_head_type == "point" else \
+        (*ANYSPLAT_IGNORE, rf"^{re.escape(prefix)}point_head\.")
     return _import(sd, encoder_skeleton(cfg).state_dict(), from_reference,
-                   "anysplat_encoder", ignore=ANYSPLAT_IGNORE,
-                   dropped=(MASK_TOKEN,))
+                   "anysplat_encoder", ignore=ignore, dropped=(MASK_TOKEN,))
 
 
 # --------------------------------------------------------------------------- #
@@ -386,12 +392,20 @@ def import_wan_dit(sd: dict, cfg: wan_dit.WanDiTConfig | None = None
 
 
 def apply_peft_lora(dit_sd: dict[str, torch.Tensor], lora_sd: dict, *,
-                    r: int = 8, alpha: int = 16) -> dict[str, torch.Tensor]:
+                    r: int = 8, alpha: int = 16,
+                    dtype: torch.dtype | None = None,
+                    device: torch.device | str | None = None
+                    ) -> dict[str, torch.Tensor]:
     """A PEFT adapter (`base_model.model.blocks.{i}.attn1.to_q.lora_A.weight`
     (r, in) / `lora_B.weight` (out, r)) merged into an imported DiT state
     dict: each site's weight becomes w + (B @ A)·α/r, computed in fp32
-    before any cast (the JAX package merges into fp32 numpy).  Keys of the
-    adapter that are no factor of a site raise."""
+    from the file's values, before any cast (the JAX package merges into
+    fp32 numpy), on `device` (by default where the weight is); the other
+    entries are `dit_sd`'s own.  With `dtype` (the module's), each merged
+    site is cast to it at once, which rounds the same fp32 sum as casting
+    them all later, and at 14B the fp32 sites (320 × 5120² × 4 B ≈
+    33.5 GB) are never held together.  Keys of the adapter that are no
+    factor of a site raise."""
     scaling = alpha / r
     factors: dict[str, dict[str, torch.Tensor]] = {}
     stray = []
@@ -407,8 +421,12 @@ def apply_peft_lora(dit_sd: dict[str, torch.Tensor], lora_sd: dict, *,
     _problems("peft_lora", stray + unknown, half, [])
     out = dict(dit_sd)
     for site, f in factors.items():
-        delta = f["B"].float() @ f["A"].float()
-        out[site] = dit_sd[site].float() + delta * scaling
+        w = dit_sd[site]
+        dev = w.device if device is None else device
+        delta = f["B"].to(dev, torch.float32) @ f["A"].to(dev, torch.float32)
+        # moved in the file's dtype, widened where the sum is computed
+        merged = w.to(dev).float() + delta * scaling
+        out[site] = merged if dtype is None else merged.to(dtype)
     return out
 
 

@@ -8,10 +8,13 @@ confidence mask is a global quantile, folded into opacity so every pixel
 stays resident (G = S·H·W, static); the unified adapter calibrates the
 Gaussians; the context pose is c2w 4×4 plus width/height-normalised K.
 
-The depth-head path ("depth", the deployed VIST3A path) is the one ported;
-the JAX package's `pred_head_type="point"` branch is not.  `forward` is the
-full (un-chopped) encoder from images, the frozen distillation teacher: an
-`Encoder` built with vit_start=0 holds the whole DINOv2 trunk.
+`pred_head_type` picks the geometry: "depth" (the deployed VIST3A path)
+unprojects the depth head's depth; "point" takes world points straight
+from VGGT's point head (`anysplat.py:108,428-433`; an `Encoder` built so
+holds a `point_head`), its confidence as `depth_conf` and their z as the
+depth, as the JAX package completes the reference's branch.  `forward` is
+the full (un-chopped) encoder from images, the frozen distillation
+teacher: an `Encoder` built with vit_start=0 holds the whole DINOv2 trunk.
 """
 
 from __future__ import annotations
@@ -42,9 +45,13 @@ class EncoderConfig:
     agg: AggregatorConfig = AggregatorConfig()
     camera: CameraHeadConfig = CameraHeadConfig()
     depth: DPTConfig = DPTConfig()
+    # VGGT-1B's `point_head`: DPTHead(output_dim=4, activation="inv_log")
+    point: DPTConfig = DPTConfig(activation="inv_log",
+                                 conf_activation="expp1", output_dim=4)
     gs: GSHeadConfig = GSHeadConfig(output_dim=84, head2_features=128,
                                     pos_embed=False)
     sh_degree: int = 4
+    pred_head_type: str = "depth"       # or "point"
     conf_threshold: float = 0.1         # confidence quantile masked out
     # DPT-cascade activation dtype: "float32" (the reference) or "bfloat16"
     # (the inference decode).  Activations, quantile and assembly stay fp32.
@@ -80,6 +87,8 @@ class Encoder(nn.Module):
         self.camera_head = CameraHead(cfg.camera)
         self.depth_head = DPTHead(cfg.depth)
         self.gs_head = GSHead(cfg.gs)
+        if cfg.pred_head_type == "point":
+            self.point_head = DPTHead(cfg.point)
 
 
 def cast_trunk_bf16(encoder: Encoder) -> Encoder:
@@ -109,9 +118,16 @@ def heads_pipeline(encoder: Encoder, cfg: EncoderConfig, taps: list,
     images01 = images01.to(hdt)
     extrinsic, intrinsic = pose_encoding_to_extri_intri(pose_enc_list[-1],
                                                         (h, w))
-    depth, depth_conf = dpt_apply(encoder.depth_head, taps, (h, w), psi,
-                                  cfg.depth, (b, s), remat=remat)
-    pts = unproject_depth(depth, extrinsic, intrinsic)       # (B,S,H,W,3)
+    if cfg.pred_head_type == "point":
+        pts, depth_conf = dpt_apply(encoder.point_head, taps, (h, w), psi,
+                                    cfg.point, (b, s), remat=remat)
+        depth = pts[..., 2:3]
+    elif cfg.pred_head_type == "depth":
+        depth, depth_conf = dpt_apply(encoder.depth_head, taps, (h, w), psi,
+                                      cfg.depth, (b, s), remat=remat)
+        pts = unproject_depth(depth, extrinsic, intrinsic)   # (B,S,H,W,3)
+    else:
+        raise ValueError(f"pred_head_type {cfg.pred_head_type!r}")
 
     conf_valid = depth_conf > torch.quantile(depth_conf.flatten(),
                                              cfg.conf_threshold)

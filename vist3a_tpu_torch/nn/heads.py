@@ -151,6 +151,9 @@ class DPTConfig:
     output_dim: int = 2                 # depth: 1 + conf
     features: int = 256
     out_channels: tuple = (256, 512, 1024, 1024)
+    # "exp" (depth), "inv_log" (VGGT's point head), "norm_exp", "linear"
+    activation: str = "exp"
+    conf_activation: str = "expp1"      # or "expp0", "sigmoid"
     pos_embed: bool = True
     head2_features: int = 32
     frames_chunk_size: int = 8          # ≤0 → all frames at once
@@ -271,11 +274,9 @@ def dpt_apply(head: DPTHead, taps, images_hw: tuple[int, int],
               patch_start_idx: int, cfg: DPTConfig,
               batch_seq: tuple[int, int], *, remat: bool = False):
     """Depth-style DPT: returns (preds (B,S,H,W,C−1), conf (B,S,H,W)),
-    activated in fp32 whatever the cascade dtype: the depth head's "exp"
-    and "expp1" (the JAX package's other activations serve its point head,
-    which the decoder does not run).  With remat each frame chunk is
-    recomputed in the backward (its 448² conv activations are the largest
-    training temporaries)."""
+    activated in fp32 whatever the cascade dtype (`_activate`).  With remat
+    each frame chunk is recomputed in the backward (its 448² conv
+    activations are the largest training temporaries)."""
     h, w = images_hw
     b, s = batch_seq
     taps_flat = [t.reshape(b * s, *t.shape[2:]) for t in taps]
@@ -289,9 +290,35 @@ def dpt_apply(head: DPTHead, taps, images_hw: tuple[int, int],
         chunks.append(recompute(frames, head, chunk) if remat
                       else frames(head, chunk))
     out = torch.cat(chunks)
-    fmap = out.float().permute(0, 2, 3, 1)         # (BS, H, W, C)
-    preds, conf = torch.exp(fmap[..., :-1]), 1 + torch.exp(fmap[..., -1])
+    preds, conf = _activate(out.float().permute(0, 2, 3, 1), cfg)
     return preds.reshape(b, s, h, w, -1), conf.reshape(b, s, h, w)
+
+
+def _activate(fmap: torch.Tensor, cfg: DPTConfig):
+    """(…, C) fp32 → (preds (…, C−1), conf (…)) by `cfg.activation` and
+    `cfg.conf_activation` (`heads/head_act.py:61-112`)."""
+    xyz, conf = fmap[..., :-1], fmap[..., -1]
+    if cfg.activation == "exp":
+        preds = torch.exp(xyz)
+    elif cfg.activation == "norm_exp":
+        d = torch.linalg.vector_norm(xyz, dim=-1, keepdim=True) \
+            .clamp_min(1e-8)
+        preds = xyz / d * torch.expm1(d)
+    elif cfg.activation == "inv_log":
+        preds = torch.sign(xyz) * torch.expm1(torch.abs(xyz))
+    elif cfg.activation == "linear":
+        preds = xyz
+    else:
+        raise ValueError(cfg.activation)
+    if cfg.conf_activation == "expp1":
+        conf = 1 + torch.exp(conf)
+    elif cfg.conf_activation == "expp0":
+        conf = torch.exp(conf)
+    elif cfg.conf_activation == "sigmoid":
+        conf = torch.sigmoid(conf)
+    else:
+        raise ValueError(cfg.conf_activation)
+    return preds, conf
 
 
 def _gs_frames(head: GSHead, taps_flat, imgs, cfg: GSHeadConfig,
