@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases device,build,kernels,raster,vdm
     python3 chip_smoke.py --phases device,build,cli
     python3 chip_smoke.py --phases device,build,cli14b
+    python3 chip_smoke.py --phases device,build,distributed
     python3 chip_smoke.py --phases device,build,workflows
     python3 chip_smoke.py --phases device,build,evaluation
     python3 chip_smoke.py --phases device,build,generation
@@ -188,7 +189,7 @@ Phases, each of which passes or raises (any failure exits non-zero):
                a fresh state and held against the live one, tensor by
                tensor (no step is taken for it).
                Cut: B = 1 and two steps; random weights, no data loader.
-  12. vdm    — reward-aligned VDM fine-tuning at full width: two steps of
+  12. vdm    — reward-aligned VDM fine-tuning at full width: one step of
                `cli.train_vdm.run` (`VDMTrainConfig()`: LoRA r8 α16 on the
                Wan 2.1 1.3B DiT's attention, bf16; UMT5-XXL for the prompts
                with the stand-in tokenizer of phase `denoise`; the Wan VAE
@@ -196,8 +197,9 @@ Phases, each of which passes or raises (any failure exits non-zero):
                bf16; both CLIP-H vision towers, fp32; all drawn on the card
                from seeds) over a synthetic clip (1, 3, 13, 512, 512) and
                random L2-normalised scorer text features.  Step 0 takes the
-               50-step rollout (every 10th step), step 1 its drawn and
-               bucketed length.  Checks finite losses, grad_norm > 0, no
+               50-step rollout (every 10th step; a second step, of a drawn
+               and bucketed length, was cut in PR 15 for phase
+               `distributed`).  Checks finite losses, grad_norm > 0, no
                skip, the LoRA B factors moved, the EMA at its warm-up
                formula, the frozen weights unchanged, and each step's
                launches against `vdm_launches` (56 kernel-4b, 60 kernel-5
@@ -209,26 +211,41 @@ Phases, each of which passes or raises (any failure exits non-zero):
                (the gradients with respect to the latent and the decoded
                clip, the render's cotangents apart), counting card vs host
                the members of the sets the render's thresholds select.
-               The run saves `checkpoint-2` (`save_freq`), reloaded into
+               The run saves `checkpoint-1` (`save_freq`), reloaded into
                a fresh state and held against the live one as in phase 11.
-               Cut: B = 1, two steps, random weights and data.
-  13. workflows — the three workflows from their command lines at full
+               Cut: B = 1, one step, random weights and data.
+  13. distributed — the multi-GPU layer (`core/distributed.py`,
+               `core/mesh.py`) on the card at world 1: the environment of a
+               one-rank `torchrun` (`launcher_env`), `setup_dist` (NCCL,
+               the rank pinned to its device), a 1×1 mesh and a one-tensor
+               all-reduce; then, each against its plain step from the same
+               seed, one full-width fp32 distillation step at 9 views
+               through `run` under DDP, one VDM SFT step of the 1.3B DiT
+               (bf16, a 13-frame 512² clip) under each of `fsdp`, `tp`,
+               `tp_fsdp` and `replicated`, and a 2-step denoise under `tp`;
+               each maximum |wrapped − plain| must be 0 (at world 1 every
+               collective is a copy; the distillation steps with cuDNN's
+               deterministic algorithms, and the plain step once more with
+               its default ones, to log their run-to-run spread) and each
+               wrapped step's launches as the plain path's.  `cleanup` at
+               the end.
+  14. workflows — the three workflows from their command lines at full
                width on files on disk (`drive_workflows`): phase `cli`'s
                source modules plus both scorers' towers (PickScore: HF
                CLIP-H/14 at 224²; DFN5B: open_clip H/14 at 378²; each with
                a CLIP-H text tower; fp32) written in the reference layout
                (`pickscore/` with `logit_scale` and a synthetic `vocab.json`
                + `merges.txt`, `dfn5b/`; ~28 GB, the free disk read first),
-               a DL3DV tree (2 scenes × 21 structured frames at 960×540,
-               PNG, one scene captioned), a one-scene ScanNet tree and a
-               prompt list; then `cli/find_layer.py::main` on 2 DL3DV
-               samples (24 MSEs, 24 artifacts, the printed argmin, a
+               a DL3DV tree (1 captioned scene × 21 structured frames at
+               960×540, PNG), a one-scene ScanNet tree and a
+               prompt list; then `cli/find_layer.py::main` on 1 DL3DV
+               sample (24 MSEs, 24 artifacts, the printed argmin, a
                second main from the cache, the last tap against the
                trunk's own blocks, 24 fp32 flash launches a sample),
                `cli/train_stitching.py::main` over DL3DV + ScanNet from the
                search's `enc_blocks_16` artifact (converted to the {weight,
                bias} `.pth` the main reads; LoRA r64 α32, B = 1, one epoch
-               of 3 steps at the seed whose views are 13, 9, 9: finite
+               of 2 steps at the seed whose views are 13, 9: finite
                losses, the teacher unchanged, the epoch's checkpoint, the
                JSONL metric stream's 16 terms, phase `train`'s launches a
                step) and `cli/train_vdm.py::main --enable_rl` for one step
@@ -236,11 +253,17 @@ Phases, each of which passes or raises (any failure exits non-zero):
                per-prompt text features of the imported towers finite, unit
                norm and the source towers', the frozen modules as written,
                `history.jsonl`, `images/step_000000.png`, `checkpoint-1`,
-               `vdm_launches(50)`).  Logs each main's read, load, step and
-               extraction seconds, the host fit's seconds, the feature
-               cache's bytes and the peak memory.  Cut: random weights,
-               synthetic scenes and tokenizer files, a few steps.
-  14. evaluation — RE10K novel-view synthesis from its command line and
+               `vdm_launches(50)`, the DiT under `--dit_sharding fsdp`).
+               The distillation and VDM mains run under a one-rank
+               torchrun's environment, so each starts NCCL through
+               `setup_dist` and destroys it; each must leave nothing
+               allocated once its results are dropped.  Logs each main's
+               read, load, step and extraction seconds, the host fit's
+               seconds, the feature cache's bytes, the peak memory and the
+               memory allocated before and after it.  Cut: random
+               weights, synthetic scenes and tokenizer files, a few steps,
+               one search sample.
+  15. evaluation — RE10K novel-view synthesis from its command line and
                per-scene refinement, at full width (`drive_evaluation`):
                the whole AnySplat encoder (fp32, the camera trick) and the
                Wan 2.1 VAE drawn on the card from a seed and written as
@@ -272,7 +295,7 @@ Phases, each of which passes or raises (any failure exits non-zero):
                Lanczos resizes), VAE-encode, run each forward, render,
                write and score, the seconds a refine step, and the peak
                memory.  Cut: random weights, synthetic scenes, 50 steps.
-  15. generation — the generation-quality evaluation from its command
+  16. generation — the generation-quality evaluation from its command
                line at full width (`drive_generation`): the Qwen2.5-VL-7B
                judge (bf16, 7B `config.json`, 4 safetensors shards), CLIP
                ViT-L/14 at 224² and LongCLIP-L (text context 248) as HF
@@ -331,7 +354,7 @@ from pathlib import Path
 
 PHASES = ("device", "build", "kernels", "raster", "slice", "profile",
           "reference", "decode", "denoise", "cli", "cli14b", "train", "vdm",
-          "workflows", "evaluation", "generation")
+          "distributed", "workflows", "evaluation", "generation")
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 (data sheet)
 PEAK_FP32_FLOPS = 67e12       # H100 SXM fp32 outside the tensor cores
 # fp32-accurate products on the TF32 tensor cores (495 TFLOP/s dense), each
@@ -509,7 +532,19 @@ TRAIN_LAUNCHES = {"unmasked": 72 + 2 * 56, "masked": 0, "natural": 0,
 VDM_CLIP = (1, 3, 13, 512, 512)
 VDM_CAPTION = "a wooden chair on a lawn, the camera circles it"
 VDM_SEED = 23
-VDM_STEPS = 2
+VDM_STEPS = 1
+
+# phase `distributed`: one rank of a torchrun launch (NCCL, a 1×1 mesh):
+# a distillation step at this many views, a VDM SFT step under each
+# placement, a denoise of this many steps under TP, each against its plain
+# step from the same seed; at world 1 every collective is a copy, so the
+# wrapped steps must equal the plain ones bit for bit (the distillation
+# step's with cuDNN's deterministic algorithms: its default ones move the
+# stitch conv's weight gradient from run to run)
+DIST_VIEWS = 9
+DIST_SEED = 61
+DIST_DENOISE_STEPS = 2
+DIST_MAX_ABS_DIFF = 0.0
 
 REQUESTS = 3
 GAUSSIANS = 13 * 448 * 448
@@ -591,23 +626,30 @@ CLI14B_RAM_FACTOR = 2.3
 # of a run killed before its cleanup (`sweep_stale_shards`)
 CLI14B_SHARD_PREFIX = "vist3a_cli14b_dit_"
 # phase `workflows`: the three command lines on files on disk.  The DL3DV
-# tree: 2 scenes of 21 frames at DL3DV's `images_4` size, one of them
-# captioned over frames 0-14; a one-scene ScanNet tree; two prompts
+# tree: 1 scene of 21 frames at DL3DV's `images_4` size, captioned over
+# frames 0-14 (2 scenes before PR 15: the distillation's third step, ~30 s
+# of host data, was cut for phase `distributed`); a one-scene ScanNet
+# tree; two prompts
+WORKFLOW_DL3DV_SCENES = 1
 WORKFLOW_FRAMES = 21
 WORKFLOW_HW = (540, 960)
 WORKFLOW_SCANNET_HW = (480, 640)
 WORKFLOW_CAPTION_FRAMES = 15
 WORKFLOW_PROMPTS = (PROMPT, "a wooden boat on a calm lake")
-# the distillation main's three steps (2 DL3DV + 1 ScanNet clip, B = 1):
+# the distillation main's two steps (1 DL3DV + 1 ScanNet clip, B = 1):
 # the drawn view counts the seed is chosen for
-WORKFLOW_STITCH_VIEWS = (13, 9, 9)
+WORKFLOW_STITCH_VIEWS = (13, 9)
 # the search's samples and the deployed chop the distillation starts from
-WORKFLOW_SEARCH_SAMPLES = 2
+WORKFLOW_SEARCH_SAMPLES = 1
 WORKFLOW_CHOP = 16
 # PickScore's logit scale (the file holds its log; the reward takes exp)
 PICK_LOGIT_SCALE = 100.0
 # the extra disk the phase's data, features and checkpoints take
 WORKFLOW_EXTRA_BYTES = 4 << 30
+# what a main may leave allocated once its results are dropped: the
+# tables its `lru_cache`s keep on the card (RoPE, UV embeddings; a few MB
+# each) and cuBLAS workspaces, far below a module (PR 14 left 6.64 GB)
+LEFT_BEHIND_BYTES = 256 << 20
 # phase `evaluation`: RE10K novel-view synthesis and per-scene refinement
 EVAL_SEQUENCES = 2
 EVAL_FRAMES = 16               # ids per sequence: 12 context + 4 targets
@@ -3918,19 +3960,23 @@ def phase_vdm() -> dict:
              for f in state.lora.values()]
     check(min(b_max) > 0, f"{sum(b == 0 for b in b_max)} LoRA B factors "
           "never moved")
-    # EMA: e1 = d0·e0 + (1 − d0)·p1, e2 = d1·e1 + (1 − d1)·p2
-    d0, d1 = ema_mod.current_decay(0), ema_mod.current_decay(1)
-    p1, p2 = marks[0][4], marks[1][4]
-    ema_err = max(((state.ema[k] - (d1 * (d0 * ema0[k] + (1 - d0) * p1[k])
-                                    + (1 - d1) * p2[k])).abs().max()
-                   / p2[k].abs().max().clamp_min(1e-30)).item()
+    # EMA: e_{i+1} = d_i·e_i + (1 − d_i)·p_{i+1}, the factors after step i
+    decays = [ema_mod.current_decay(i) for i in range(len(marks))]
+    want_ema = dict(ema0)
+    for d, mark in zip(decays, marks):
+        want_ema = {k: d * e + (1 - d) * mark[4][k]
+                    for k, e in want_ema.items()}
+    last = marks[-1][4]
+    ema_err = max(((state.ema[k] - want_ema[k]).abs().max()
+                   / last[k].abs().max().clamp_min(1e-30)).item()
                   for k in state.ema)
     check(ema_err <= 1e-6, f"EMA off its warm-up formula by {ema_err}")
     sums_after = _checksums(frozen)
     changed = [k for k in frozen if sums_after[k] != sums_before[k]]
     check(not changed, f"frozen weights changed: {changed}")
     log(f"vdm: LoRA B factors moved (smallest max |B| {min(b_max):.3g}); "
-        f"EMA at its warm-up formula (d = {d0:.4f}, {d1:.4f}; rel err "
+        f"EMA at its warm-up formula (d = "
+        f"{', '.join(f'{d:.4f}' for d in decays)}; rel err "
         f"{ema_err:.3g}); {', '.join(frozen)} unchanged "
         f"({sum(len(v) for v in sums_before.values())} checksums)")
     log(f"vdm: ms per step {steps_ms}; peak memory allocated {peaks} B; "
@@ -4327,6 +4373,302 @@ def vdm_reference() -> dict:
 
 
 # --------------------------------------------------------------------------- #
+# phase `distributed`: the multi-GPU layer on a one-rank NCCL launch          #
+# --------------------------------------------------------------------------- #
+def free_port() -> int:
+    """A TCP port on localhost no one listens on now."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+LAUNCHER_KEYS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                 "MASTER_PORT")
+
+
+@contextlib.contextmanager
+def launcher_env():
+    """The environment `torchrun --nproc_per_node 1` gives its one rank
+    (a free port for the rendezvous), restored on exit."""
+    old = {k: os.environ.get(k) for k in LAUNCHER_KEYS}
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()))
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def max_diff(a: dict, b: dict) -> float:
+    """The largest |a − b| over the tensors and floats of two flat dicts
+    with the same keys (inf where a value is not finite on one side)."""
+    import torch
+
+    check(a.keys() == b.keys(), f"keys {sorted(a.keys() ^ b.keys())[:5]}")
+    worst = 0.0
+    for k in a:
+        x, y = (torch.as_tensor(v).double().cpu() for v in (a[k], b[k]))
+        d = (x - y).abs().max().item() if x.numel() else 0.0
+        worst = max(worst, d if math.isfinite(d) else math.inf)
+    return worst
+
+
+def dist_distillation(mesh) -> dict:
+    """`cli.train_stitching.run` for one step at DIST_VIEWS views, once
+    plain and once on the mesh (DDP: the noise drawn for the global batch,
+    the confidence quantile over it, the gradients averaged as one bucket
+    before the clip, the loss terms averaged), from the same seed, with
+    cuDNN's deterministic algorithms; then the plain step once more with
+    its default ones, whose distance from the first is the run-to-run
+    spread of the plain step (the stitch conv's weight gradient)."""
+    import torch
+
+    from vist3a_tpu_torch.cli import train_stitching as cli
+    from vist3a_tpu_torch.pipelines import t23d
+    from vist3a_tpu_torch.stitch import chopped_anysplat as ca
+    from vist3a_tpu_torch.train import stitching as st
+
+    cfg = ca.StitchedConfig()
+    teacher, stitch_conv, vae = build_trainer(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(DIST_SEED)
+    clip = torch.rand((1, 3, DIST_VIEWS, 512, 512), generator=gen,
+                      device="cuda") * 2 - 1
+    batch = {"vae_image_tensor": clip, "feedforward_image_tensor":
+             t23d.resize_trilinear_half_pixel(clip, (IMAGE, IMAGE))}
+    seed = next(s for s in range(1 << 16)
+                if st.sample_view_count(s, 0) == DIST_VIEWS)
+    tcfg = st.StitchTrainConfig(lora_spec=TRAIN_LORA, warmup_steps=0,
+                                total_steps=10)
+    params = {"encoder": teacher, "stitch_conv": stitch_conv, "vae": vae}
+    out = {}
+    deterministic = torch.backends.cudnn.deterministic
+    try:
+        for name, m, det in (("plain", None, True), ("ddp", mesh, True),
+                             ("plain_default", None, False)):
+            torch.backends.cudnn.deterministic = det
+            _reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, hist = cli.run(params, cfg, [batch], train_cfg=tcfg,
+                                  num_epochs=1, seed=seed, log_every=1,
+                                  mesh=m)
+            torch.cuda.synchronize()
+            out[name] = {"ms": (time.perf_counter() - t0) * 1e3,
+                         "launches": _vdm_counts(), "metrics": hist[0],
+                         "trainable": {n: p.detach().clone() for n, p in zip(
+                             _trainable_names(state.trainable),
+                             st.trainable_list(state.trainable))}}
+            del state
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    metrics = {k: v for k, v in out["plain"]["metrics"].items()
+               if isinstance(v, float)}
+
+    def diff(name, part):
+        got = out[name][part]
+        return max_diff({k: got[k] for k in metrics} if part == "metrics"
+                        else got, metrics if part == "metrics"
+                        else out["plain"][part])
+    res = {"views": DIST_VIEWS, "seed": seed,
+           "ms": {k: out[k]["ms"] for k in out},
+           "launches": out["ddp"]["launches"],
+           "max_abs_diff_metrics": diff("ddp", "metrics"),
+           "max_abs_diff_trainables": diff("ddp", "trainable"),
+           "plain_default_vs_plain": max(diff("plain_default", "metrics"),
+                                         diff("plain_default", "trainable"))}
+    want = {**{k: 0 for k in res["launches"]}, "unmasked": 72 + 2 * 56,
+            "backward": 56}
+    check(res["launches"] == want,
+          f"distributed: DDP step launches {res['launches']}, want {want}")
+    check(all(math.isfinite(v) for v in metrics.values())
+          and metrics["grad_norm"] > 0, f"distributed: plain step {metrics}")
+    log(f"distributed: the plain distillation step with cuDNN's default "
+        f"algorithms is {res['plain_default_vs_plain']} from the same step "
+        f"with its deterministic ones")
+    del teacher, stitch_conv, vae, params, out
+    torch.cuda.empty_cache()
+    return res
+
+
+def _trainable_names(trainable: dict) -> list:
+    return ([f"lora.{s}.{k}" for s in trainable["lora"] for k in ("a", "b")]
+            + [f"model.{n}" for n in trainable["model"]])
+
+
+def dist_vdm(mesh) -> dict:
+    """One full-width VDM SFT step (`vdm_train_step`, the 1.3B DiT in
+    bf16) plain (after a warm-up step), then under each `place_dit`
+    placement on a copy of the same DiT, each from the same seed."""
+    import torch
+
+    from vist3a_tpu_torch.core import mesh as mesh_mod
+    from vist3a_tpu_torch.nn import wan_dit, wan_vae
+    from vist3a_tpu_torch.pipelines import t23d
+    from vist3a_tpu_torch.train import vdm
+
+    cfg = t23d.T23DConfig()
+    gen = torch.Generator(device="cuda").manual_seed(DIST_SEED + 1)
+    dit = wan_dit.init(cfg.dit, gen, "cuda", torch.bfloat16)
+    vae = wan_vae.init_encoder(cfg.vae, gen, device="cuda")
+    video = torch.rand(VDM_CLIP, generator=gen, device="cuda") * 2 - 1
+    text = torch.randn((1, 226, cfg.dit.text_dim), generator=gen,
+                       device="cuda").to(torch.bfloat16)
+    vcfg = vdm.VDMTrainConfig(enable_rl=False)
+
+    def step(model, m, how):
+        state = vdm.init_train_state(
+            torch.Generator(device="cuda").manual_seed(DIST_SEED + 2),
+            model, vcfg)
+        # nonzero B factors, so that every factor has a gradient
+        with torch.no_grad():
+            for f in state.lora.values():
+                f["b"].normal_(std=0.02, generator=torch.Generator(
+                    device="cuda").manual_seed(DIST_SEED + 3))
+        mesh_mod.place_dit(model, cfg.dit, m, how)
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h = vdm.vdm_train_step(
+            state, model, vae, None, None, video=video, sft_text=text,
+            rl_cond=text, rl_uncond=text, reward_loss_fn=None,
+            seed=VDM_SEED, scfg=None, cfg=vcfg,
+            latent_shape=cfg.latent_shape, mesh=m)
+        torch.cuda.synchronize()
+        return {"ms": (time.perf_counter() - t0) * 1e3,
+                "launches": _vdm_counts(),
+                "metrics": {k: float(h[k]) for k in (
+                    "diffusion_loss", "total_loss", "grad_norm")},
+                "lora": {k: v.detach().clone()
+                         for k, v in vdm.flat_lora(state.lora).items()}}
+
+    step(dit, None, "replicated")          # warm-up: the first call's setup
+    plain = step(dit, None, "replicated")
+    res = {"plain_ms": plain["ms"], "placements": {}}
+    want = {**{k: 0 for k in plain["launches"]},
+            "natural": 2 * cfg.dit.num_layers,
+            "backward_natural": cfg.dit.num_layers}
+    for how in ("fsdp", "tp", "tp_fsdp", "replicated"):
+        placed = step(copy.deepcopy(dit), mesh, how)
+        res["placements"][how] = {
+            "ms": placed["ms"], "launches": placed["launches"],
+            "max_abs_diff_metrics": max_diff(placed["metrics"],
+                                             plain["metrics"]),
+            "max_abs_diff_lora": max_diff(placed["lora"], plain["lora"])}
+        check(placed["launches"] == want,
+              f"distributed: {how} SFT step launches {placed['launches']}, "
+              f"want {want}")
+        del placed
+        torch.cuda.empty_cache()
+    check(all(math.isfinite(v) for v in plain["metrics"].values())
+          and plain["metrics"]["grad_norm"] > 0,
+          f"distributed: plain SFT step {plain['metrics']}")
+    res["launches"] = res["placements"]["fsdp"]["launches"]
+    del dit, vae
+    torch.cuda.empty_cache()
+    return res
+
+
+def dist_denoise(mesh) -> dict:
+    """A DIST_DENOISE_STEPS-step denoise (`t23d.denoise`, CFG batched) of
+    the 1.3B DiT in bf16, plain and placed tensor-parallel."""
+    import torch
+
+    from vist3a_tpu_torch.core import mesh as mesh_mod
+    from vist3a_tpu_torch.nn import wan_dit
+    from vist3a_tpu_torch.pipelines import t23d
+
+    cfg = dataclasses.replace(t23d.T23DConfig(),
+                              num_inference_steps=DIST_DENOISE_STEPS)
+    gen = torch.Generator(device="cuda").manual_seed(DIST_SEED + 4)
+    dit = wan_dit.init(cfg.dit, gen, "cuda", torch.bfloat16)
+    cond, uncond = (torch.randn((1, 226, cfg.dit.text_dim), generator=gen,
+                                device="cuda").to(torch.bfloat16)
+                    for _ in range(2))
+    plain = t23d.denoise(dit, cond, uncond, cfg)
+    mesh_mod.place_dit(dit, cfg.dit, mesh, "tp")
+    _reset_counts()
+    got = t23d.denoise(dit, cond, uncond, cfg)
+    launches = _vdm_counts()
+    want = {**{k: 0 for k in launches},
+            "natural": DIST_DENOISE_STEPS * cfg.dit.num_layers}
+    check(launches == want,
+          f"distributed: TP denoise launches {launches}, want {want}")
+    check(bool(torch.isfinite(plain).all()), "distributed: plain denoise")
+    res = {"steps": DIST_DENOISE_STEPS, "launches": launches,
+           "max_abs_diff": (got - plain).abs().max().item()}
+    del dit, plain, got
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_distributed() -> dict:
+    """The multi-GPU layer on the card, at world 1: the launcher's
+    environment, `setup_dist` (NCCL, the rank pinned to its device), a
+    1×1 mesh, a one-tensor all-reduce, then DDP distillation, the four VDM
+    placements and the TP denoise, each against its plain step from the
+    same state: at world 1 every collective is a copy, so each maximum
+    |Δ| is expected to be 0.  `cleanup` at the end."""
+    import torch
+    import torch.distributed as dist
+
+    from vist3a_tpu_torch.core import distributed
+    from vist3a_tpu_torch.core import mesh as mesh_mod
+
+    torch.cuda.empty_cache()
+    with launcher_env():
+        check(distributed.setup_dist("cuda"),
+              "distributed: setup_dist started no process group")
+        try:
+            backend = dist.get_backend()
+            mesh = mesh_mod.create_mesh()
+            check(backend == "nccl" and mesh.shape == {"data": 1, "model": 1}
+                  and mesh.device_mesh is not None,
+                  f"distributed: backend {backend}, mesh {mesh.shape}")
+            x = torch.arange(1 << 20, dtype=torch.float32, device="cuda")
+            y = x.clone()
+            dist.all_reduce(y)
+            check(torch.equal(x, y), "distributed: the one-rank NCCL "
+                  "all-reduce changed its tensor")
+            log(f"distributed: backend {backend}, world "
+                f"{dist.get_world_size()}, mesh {mesh.shape}, device "
+                f"{torch.cuda.current_device()}; a {x.numel()}-element "
+                f"all-reduce returned its tensor")
+            res = {"backend": backend,
+                   "distillation": dist_distillation(mesh),
+                   "vdm": dist_vdm(mesh), "denoise": dist_denoise(mesh)}
+        finally:
+            distributed.cleanup()
+    check(not dist.is_initialized(), "distributed: cleanup left the group")
+    diffs = {"distillation": max(res["distillation"][k] for k in (
+        "max_abs_diff_metrics", "max_abs_diff_trainables")),
+        **{f"vdm_{how}": max(p["max_abs_diff_metrics"],
+                             p["max_abs_diff_lora"])
+           for how, p in res["vdm"]["placements"].items()},
+        "denoise_tp": res["denoise"]["max_abs_diff"]}
+    res["max_abs_diff"] = diffs
+    log("distributed: max |wrapped − plain| " + json.dumps(diffs)
+        + "; ms " + json.dumps({
+            "distillation": {k: round(v, 1) for k, v in
+                             res["distillation"]["ms"].items()},
+            "vdm_plain": round(res["vdm"]["plain_ms"], 1),
+            **{f"vdm_{h}": round(p["ms"], 1)
+               for h, p in res["vdm"]["placements"].items()}})
+        + "; launches " + json.dumps({
+            "distillation": res["distillation"]["launches"],
+            "vdm": res["vdm"]["launches"],
+            "denoise": res["denoise"]["launches"]}))
+    check(all(v <= DIST_MAX_ABS_DIFF for v in diffs.values()),
+          f"distributed: a wrapped step differs from its plain one: {diffs}")
+    return res
+
+
+# --------------------------------------------------------------------------- #
 # phase `workflows`: the three command lines on files on disk                  #
 # --------------------------------------------------------------------------- #
 def scene_frame(i: int, hw: tuple, seed: int):
@@ -4354,8 +4696,9 @@ def write_scenes(folder: Path, *, hw=WORKFLOW_HW,
                  scannet_hw=WORKFLOW_SCANNET_HW, frames=WORKFLOW_FRAMES,
                  caption_frames=WORKFLOW_CAPTION_FRAMES) -> dict:
     """The datasets the command lines read, written with OpenCV (the card
-    machine has no Pillow): a DL3DV tree `dl3dv/1K/scene_{a,b}/images_4/
-    frame_XXXXX.png`, its caption JSON (scene_a captioned over frames
+    machine has no Pillow): a DL3DV tree of `WORKFLOW_DL3DV_SCENES` scenes
+    `dl3dv/1K/scene_{a,...}/images_4/frame_XXXXX.png`, its caption JSON
+    (scene_a captioned over frames
     [0, caption_frames)), a one-scene ScanNet tree `scannet/scene0000_00/
     frames/color/<i>.png` and a prompt list.  Returns their paths."""
     import cv2
@@ -4364,7 +4707,8 @@ def write_scenes(folder: Path, *, hw=WORKFLOW_HW,
              "captions": folder / "captions.json",
              "prompts": folder / "prompts.txt"}
     dirs = [(paths["dl3dv"] / "1K" / f"scene_{c}" / "images_4", hw,
-             "frame_{:05d}.png", k) for k, c in enumerate("ab")]
+             "frame_{:05d}.png", k) for k, c in enumerate(
+                 "ab"[:WORKFLOW_DL3DV_SCENES])]
     dirs.append((paths["scannet"] / "scene0000_00" / "frames" / "color",
                  scannet_hw, "{}.png", 2))
     for d, size, name, seed in dirs:
@@ -4410,14 +4754,20 @@ def captured(module, name: str, store: dict, *, first: bool = False):
 
 
 def measured_main(label: str, fn, args, *, device: str, timed: tuple = (),
-                  phase: str = "workflows") -> tuple:
+                  phase: str = "workflows", launcher: bool = False) -> tuple:
     """fn(args, device=device) with the launch counts reset before it, the
     peak device memory from its start, the seconds spent reading files
     (`io/load_weights.py`) and in each of `timed` ((module, names) pairs).
+    With `launcher`, under a one-rank torchrun's environment
+    (`launcher_env`): the main must start its process group through
+    `setup_dist` (NCCL) and destroy it before it returns.
     Returns (fn's result, {"seconds", "read_s", "calls": {name: [s]},
-    "peak_bytes", "start_bytes" (allocated when it began), "launches"})."""
+    "peak_bytes", "start_bytes" (allocated when it began), "end_bytes"
+    (allocated after it, its result alive), "launches"})."""
     import torch
+    import torch.distributed as dist
 
+    from vist3a_tpu_torch.core import distributed
     from vist3a_tpu_torch.io import load_weights
 
     cuda = device == "cuda"
@@ -4430,7 +4780,7 @@ def measured_main(label: str, fn, args, *, device: str, timed: tuple = (),
         torch.cuda.reset_peak_memory_stats()
     start_bytes = torch.cuda.memory_allocated() if cuda else None
     _reset_counts()
-    reads, calls = [], []
+    reads, calls, setups = [], [], {}
     t0 = time.perf_counter()
     with contextlib.ExitStack() as stack:
         stack.enter_context(timed_calls(load_weights, (
@@ -4438,22 +4788,56 @@ def measured_main(label: str, fn, args, *, device: str, timed: tuple = (),
             sync))
         for module, names in timed:
             stack.enter_context(timed_calls(module, names, calls, sync))
-        out = fn(args, device=device)
+        if launcher:
+            stack.enter_context(launcher_env())
+            stack.enter_context(captured(distributed, "setup_dist", setups))
+        # held in a list emptied on return: a failed `wandb.init` keeps its
+        # exception, and with it this frame, after the call returns
+        # (PERF.md §7), so no local of this frame may hold the result
+        out = [fn(args, device=device)]
     sync()
+    if launcher:
+        check(setups.get("setup_dist", (0, 0, False))[2] is True
+              and not dist.is_initialized(),
+              f"{phase}: {label} did not start (or did not destroy) its "
+              "process group")
+    gc.collect()
     info = {"seconds": time.perf_counter() - t0,
             "read_s": sum(x for _, _, x in reads),
             "calls": {n: [x for m, _, x in calls if m == n]
                       for _, names in timed for n in names},
             "peak_bytes": torch.cuda.max_memory_allocated() if cuda
             else None, "start_bytes": start_bytes,
+            "end_bytes": torch.cuda.memory_allocated() if cuda else None,
             "launches": _vdm_counts()}
     log(f"{phase}: {label}: {info['seconds']:.1f} s, read "
         f"{info['read_s']:.1f} s, peak memory allocated "
-        f"{info['peak_bytes']} B (at its start {start_bytes} B), launches "
-        f"{info['launches']}, calls "
+        f"{info['peak_bytes']} B (at its start {start_bytes} B, after it "
+        f"with its result {info['end_bytes']} B), launches "
+        f"{info['launches']}, "
+        + ("its process group started by setup_dist and destroyed, "
+           if launcher else "") + "calls "
         + json.dumps({n: [round(x, 2) for x in v]
                       for n, v in info["calls"].items()}))
-    return out, info
+    return out.pop(), info
+
+
+def left_behind(label: str, start_bytes, cuda: bool) -> int | None:
+    """The device memory still allocated after a main's results are
+    dropped, checked to be what was allocated before it (within
+    `LEFT_BEHIND_BYTES`): a main frees what it loaded."""
+    import torch
+
+    if not cuda:
+        return None
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated()
+    log(f"workflows: {label}: {left} B allocated once its results are "
+        f"dropped ({start_bytes} B before it)")
+    check(left - start_bytes <= LEFT_BEHIND_BYTES,
+          f"workflows: {label} left {left - start_bytes} B allocated")
+    return left
 
 
 def drive_search(root: Path, data: dict, out: Path, scfg, flags: tuple, *,
@@ -4543,10 +4927,12 @@ def drive_search(root: Path, data: dict, out: Path, scfg, flags: tuple, *,
 
 def drive_distillation(src: dict, root: Path, data: dict, search: Path,
                        out: Path, scfg, flags: tuple, *, device: str,
-                       want_per_step: dict | None) -> dict:
+                       want_per_step: dict | None,
+                       launcher: bool = False) -> dict:
     """`cli/train_stitching.py::main` from the search's artifact at the
     chop (converted to the {weight, bias} `.pth` the main reads), its
-    checks; returns the times, the losses and the launches."""
+    checks, and on the card that it leaves nothing allocated; returns the
+    times, the losses and the launches."""
     import torch
 
     from vist3a_tpu_torch.cli import arguments, model_loading
@@ -4578,7 +4964,7 @@ def drive_distillation(src: dict, root: Path, data: dict, search: Path,
             "train_stitching.main", cli.main, args, device=device,
             timed=((st, ("stitch_train_step",)),
                    (model_loading, ("load_anysplat_encoder",
-                                    "load_wan_vae"))))
+                                    "load_wan_vae"))), launcher=launcher)
     params = store.pop("run")[0][0]
     n_steps = len(WORKFLOW_STITCH_VIEWS)
     check(state.step == n_steps and len(history) == 1,
@@ -4606,6 +4992,8 @@ def drive_distillation(src: dict, root: Path, data: dict, search: Path,
           and torch.equal(conv["bias"].cpu(), torch.from_numpy(art["bias"])),
           "distillation: the stitch conv is not the search's artifact")
     del params, state, conv
+    info["left_bytes"] = left_behind("train_stitching.main",
+                                     info["start_bytes"], device == "cuda")
     if want_per_step is not None:
         want = {k: n_steps * v for k, v in want_per_step.items()}
         got = {k: info["launches"][k] for k in want}
@@ -4622,7 +5010,8 @@ def drive_distillation(src: dict, root: Path, data: dict, search: Path,
 
 def drive_vdm(src: dict, root: Path, written: dict, data: dict, out: Path,
               scfg, flags: tuple, *, tokenize, device: str,
-              want_launches: bool, grid_tiles: tuple) -> dict:
+              want_launches: bool, grid_tiles: tuple,
+              launcher: bool = False) -> dict:
     """`cli/train_vdm.py::main --enable_rl` for one step, its checks
     (`grid_tiles`: the image grid's (rows, columns) of square tiles: the
     decoded frame and the 13 renders, 7 a row);
@@ -4659,9 +5048,9 @@ def drive_vdm(src: dict, root: Path, written: dict, data: dict, out: Path,
             timed=((vdm, ("vdm_train_step",)),
                    (model_loading, ("load_stitched_model", "load_wan_vae")),
                    (inference_t23d, ("load_generator",)),
-                   (cli, ("build_reward_fns",))))
+                   (cli, ("build_reward_fns",))), launcher=launcher)
     run_args, run_kw, _ = store.pop("run")
-    _, text_fn = store.pop("build_reward_fns")[2]
+    loss_fn, text_fn = store.pop("build_reward_fns")[2]
     pick, pe = store.pop("make_loss_fn")[0][:2]
     h = history[0]
     check(state.step == 1 and len(history) == 1 and not h["skipped"],
@@ -4700,9 +5089,12 @@ def drive_vdm(src: dict, root: Path, written: dict, data: dict, out: Path,
     # the frozen modules: as written, after the step
     dit, vae_enc, vae_dec, stitched = run_args[1:5]
     ck = written["checkpoint"]
+    # under `--dit_sharding fsdp` the DiT's weights are FSDP2 shards: at
+    # world 1 each holds the whole tensor
     n_frozen = {
-        "dit": same_values("vdm main: DiT", dit.state_dict(),
-                           src["dit"].state_dict()),
+        "dit": same_values("vdm main: DiT", {
+            k: v.to_local() if hasattr(v, "to_local") else v
+            for k, v in dit.state_dict().items()}, src["dit"].state_dict()),
         "vae": same_values("vdm main: VAE", {
             "e": vae_enc.state_dict(), "d": vae_dec.state_dict()}, {
             "e": src["vae_encoder"].state_dict(),
@@ -4715,7 +5107,11 @@ def drive_vdm(src: dict, root: Path, written: dict, data: dict, out: Path,
             "pick": pick.state_dict(), "pe": pe.state_dict()}, {
             "pick": src["pick_vision"].state_dict(),
             "pe": src["pe_vision"].state_dict()})}
+    # the reward loss holds both scorer towers (~5 GB in fp32)
     del run_args, run_kw, dit, vae_enc, vae_dec, stitched, pick, pe, text_fn
+    del loss_fn, state
+    info["left_bytes"] = left_behind("train_vdm.main", info["start_bytes"],
+                                     device == "cuda")
     lines = (out / "history.jsonl").read_text().splitlines()
     check(len(lines) == 1 and json.loads(lines[0])["step"] == 1,
           f"vdm main: history.jsonl {lines}")
@@ -4739,14 +5135,15 @@ def drive_workflows(src: dict, scfg, tmp: Path, *, tokenize,
                     device: str = "cuda", scene_kw: dict | None = None,
                     search_flags: tuple = (), stitch_flags: tuple = (),
                     vdm_flags: tuple = (), want_launches: bool = False,
-                    grid_tiles: tuple = (2, 7)) -> dict:
+                    grid_tiles: tuple = (2, 7), launcher: bool = False) -> dict:
     """The three workflows' mains on one weights root and one scene tree
     under `tmp`: the reference-format files of the source modules `src`
     (on the host, the scorers' towers included), the scenes, then the
     search, the distillation from its artifact at the chop, and one VDM
     step, each with its checks.  `*_flags` are added to each command line
     (the CPU test's sizes); `want_launches` checks each main's kernel
-    launches (on the card)."""
+    launches (on the card); `launcher` runs the distillation and VDM mains
+    under a one-rank torchrun's environment (`measured_main`)."""
     import torch
 
     from vist3a_tpu_torch.stitch.lora import parse_lora_mode
@@ -4774,10 +5171,12 @@ def drive_workflows(src: dict, scfg, tmp: Path, *, tokenize,
         if want_launches else None)
     distill = drive_distillation(src, root, data, tmp / "search",
                                  tmp / "stitching", scfg, stitch_flags,
-                                 device=device, want_per_step=per_step)
+                                 device=device, want_per_step=per_step,
+                                 launcher=launcher)
     tuned = drive_vdm(src, root, written, data, tmp / "vdm", scfg, vdm_flags,
                       tokenize=tokenize, device=device,
-                      want_launches=want_launches, grid_tiles=grid_tiles)
+                      want_launches=want_launches, grid_tiles=grid_tiles,
+                      launcher=launcher)
     return {"write_s": write_s, "scenes_s": scenes_s,
             "bytes": written["bytes"], "search": search,
             "distillation": distill, "vdm": tuned}
@@ -4825,7 +5224,7 @@ def phase_workflows() -> dict:
               f"{need} B (×{CLI_DISK_FACTOR} asked)")
         res = drive_workflows(src, ca.StitchedConfig(), tmp,
                               tokenize=fake_tokenizer(umt5.UMT5_XXL),
-                              want_launches=True)
+                              want_launches=True, launcher=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         del src
@@ -6032,9 +6431,9 @@ def _kernel_entries(timed: dict, raster: list | None,
     shape.  `launches` counts the entry's main path: for the bf16 forwards
     and the composite the two CLI requests of phase `cli` where it ran,
     else the first of the whole text→3DGS request of phase `denoise`, the
-    decode, the stitched-decoder slice and the VDM steps that did; for the fp32 forward and the fp32 backward the two
+    decode, the stitched-decoder slice and the VDM step that did; for the fp32 forward and the fp32 backward the two
     distillation steps of phase `train`; for the bf16 backward (kernels 4b
-    and 5) and the composite backward (kernel 7) the two VDM steps of phase
+    and 5) and the composite backward (kernel 7) the VDM step of phase
     `vdm`.  `launches_by_path` has each path's; phases `cli14b` (the 14B
     request and its validation views as `cli14b`, the point-head decode as
     `cli14b_point`), `workflows`,
@@ -6049,7 +6448,8 @@ def _kernel_entries(timed: dict, raster: list | None,
     at S = 13 and kernel 5's those of the re-evaluation (6, 4096, 12, 128),
     and `shapes` carries every measured shape; the composites' are those of
     the first raster view, and `views` carries each view's."""
-    added = ("cli14b", "workflows", "evaluation", "generation")
+    added = ("cli14b", "workflows", "evaluation", "generation",
+             "distributed")
 
     def count(counter, paths):
         by_path = {path: c[counter] for path, c in launches.items()
@@ -6065,7 +6465,7 @@ def _kernel_entries(timed: dict, raster: list | None,
 
     bf16_paths = ("cli", "denoise", "decode", "slice", "vdm",
                   "cli14b", "cli14b_point", "workflows_bf16", "evaluation",
-                  "generation_bf16")
+                  "generation_bf16", "distributed_vdm", "distributed_denoise")
     shape_keys = ("case", "shape", "kernel_ms", "plain_ms", "bound_ms",
                   "library_ms", "max_abs_err_o", "o_excess",
                   "max_abs_err_lse")
@@ -6100,7 +6500,8 @@ def _kernel_entries(timed: dict, raster: list | None,
                 ("flash_attention_bwd", F32_BWD_SOURCE, 397, "backward",
                  "bwd")):
             main, by_path = count(counter, ("train", "workflows_fp32",
-                                            "generation_fp32"))
+                                            "generation_fp32",
+                                            "distributed_ddp"))
             entries.append({
                 "name": kname, "route": "cuda", "source": source,
                 "replaces": f"vist3a_tpu/kernels/flash_attention.py:{line}",
@@ -6135,7 +6536,7 @@ def _kernel_entries(timed: dict, raster: list | None,
             continue
         r = rs[0]
         main, by_path = count(counter, ("vdm", "workflows_bf16",
-                                        "generation_bf16"))
+                                        "generation_bf16", "distributed_vdm"))
         entries.append({
             "name": kname, "route": "cuda", "source": source,
             "replaces": f"vist3a_tpu/kernels/flash_attention.py:{line}",
@@ -6248,6 +6649,7 @@ def main(argv=None) -> int:
     served14b = run("cli14b", phase_cli14b, served and served.get("weights"))
     trained = run("train", phase_train)
     tuned = run("vdm", phase_vdm)
+    dist_res = run("distributed", phase_distributed)
     workflows = run("workflows", phase_workflows)
     evaluated = run("evaluation", phase_evaluation)
     generated = run("generation", phase_generation,
@@ -6272,6 +6674,12 @@ def main(argv=None) -> int:
         launches["workflows_fp32"] = {k: fp32[0][k] + fp32[1][k]
                                       for k in fp32[0]}
         launches["workflows_bf16"] = workflows["vdm"]["info"]["launches"]
+    if dist_res:
+        # the wrapped steps on the one-rank NCCL mesh (the plain steps they
+        # are held against are not counted)
+        launches["distributed_ddp"] = dist_res["distillation"]["launches"]
+        launches["distributed_vdm"] = dist_res["vdm"]["launches"]
+        launches["distributed_denoise"] = dist_res["denoise"]["launches"]
     if evaluated:
         # the NVS main's forwards and renders and the refinement's steps
         launches["evaluation"] = evaluated["launches"]

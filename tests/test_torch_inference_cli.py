@@ -314,7 +314,8 @@ def test_run_shards_prompts_and_names_folders(tmp_path, monkeypatch):
              device="cpu")
     assert (tmp_path / "a  b" / "prompt.txt").read_text() == "a / b"
     assert tt.T23DConfig().seed == 12413
-    assert tinf.process_grid() == (0, 1)
+    from vist3a_tpu_torch.core import distributed
+    assert (distributed.get_rank(), distributed.get_world_size()) == (0, 1)
 
 
 def _tensors_in(tree) -> list:
@@ -388,9 +389,22 @@ def test_flags_and_defaults_are_the_jax_parsers(name):
         extra = mine.pop("weights_root")           # the port's one addition
         assert extra[:3] == (("--weights_root",), None, False)
     assert mine == theirs
-    with pytest.raises(SystemExit):
-        getattr(targ, name)().parse_args(["--mesh_model", "2"]
-                                         if "mesh_model" in mine else ["-x"])
+    # the mesh flags parse as JAX's (a layout is held against the world
+    # size by `core/mesh.py`, not by the parser)
+    argv = ["--mesh_data", "4", "--mesh_model", "2"]
+    if "mesh_model" in mine:
+        required = {"inference_vist3a_argument": [
+            "--checkpoint_path", "c", "--transformer_lora_path", "l",
+            "--input_texts_path", "p"]}.get(name, [])
+        a = getattr(targ, name)().parse_args(argv + required)
+        b = getattr(jarg, name)().parse_args(argv + required)
+        assert (a.mesh_data, a.mesh_model) == (b.mesh_data, b.mesh_model) \
+            == (4, 2)
+        assert getattr(a, "dit_sharding", None) == \
+            getattr(b, "dit_sharding", None)
+    else:
+        with pytest.raises(SystemExit):
+            getattr(targ, name)().parse_args(["-x"])
 
 
 def test_inference_defaults_and_the_one_device_mesh(tmp_path):

@@ -9,9 +9,10 @@ validator forcing `num_frames_per_unit_scene == 32` for VDM training
 (:451-463).  Every flag name and default is the JAX package's, so its
 launch commands port unchanged.
 
-The mesh flags are parsed too, but the port runs on one device: a
-`--mesh_model` or `--mesh_data` above 1 is refused at parse time, naming
-the queued multi-GPU work (ROADMAP.md Queue 1, item 21), never ignored.
+The mesh flags `--mesh_data`, `--mesh_model` and `--dit_sharding` parse
+as the JAX package's do; `core/mesh.py` lays them over the ranks of a
+`torchrun` launch (one process per GPU), and a layout that does not match
+the world size raises on every rank.
 """
 
 from __future__ import annotations
@@ -158,29 +159,17 @@ def add_stitching_args(parser):
     return parser
 
 
-def one_device(value: str) -> int:
-    """A mesh axis size the one-device port can run: -1 (all devices, so
-    one) or 1."""
-    n = int(value)
-    if n > 1:
-        raise argparse.ArgumentTypeError(
-            f"{n} devices on a mesh axis: the port runs on one device; "
-            "data and tensor parallelism are ROADMAP.md Queue 1, item 21")
-    return n
-
-
 def add_mesh_args(parser, *, dit: bool = False,
                   default_dit_sharding: str = "fsdp"):
     """Device-mesh layout.  The reference launches multi-device by
     construction (torchrun DDP `model_stitching_training.py:286-289`,
-    accelerate FSDP2 `train_vdm.py:296-310`); the JAX package lays one 2-D
-    `(data, model)` mesh over all visible devices.  The port parses the
-    same flags and refuses an axis above 1 (`one_device`).  `dit=True` adds
-    the DiT placement choice (VDM training only)."""
+    accelerate FSDP2 `train_vdm.py:296-310`); `core/mesh.py` lays one 2-D
+    `(data, model)` mesh over the launch's ranks.  `dit=True` adds the DiT
+    placement choice (`core/mesh.py::place_dit`)."""
     g = parser.add_argument_group("Mesh / parallelism")
-    g.add_argument("--mesh_data", type=one_device, default=-1,
+    g.add_argument("--mesh_data", type=int, default=-1,
                    help="Devices on the data axis (-1: all / mesh_model)")
-    g.add_argument("--mesh_model", type=one_device, default=1,
+    g.add_argument("--mesh_model", type=int, default=1,
                    help="Devices on the model (tensor-parallel) axis")
     if dit:
         g.add_argument("--dit_sharding", type=str,

@@ -1,8 +1,8 @@
 """Entry point: text → 3DGS inference on released checkpoints.
 
 Port of `vist3a_tpu/cli/inference_t23d.py` (the reference's
-`inference_t23d.py:51-166`): the prompt list sharded over processes
-(`prompts[rank::world]`, :62), the fixed seed 12413, 50-step UniPC with
+`inference_t23d.py:51-166`): the prompt list sharded over the data axis
+(`prompts[data_index::data_size]`, :62), the fixed seed 12413, 50-step UniPC with
 `--flow_shift` and the first `--cfg_scale`, one output folder per prompt
 with prompt.txt, the orbit gs.mp4 and depth.mp4 and gaussians.ply.
 
@@ -17,6 +17,13 @@ with prompt.txt, the orbit gs.mp4 and depth.mp4 and gaussians.ply.
 The tokenizer is a callable `tokenize(text) → (ids (1, 226), mask (1,
 226))`; `main` loads the HF one from `{weights_root}/umt5` only when none
 is given (`transformers` is needed for that alone).
+
+Tensor-parallel (the 14B DiT over M GPUs of a model group), one process
+per GPU: `torchrun --nproc_per_node N -m vist3a_tpu_torch.cli.
+inference_t23d --mesh_model M ...`.  With `--mesh_model` above 1 the DiT
+is placed by `--dit_sharding` (tp by default); the ranks of one model group
+take the same prompts, draw the same `latents0` (the seed) and denoise
+together, and only its model-rank 0 decodes and writes the scene.
 """
 
 from __future__ import annotations
@@ -62,14 +69,23 @@ def summarize(res: t23d.T23DResult) -> dict:
 
 def run(modules: dict, tokenize: Callable, prompts: list[str],
         output_dir: str, cfg: t23d.T23DConfig, *, process_index: int = 0,
-        process_count: int = 1, orbit_t: int = 10,
+        process_count: int = 1, orbit_t: int = 10, writes: bool = True,
         device: torch.device | str = "cuda") -> list:
-    """This process's share of `prompts`, each through `text_to_3dgs` into
+    """This process's share of `prompts` (`prompts[process_index::
+    process_count]`), each through `text_to_3dgs` into
     `output_dir/<prompt[:100] without '/'>/`.  Returns [(prompt,
     `summarize` of its request)]: no scene stays on the card once its
-    files are written, as the JAX `run` keeps only the paths."""
+    files are written, as the JAX `run` keeps only the paths.  writes=False
+    (a tensor-parallel peer of the writing rank) embeds and denoises each
+    prompt with its model group, decodes and writes nothing, and returns
+    []."""
     results = []
     for prompt in prompts[process_index::process_count]:
+        if not writes:
+            cond, uncond = t23d.embed_prompts(modules["umt5"], tokenize,
+                                              prompt, device=device)
+            t23d.denoise(modules["dit"], cond, uncond, cfg, device=device)
+            continue
         save = Path(output_dir) / prompt[:100].replace("/", "")
         save.mkdir(parents=True, exist_ok=True)
         (save / "prompt.txt").write_text(prompt)
@@ -92,16 +108,6 @@ def hf_tokenizer(path) -> Callable:
                         return_attention_mask=True, return_tensors="np")
         return enc["input_ids"], enc["attention_mask"]
     return tokenize
-
-
-def process_grid() -> tuple[int, int]:
-    """(rank, world size) of an initialised `torch.distributed`, else
-    (0, 1)."""
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
 
 
 def load_generator(root: Path, model_id: str, lora_path=None, *,
@@ -142,26 +148,40 @@ def load_generator(root: Path, model_id: str, lora_path=None, *,
 
 def main(args, tokenize: Callable | None = None, *,
          device: torch.device | str = "cuda") -> tuple[dict, list]:
-    """Load every module from the weights root and the checkpoints the
-    flags name, then `run` over `--input_texts_path`.  Returns the modules
-    and `run`'s results."""
+    """The process group of a launcher's environment (`setup_dist`; none
+    without one) and the mesh of the flags; every module from the weights
+    root and the checkpoints the flags name, the DiT placed over the mesh
+    when `--mesh_model` is above 1; then `run` over `--input_texts_path`,
+    this rank's prompts by its data index.  Returns the modules and `run`'s
+    results; a group this call started is destroyed on the way out."""
     from vist3a_tpu_torch.cli.model_loading import (load_stitched_model,
                                                     weights_root)
+    from vist3a_tpu_torch.core import distributed
+    from vist3a_tpu_torch.core import mesh as mesh_mod
 
-    root = weights_root(args)
-    modules, scfg = load_stitched_model(args, device=device)
-    modules.update(load_generator(
-        root, args.model_id, getattr(args, "transformer_lora_path", None),
-        device=device))
-    if tokenize is None:
-        tokenize = hf_tokenizer(root / "umt5")
-    with open(args.input_texts_path) as f:
-        prompts = [line.strip() for line in f if line.strip()]
-    cfg = request_config(args, modules["dit"].cfg, scfg)
-    rank, world = process_grid()
-    return modules, run(modules, tokenize, prompts, args.output_dir, cfg,
-                        process_index=rank, process_count=world,
-                        device=device)
+    started = distributed.setup_dist(device)
+    try:
+        mesh = mesh_mod.mesh_from_args(args)
+        root = weights_root(args)
+        modules, scfg = load_stitched_model(args, device=device)
+        modules.update(load_generator(
+            root, args.model_id, getattr(args, "transformer_lora_path", None),
+            device=device))
+        if tokenize is None:
+            tokenize = hf_tokenizer(root / "umt5")
+        with open(args.input_texts_path) as f:
+            prompts = [line.strip() for line in f if line.strip()]
+        cfg = request_config(args, modules["dit"].cfg, scfg)
+        if mesh.model > 1:
+            mesh_mod.place_dit(modules["dit"], cfg.dit, mesh,
+                               args.dit_sharding)
+        return modules, run(modules, tokenize, prompts, args.output_dir, cfg,
+                            process_index=mesh.data_index,
+                            process_count=mesh.data,
+                            writes=mesh.model_index == 0, device=device)
+    finally:
+        if started:
+            distributed.cleanup()
 
 
 def request_config(args, dit_cfg, scfg, **over) -> t23d.T23DConfig:

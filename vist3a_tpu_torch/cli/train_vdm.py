@@ -1,6 +1,6 @@
 """Entry point: reward-aligned VDM fine-tuning.
 
-Port of `vist3a_tpu/cli/train_vdm.py` for one device (the reference's
+Port of `vist3a_tpu/cli/train_vdm.py` (the reference's
 `train_vdm.py:284-691`).  `run` is the loop: per step one text batch (its
 first prompt, camera-augmented, is the rollout prompt) and one video batch
 (the SFT clip and its captions), the prompts embedded by `embed_text`, the
@@ -41,6 +41,19 @@ tokenizer is `transformers`' from `{root}/umt5` unless `main` is handed a
 `tokenize` callable.  The DiT and UMT5 run in bf16 (the reference's
 autocast; the JAX main keeps fp32 parameters), the VAE in fp32 weights
 with bf16 activations, the scorers in fp32.
+
+Over several GPUs (the reference's accelerate FSDP2 launch,
+`train_vdm.py:296-310`), one process each:
+
+    VIST3A_WEIGHTS=ROOT torchrun --nproc_per_node 8 \
+        -m vist3a_tpu_torch.cli.train_vdm --mesh_data 4 --mesh_model 2 \
+        --dit_sharding tp_fsdp --model_id Wan-AI/Wan2.1-T2V-14B-Diffusers ...
+
+`--dit_sharding` places the DiT (`core/mesh.py::place_dit`: fsdp, tp,
+tp_fsdp, replicated); the VAE, the stitched decoder and the scorers stay
+replicated, as in the JAX package (`vist3a_tpu/cli/train_vdm.py:48-58`).
+The loaders are split by the rank's data index, the main process alone
+saves, writes the image grids and `history.jsonl`, and logs.
 """
 
 from __future__ import annotations
@@ -56,6 +69,8 @@ import torch
 
 from vist3a_tpu_torch.cli.arguments import (training_vdm_argument,
                                             validate_vdm_args)
+from vist3a_tpu_torch.core import distributed
+from vist3a_tpu_torch.core import mesh as mesh_mod
 from vist3a_tpu_torch.io import checkpoints as ckpt
 from vist3a_tpu_torch.nn import wan_dit, wan_vae
 from vist3a_tpu_torch.stitch import chopped_anysplat as ca
@@ -133,13 +148,18 @@ def run(state: vdm.VDMTrainState, dit: wan_dit.WanDiT,
         save_freq: int = 100, resume_path=None, seed: int = 23,
         latent_shape=(1, 16, 4, 64, 64), render_size: int = 448,
         on_metrics=None, uncond_embeds: torch.Tensor | None = None,
-        reward_text_fn: Callable | None = None, logger=None):
+        reward_text_fn: Callable | None = None, logger=None, mesh=None):
     """The VDM loop until `state.step == num_steps`.  embed_text(list[str])
     → (B, L, text_dim) on the models' device; reward_text_fn(prompt) →
     (pick_text, pe_text); logger: a `core/wandb_log.py` RunLogger.
     Returns (state, history), history the metrics of every step of this
-    call (floats, the draws, the prompt)."""
+    call (floats, the draws, the prompt).  `mesh` (`core/mesh.py`): the
+    video batches are this rank's rows, the DiT as `place_dit` left it;
+    the main process writes, the others wait at a barrier."""
     device = dit.patch_embedding.weight.device
+    # the writer: the main process of a mesh's group; a run without
+    # groups is one process, and writes
+    main = not mesh_mod.active(mesh) or distributed.is_main_process()
     rng = np.random.default_rng(seed)
     if resume_path is not None:
         restore(resume_path, state, rng)
@@ -181,7 +201,8 @@ def run(state: vdm.VDMTrainState, dit: wan_dit.WanDiT,
                 sft_text=sft_text, rl_cond=rl_cond, rl_uncond=rl_uncond,
                 reward_loss_fn=reward_loss_fn, seed=seed, scfg=scfg, cfg=cfg,
                 latent_shape=latent_shape, render_size=render_size,
-                reward_text=reward_text, return_images=want_images)
+                reward_text=reward_text, return_images=want_images,
+                mesh=mesh)
             imgs = metrics.pop("images", None)
             m = {k: v if isinstance(v, (bool, int, float, list))
                  else float(v) for k, v in metrics.items()}
@@ -191,7 +212,7 @@ def run(state: vdm.VDMTrainState, dit: wan_dit.WanDiT,
                 on_metrics(history[-1])
             if logger is not None:
                 logger.log({"prompt": prompt, **m}, step=state.step)
-            if imgs is not None:
+            if imgs is not None and main:
                 decoded, rendered = (t.float().cpu().numpy() for t in imgs)
                 _save_image_grid(Path(save_path) / "images"
                                  / f"step_{img_step:06d}.png",
@@ -202,14 +223,19 @@ def run(state: vdm.VDMTrainState, dit: wan_dit.WanDiT,
                                       list(decoded) + list(rendered),
                                       step=img_step)
             if save_path is not None and state.step % save_freq == 0:
-                save(save_path, state, rng)
+                if main:
+                    save(save_path, state, rng)
+                if mesh_mod.active(mesh):
+                    distributed.barrier()
         text_epoch += 1                       # `train_vdm.py:689-691`
         _set_epoch(text_loader, text_epoch)
         texts = iter(text_loader)
-    if save_path is not None:
+    if save_path is not None and main:
         Path(save_path).mkdir(parents=True, exist_ok=True)
         (Path(save_path) / "history.jsonl").write_text(
             "\n".join(json.dumps(h) for h in history))
+    if save_path is not None and mesh_mod.active(mesh):
+        distributed.barrier()
     return state, history
 
 
@@ -323,24 +349,51 @@ def _clip_tokenizer_from_dir(model_dir):
 
 def main(args, tokenize: Callable | None = None, *,
          device: torch.device | str = "cuda"):
-    """The command line: the stitched decoder, the Wan VAE, UMT5, the DiT
-    and (with `--enable_rl`) the scorers from the weights root and the
-    checkpoint, the DL3DV clip loader and the prompt loader, then `run`
-    for `num_epochs · len(video loader)` steps.  tokenize(text) → (ids (1,
-    226), mask (1, 226)); None loads `transformers`' UMT5 tokenizer from
-    `{root}/umt5`.  Returns `run`'s (state, history)."""
+    """The command line: the process group of a launcher's environment
+    (`setup_dist`; none without one) and the mesh of the flags, the
+    stitched decoder, the Wan VAE, UMT5, the DiT (placed by
+    `--dit_sharding`) and (with `--enable_rl`) the scorers from the
+    weights root and the checkpoint, the DL3DV clip loader and the prompt
+    loader, then `run` for `num_epochs · len(video loader)` steps.
+    tokenize(text) → (ids (1, 226), mask (1, 226)); None loads
+    `transformers`' UMT5 tokenizer from `{root}/umt5`.  Returns `run`'s
+    (state, history); the modules are locals of `_train`, and a group this
+    call started is destroyed on the way out."""
+    from vist3a_tpu_torch.core.wandb_log import make_run
+
+    validate_vdm_args(training_vdm_argument(), args)
+    started = distributed.setup_dist(device)
+    try:
+        # each process loads its per-device `--batch_size`
+        # (`mesh_mod.local_batch_size`)
+        mesh = mesh_mod.mesh_from_args(args)
+        # the rank-0 metric and image stream (`train_vdm.py:651-688`; the
+        # PNG grids are written either way), started before any module
+        # is loaded (a failed wandb start keeps this frame: see
+        # `cli/train_stitching.py::main`)
+        logger = make_run(args.wandb_logging,
+                          project=args.wandb_project_name,
+                          run_name=args.exp_name, config=vars(args),
+                          out_dir=args.save_path)
+        try:
+            return _train(args, tokenize, mesh, logger, device)
+        finally:
+            logger.finish()
+    finally:
+        if started:
+            distributed.cleanup()
+
+
+def _train(args, tokenize, mesh: mesh_mod.Mesh, logger, device):
     from vist3a_tpu_torch.cli.inference_t23d import (hf_tokenizer,
-                                                     load_generator,
-                                                     process_grid)
+                                                     load_generator)
     from vist3a_tpu_torch.cli import model_loading
     from vist3a_tpu_torch.cli.model_loading import (load_stitched_model,
                                                     load_wan_vae,
                                                     weights_root)
-    from vist3a_tpu_torch.core.wandb_log import make_run
     from vist3a_tpu_torch.data.loader import create_vdm_tuning_dataloader
     from vist3a_tpu_torch.nn import umt5 as umt5_mod
 
-    validate_vdm_args(training_vdm_argument(), args)
     root = weights_root(args)
     modules, scfg = load_stitched_model(args, device=device)
     stitched = modules["stitched"]
@@ -350,6 +403,7 @@ def main(args, tokenize: Callable | None = None, *,
     vae = load_wan_vae(root, model_loading.WanVAEConfig(), device=device)
     gen_models = load_generator(root, args.model_id, device=device)
     umt5, dit = gen_models["umt5"], gen_models["dit"]
+    del gen_models
     if tokenize is None:
         tokenize = hf_tokenizer(root / "umt5")
 
@@ -366,32 +420,27 @@ def main(args, tokenize: Callable | None = None, *,
     datasets = [(n, str(p)) for n, p in args.dataset]
     if args.text_dataset_path:
         datasets.append(("text", args.text_dataset_path))
-    rank, world = process_grid()
     text_loader, _, video_loader, _ = create_vdm_tuning_dataloader(
-        datasets, args, num_replicas=world, rank=rank)
+        datasets, args, num_replicas=mesh_mod.data_size(mesh),
+        rank=mesh_mod.data_index(mesh))
 
     cfg = vdm.VDMTrainConfig(learning_rate=args.learning_rate,
                              weight_decay=args.weight_decay,
                              enable_rl=args.enable_rl)
+    # the state takes the sites' full shapes, so it comes before the
+    # placement (`place_dit`)
     state = vdm.init_train_state(
         torch.Generator(device=device).manual_seed(args.global_seed), dit,
         cfg)
-    # the rank-0 metric and image stream (`train_vdm.py:651-688`); the PNG
-    # grids are written either way
-    logger = make_run(args.wandb_logging, project=args.wandb_project_name,
-                      run_name=args.exp_name, config=vars(args),
-                      out_dir=args.save_path)
-    try:
-        return run(state, dit, vae["encoder"], vae["decoder"], stitched,
-                   text_loader=text_loader, video_loader=video_loader,
-                   embed_text=embed_text, reward_loss_fn=reward_loss_fn,
-                   reward_text_fn=reward_text_fn, scfg=scfg, cfg=cfg,
-                   num_steps=args.num_epochs * len(video_loader),
-                   save_path=args.save_path, save_freq=args.save_freq,
-                   resume_path=args.resume_checkpoint_path,
-                   seed=args.global_seed, logger=logger)
-    finally:
-        logger.finish()
+    mesh_mod.place_dit(dit, dit.cfg, mesh, args.dit_sharding)
+    return run(state, dit, vae["encoder"], vae["decoder"], stitched,
+               text_loader=text_loader, video_loader=video_loader,
+               embed_text=embed_text, reward_loss_fn=reward_loss_fn,
+               reward_text_fn=reward_text_fn, scfg=scfg, cfg=cfg,
+               num_steps=args.num_epochs * len(video_loader),
+               save_path=args.save_path, save_freq=args.save_freq,
+               resume_path=args.resume_checkpoint_path,
+               seed=args.global_seed, logger=logger, mesh=mesh)
 
 
 if __name__ == "__main__":

@@ -20,11 +20,13 @@ teacher: an `Encoder` built with vit_start=0 holds the whole DINOv2 trunk.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import NamedTuple
 
 import torch
 from torch import nn
 
+from vist3a_tpu_torch.core import mesh as mesh_mod
 from vist3a_tpu_torch.nn import aggregator as agg_mod
 from vist3a_tpu_torch.nn.aggregator import Aggregator, AggregatorConfig
 from vist3a_tpu_torch.nn.gaussians import (Gaussians, map_pdf_to_opacity,
@@ -60,6 +62,19 @@ class EncoderConfig:
     @property
     def raw_gs_dim(self) -> int:
         return self.gs.output_dim - 1
+
+
+def quantile(x: torch.Tensor, q: float) -> torch.Tensor:
+    """`torch.quantile` (linear interpolation) of a 1-D tensor; past its
+    2^24-element limit (the global batch of a wide data axis) the same
+    interpolation over a sort."""
+    if x.numel() <= 1 << 24:
+        return torch.quantile(x, q)
+    s = torch.sort(x).values
+    pos = q * (x.numel() - 1)
+    lo = int(math.floor(pos))
+    hi = min(lo + 1, x.numel() - 1)
+    return torch.lerp(s[lo], s[hi], pos - lo)
 
 
 class EncoderOutput(NamedTuple):
@@ -129,8 +144,10 @@ def heads_pipeline(encoder: Encoder, cfg: EncoderConfig, taps: list,
     else:
         raise ValueError(f"pred_head_type {cfg.pred_head_type!r}")
 
-    conf_valid = depth_conf > torch.quantile(depth_conf.flatten(),
-                                             cfg.conf_threshold)
+    # over the global batch on a data-parallel mesh (`core/mesh.py::
+    # global_batch`), as the JAX package's quantile over its global batch
+    conf_valid = depth_conf > quantile(
+        mesh_mod.global_batch(depth_conf).flatten(), cfg.conf_threshold)
 
     raw = gs_head_apply(encoder.gs_head, taps, images01, psi, cfg.gs,
                         remat=remat)

@@ -55,6 +55,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vist3a_tpu_torch.core import mesh as mesh_mod
 from vist3a_tpu_torch.nn.layers import build_random
 
 
@@ -418,6 +419,8 @@ def vision_features(model: QwenVLVision, patches: torch.Tensor,
 # text decoder                                                                #
 # --------------------------------------------------------------------------- #
 class QwenVLTextLayer(nn.Module):
+    tp = None   # core/mesh.py::TensorParallel, set by `place_text`
+
     def __init__(self, cfg: QwenVLTextConfig):
         super().__init__()
         d, dh = cfg.hidden_size, cfg.head_dim
@@ -493,7 +496,10 @@ def _text_layer(layer: QwenVLTextLayer, x, cos, sin, kcache, vcache,
     cache_pos + L), attending over rows [0, cache_pos + L) of the updated
     cache slices kcache / vcache (Lmax, kvh, dh)."""
     l = x.shape[0]
-    h, kvh, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    dh = cfg.head_dim
+    # this rank's heads (all of them unless `place_text` cut the layer)
+    h, kvh = layer.q.weight.shape[0] // dh, layer.k.weight.shape[0] // dh
+    tp = layer.tp
     y = _rms_norm(layer.ln1, x, cfg.rms_eps)
     q = _rope(layer.q(y).reshape(l, h, dh), cos, sin)
     k = _rope(layer.k(y).reshape(l, kvh, dh), cos, sin)
@@ -501,8 +507,22 @@ def _text_layer(layer: QwenVLTextLayer, x, cos, sin, kcache, vcache,
     vcache[cache_pos:cache_pos + l] = layer.v(y).reshape(l, kvh, dh)
     m = cache_pos + l
     o = _masked_attention(q, kcache[:m], vcache[:m], bias, dh ** -0.5)
-    x = x + layer.o(o.reshape(l, -1))
-    return x + layer.mlp(_rms_norm(layer.ln2, x, cfg.rms_eps))
+    # o and down are row-parallel under TP (no biases): the partial
+    # products summed over the model group
+    attn = layer.o(o.reshape(l, -1))
+    if tp is not None:
+        attn = mesh_mod.reduce_from_model(attn, tp.group)
+    x = x + attn
+    mlp = layer.mlp(_rms_norm(layer.ln2, x, cfg.rms_eps))
+    if tp is not None:
+        mlp = mesh_mod.reduce_from_model(mlp, tp.group)
+    return x + mlp
+
+
+def local_kv_heads(model: QwenVLText) -> int:
+    """The kv heads this rank holds: all, or its share under `place_text`
+    (the static KV cache holds only those)."""
+    return model.layers[0].k.weight.shape[0] // model.cfg.head_dim
 
 
 def text_forward(model: QwenVLText, embeds: torch.Tensor,
@@ -518,7 +538,7 @@ def text_forward(model: QwenVLText, embeds: torch.Tensor,
     l = embeds.shape[0]
     dev = embeds.device
     if kcache is None:
-        kcache = torch.zeros((cfg.num_layers, l, cfg.num_kv_heads,
+        kcache = torch.zeros((cfg.num_layers, l, local_kv_heads(model),
                               cfg.head_dim), dtype=embeds.dtype, device=dev)
         vcache = torch.zeros_like(kcache)
         cache_pos = 0
@@ -570,7 +590,7 @@ def greedy_generate(model: QwenVLText, input_ids: np.ndarray, image_embeds,
     with torch.no_grad():
         x = embed_tokens(model, torch.as_tensor(np.asarray(input_ids)),
                          image_embeds)
-        kc = torch.zeros((cfg.num_layers, lmax, cfg.num_kv_heads,
+        kc = torch.zeros((cfg.num_layers, lmax, local_kv_heads(model),
                           cfg.head_dim), dtype=x.dtype, device=dev)
         vc = torch.zeros_like(kc)
         logits, kc, vc = text_forward(
@@ -590,6 +610,57 @@ def greedy_generate(model: QwenVLText, input_ids: np.ndarray, image_embeds,
                                           vcache=vc, cache_pos=l + i)
             tok = torch.argmax(logits[-1])
     return out
+
+
+# --------------------------------------------------------------------------- #
+# tensor-parallel placement (the 7B judge over a model group)                 #
+# --------------------------------------------------------------------------- #
+_TEXT_COLUMN = ("q", "k", "v", "gate", "up")
+_TEXT_ROW = ("o", "down")
+
+
+def _text_tp_dim(name: str) -> int | None:
+    parts = name.split(".")
+    if parts[0] != "layers" or len(parts) < 4:
+        return None
+    if parts[-2] in _TEXT_COLUMN:
+        return 0
+    if parts[-2] in _TEXT_ROW and parts[-1] == "weight":
+        return 1
+    return None
+
+
+def text_tp_slices(state: dict[str, torch.Tensor], size: int, rank: int
+                   ) -> dict[str, torch.Tensor]:
+    """The text decoder's weights (`named_parameters` names) → this rank's
+    Megatron slices (`vist3a_tpu/nn/qwen_vl.py::text_param_shardings`):
+    q/k/v/gate/up keep their output rows (and biases), o/down their input
+    columns; the embeddings, the norms and `lm_head` stay whole."""
+    return mesh_mod.tp_slice_state(state, _text_tp_dim, size, rank)
+
+
+def place_text(model: QwenVLText, mesh, *, axis: str = "model"
+               ) -> QwenVLText:
+    """Cut the text decoder, in place, to this rank's slices over the
+    mesh's `axis` group (`core/mesh.py`; `text_tp_slices`): each layer then
+    runs num_heads/model query heads and num_kv_heads/model kv heads (the
+    GQA groups stay whole), its static KV cache holds only those, and the
+    o and down products are summed over the group.  The group's size must
+    divide num_kv_heads (4 at 7B: model ∈ {2, 4}).  A mesh without process
+    groups places nothing."""
+    group = mesh.group(axis)
+    if group is None:
+        return model
+    tp = mesh_mod.tensor_parallel_group(group)
+    cfg = model.cfg
+    if cfg.num_kv_heads % tp.size or cfg.intermediate_size % tp.size:
+        raise ValueError(f"{cfg.num_kv_heads} kv heads / intermediate "
+                         f"{cfg.intermediate_size} do not split over a "
+                         f"model axis of {tp.size}")
+    mesh_mod.cut_to_slices(model, _text_tp_dim, tp)
+    for layer in model.layers:
+        layer.tp = tp
+    return model
 
 
 # --------------------------------------------------------------------------- #

@@ -30,9 +30,16 @@ DiT 50 times on one grid.
 `forward(remat=True)` is the training entry, in the caller's grad mode:
 each block is recomputed in the backward, and `lora` (factors keyed
 `blocks.<i>.<site>`, from `stitch.lora.init_lora` on the DiT) is merged
-into the block's weights inside that recompute, so merged q/k/v/o weights
-live for one block at a time (the JAX `lora_blocks` / `merge_fn` of
-`wan_dit.forward`).
+into the block's weights inside the block's forward, so merged q/k/v/o
+weights live for one block at a time (the JAX `lora_blocks` / `merge_fn`
+of `wan_dit.forward`); under FSDP2 (`core/mesh.py::place_dit`) that is
+where the block's weights are gathered.
+
+`tensor_parallel` cuts the blocks to this rank's slices over a model
+group (the port's `param_shardings`, Megatron's layout), with the
+collectives written out: an autograd-aware copy at each column-parallel
+input, an all-reduce after each row-parallel product with its bias added
+after it, and the qk-norm's mean of squares summed over the group.
 
 Weights: `convert.load_jax_dit_params` (the patch kernel is DHWIO there,
 OIDHW here; linear weights (in, out) there, (out, in) here), or `init`,
@@ -48,9 +55,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
+from vist3a_tpu_torch.core.mesh import (TensorParallel, copy_to_model,
+                                        cut_to_slices, reduce_from_model,
+                                        sum_over_model, tensor_parallel_group,
+                                        tp_slice_state)
 from vist3a_tpu_torch.nn.layers import build_random, rms_norm
 from vist3a_tpu_torch.ops.attention import dot_product_attention
 from vist3a_tpu_torch.stitch import lora as lora_mod
@@ -173,6 +183,8 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
 
 
 class WanAttention(nn.Module):
+    tp: TensorParallel | None = None
+
     def __init__(self, cfg: WanDiTConfig):
         super().__init__()
         self.cfg = cfg
@@ -190,28 +202,77 @@ class WanAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, context: torch.Tensor | None = None,
                 rope: tuple | None = None) -> torch.Tensor:
-        """Self-attention (context None: one fused QKV product, RoPE, the
-        dispatch's kernel) or cross-attention (plain math)."""
-        cfg = self.cfg
-        b, n, d = x.shape
-        h, dh = cfg.num_heads, cfg.head_dim
-        if context is None:
-            w = torch.cat([self.q.weight, self.k.weight, self.v.weight])
-            bias = torch.cat([self.q.bias, self.k.bias, self.v.bias])
-            qkv = F.linear(x, w.to(x.dtype)) + bias.to(x.dtype)
-            q, k, v = qkv.split(d, dim=-1)
-            context_len, impl = n, "auto"
-        else:
-            q, k, v = self.q(x), self.k(context), self.v(context)
-            context_len, impl = context.shape[1], "plain"
-        q = rms_norm(self.norm_q, q, cfg.eps).reshape(b, n, h, dh)
-        k = rms_norm(self.norm_k, k, cfg.eps).reshape(b, context_len, h, dh)
-        v = v.reshape(b, context_len, h, dh)
-        if rope is not None:
-            q = apply_rope(q, *rope)
-            k = apply_rope(k, *rope)
-        out = dot_product_attention(q, k, v, impl=impl)
-        return self.o(out.reshape(b, n, d))
+        return attention(dict(self.named_parameters()), x, context, rope,
+                         self.cfg, self.tp)
+
+
+def _linear(p: dict, name: str, x: torch.Tensor) -> torch.Tensor:
+    """`WanLinear.forward` with the weights of `p`."""
+    return (F.linear(x, p[f"{name}.weight"].to(x.dtype))
+            + p[f"{name}.bias"].to(x.dtype))
+
+
+def _row_linear(p: dict, name: str, x: torch.Tensor,
+                tp: TensorParallel | None) -> torch.Tensor:
+    """A row-parallel linear: the partial product all-reduced over the
+    model group, then the bias added once."""
+    if tp is None:
+        return _linear(p, name, x)
+    y = reduce_from_model(F.linear(x, p[f"{name}.weight"].to(x.dtype)),
+                          tp.group)
+    return y + p[f"{name}.bias"].to(x.dtype)
+
+
+def _rms_across_heads(scale: torch.Tensor, x: torch.Tensor, eps: float,
+                      d_full: int, tp: TensorParallel | None
+                      ) -> torch.Tensor:
+    """RMSNorm over the full inner dim; under TP each rank holds d/model of
+    it, so the mean of squares is summed over the model group (each rank's
+    mean weighted by its share) before the rsqrt."""
+    if tp is None:
+        return rms_norm(scale, x, eps)
+    xf = x.float()
+    ms = sum_over_model(
+        xf.square().mean(-1, keepdim=True) * (x.shape[-1] / d_full),
+        tp.group)
+    return (xf * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)
+
+
+def attention(p: dict, x: torch.Tensor, context: torch.Tensor | None,
+              rope: tuple | None, cfg: WanDiTConfig,
+              tp: TensorParallel | None = None) -> torch.Tensor:
+    """Self-attention (context None: one fused QKV product, RoPE, the
+    dispatch's kernel) or cross-attention (plain math), with the weights
+    of `p` ({"q.weight", ..., "norm_q", "norm_k"}).  Under TP they are this
+    rank's slices: its heads, H/model of them."""
+    b, n, _ = x.shape
+    dh = cfg.head_dim
+    d = p["q.weight"].shape[0]                # the local inner width
+    h = d // dh
+    if tp is not None:
+        x = copy_to_model(x, tp.group)
+    if context is None:
+        w = torch.cat([p["q.weight"], p["k.weight"], p["v.weight"]])
+        bias = torch.cat([p["q.bias"], p["k.bias"], p["v.bias"]])
+        qkv = F.linear(x, w.to(x.dtype)) + bias.to(x.dtype)
+        q, k, v = qkv.split(d, dim=-1)
+        context_len, impl = n, "auto"
+    else:
+        if tp is not None:
+            context = copy_to_model(context, tp.group)
+        q, k, v = (_linear(p, "q", x), _linear(p, "k", context),
+                   _linear(p, "v", context))
+        context_len, impl = context.shape[1], "plain"
+    q = _rms_across_heads(p["norm_q"], q, cfg.eps, cfg.dim, tp
+                          ).reshape(b, n, h, dh)
+    k = _rms_across_heads(p["norm_k"], k, cfg.eps, cfg.dim, tp
+                          ).reshape(b, context_len, h, dh)
+    v = v.reshape(b, context_len, h, dh)
+    if rope is not None:
+        q = apply_rope(q, *rope)
+        k = apply_rope(k, *rope)
+    out = dot_product_attention(q, k, v, impl=impl)
+    return _row_linear(p, "o", out.reshape(b, n, d), tp)
 
 
 class AffineNorm(nn.Module):
@@ -226,6 +287,8 @@ class AffineNorm(nn.Module):
 
 
 class WanBlock(nn.Module):
+    tp: TensorParallel | None = None
+
     def __init__(self, cfg: WanDiTConfig):
         super().__init__()
         self.cfg = cfg
@@ -240,24 +303,47 @@ class WanBlock(nn.Module):
                         generator=generator)
 
     def forward(self, x: torch.Tensor, text: torch.Tensor,
-                temb6: torch.Tensor, rope: tuple) -> torch.Tensor:
-        """x (B, N, D), text (B, L, D), temb6 (B, 6, D) fp32."""
-        eps = self.cfg.eps
-        mods = self.scale_shift_table.float()[None] + temb6
-        sh_msa, sc_msa, g_msa, sh_mlp, sc_mlp, g_mlp = (
-            mods[:, i][:, None] for i in range(6))
-        dtype = x.dtype
+                temb6: torch.Tensor, rope: tuple, factors: dict | None = None,
+                lora_cfg=None) -> torch.Tensor:
+        """x (B, N, D), text (B, L, D), temb6 (B, 6, D) fp32; the weights
+        merged with the LoRA `factors` if given.  The merge reads the
+        block's parameters here, inside its forward, where FSDP2 has
+        gathered them; under TP the replicated factors are cut to this
+        rank's slices (`_tp_factors`)."""
+        p = dict(self.named_parameters())
+        if factors:
+            p = lora_mod.merge_lora(p, _tp_factors(factors, self.tp),
+                                    lora_cfg)
+        return block_forward(p, x, text, temb6, rope, self.cfg, self.tp)
 
-        y = (_fp32_ln(x, eps) * (1 + sc_msa) + sh_msa).to(dtype)
-        attn = self.attn1(y, rope=rope)
-        x = (x.float() + attn.float() * g_msa).to(dtype)
 
-        y = _fp32_ln(x, eps, self.norm2.weight, self.norm2.bias).to(dtype)
-        x = x + self.attn2(y, text)
+def _sub(p: dict, prefix: str) -> dict:
+    return {k[len(prefix):]: v for k, v in p.items() if k.startswith(prefix)}
 
-        y = (_fp32_ln(x, eps) * (1 + sc_mlp) + sh_mlp).to(dtype)
-        ff = self.ffn.fc2(F.gelu(self.ffn.fc1(y), approximate="tanh"))
-        return (x.float() + ff.float() * g_mlp).to(dtype)
+
+def block_forward(p: dict, x: torch.Tensor, text: torch.Tensor,
+                  temb6: torch.Tensor, rope: tuple, cfg: WanDiTConfig,
+                  tp: TensorParallel | None = None) -> torch.Tensor:
+    """One block with the weights of `p` (the block's parameter names)."""
+    eps = cfg.eps
+    mods = p["scale_shift_table"].float()[None] + temb6
+    sh_msa, sc_msa, g_msa, sh_mlp, sc_mlp, g_mlp = (
+        mods[:, i][:, None] for i in range(6))
+    dtype = x.dtype
+
+    y = (_fp32_ln(x, eps) * (1 + sc_msa) + sh_msa).to(dtype)
+    attn = attention(_sub(p, "attn1."), y, None, rope, cfg, tp)
+    x = (x.float() + attn.float() * g_msa).to(dtype)
+
+    y = _fp32_ln(x, eps, p["norm2.weight"], p["norm2.bias"]).to(dtype)
+    x = x + attention(_sub(p, "attn2."), y, text, None, cfg, tp)
+
+    y = (_fp32_ln(x, eps) * (1 + sc_mlp) + sh_mlp).to(dtype)
+    if tp is not None:
+        y = copy_to_model(y, tp.group)
+    ff = _row_linear(p, "ffn.fc2", F.gelu(_linear(p, "ffn.fc1", y),
+                                          approximate="tanh"), tp)
+    return (x.float() + ff.float() * g_mlp).to(dtype)
 
 
 class PatchEmbedding(nn.Module):
@@ -277,6 +363,8 @@ class PatchEmbedding(nn.Module):
 
 class WanDiT(nn.Module):
     """The parameters of the JAX tree, one module per block."""
+
+    tp: TensorParallel | None = None
 
     def __init__(self, cfg: WanDiTConfig = WAN_1_3B):
         super().__init__()
@@ -299,16 +387,23 @@ class WanDiT(nn.Module):
 
     def rope(self, grid: tuple, device: torch.device) -> tuple:
         """The RoPE tables of `grid`, built on the host once per grid and
-        device."""
+        device, as normal tensors whatever the caller's mode."""
         key = (grid, str(device))
         if key not in self._rope:
-            self._rope[key] = tuple(
-                t.to(device) for t in rope_tables(self.cfg, *grid))
+            # built outside inference mode, so that a training step after
+            # an inference call can save them for its backward
+            with torch.inference_mode(False):
+                self._rope[key] = tuple(
+                    t.to(device) for t in rope_tables(self.cfg, *grid))
         return self._rope[key]
 
     def forward(self, latent: torch.Tensor, timestep: torch.Tensor,
-                text_embeds: torch.Tensor) -> torch.Tensor:
-        return forward(self, latent, timestep, text_embeds)
+                text_embeds: torch.Tensor, remat: bool = False,
+                lora: dict | None = None, lora_cfg=None) -> torch.Tensor:
+        """The DiT in the caller's grad mode; the module-level `forward`
+        is the entry (it picks the mode)."""
+        return _forward(self, latent, timestep, text_embeds, remat, lora,
+                        lora_cfg)
 
 
 def init(cfg: WanDiTConfig, generator: torch.Generator,
@@ -320,19 +415,6 @@ def init(cfg: WanDiTConfig, generator: torch.Generator,
     return build_random(lambda: WanDiT(cfg), generator, device, dtype)
 
 
-def _block_fn(blk: WanBlock, text, temb6, rope, factors: dict | None,
-              lora_cfg):
-    """x → the block on x, its weights merged with `factors` if given."""
-    if not factors:
-        return lambda x: blk(x, text, temb6, rope)
-
-    def run(x):
-        merged = lora_mod.merge_lora(dict(blk.named_parameters()), factors,
-                                     lora_cfg)
-        return functional_call(blk, merged, (x, text, temb6, rope))
-    return run
-
-
 def forward(model: WanDiT, latent: torch.Tensor, timestep: torch.Tensor,
             text_embeds: torch.Tensor, *, remat: bool = False,
             lora: dict | None = None,
@@ -341,13 +423,23 @@ def forward(model: WanDiT, latent: torch.Tensor, timestep: torch.Tensor,
     (σ·1000); text_embeds (B, L, text_dim).  Returns the predicted velocity
     (B, 16, T, H, W) in latent's dtype.  remat: the training entry (each
     block recomputed in the backward, with grad enabled); lora: factors
-    merged per block (see the module docstring)."""
+    merged per block (see the module docstring).  The model is called as a
+    module, so that FSDP2's hooks gather its weights; remat=False runs
+    under `no_grad` for an FSDP2-sharded model (its gathered buffers must
+    not become inference tensors that a later step with gradients reads),
+    else in inference mode."""
     if not remat:
-        with torch.inference_mode():
-            return _forward(model, latent, timestep, text_embeds, False,
-                            lora, lora_cfg)
-    return _forward(model, latent, timestep, text_embeds, True, lora,
-                    lora_cfg)
+        with torch.no_grad() if _fsdp_sharded(model) \
+                else torch.inference_mode():
+            return model(latent, timestep, text_embeds, False, lora,
+                         lora_cfg)
+    return model(latent, timestep, text_embeds, True, lora, lora_cfg)
+
+
+def _fsdp_sharded(model: nn.Module) -> bool:
+    from torch.distributed.fsdp import FSDPModule
+
+    return isinstance(model, FSDPModule)
 
 
 def _forward(model, latent, timestep, text_embeds, remat, lora, lora_cfg):
@@ -372,7 +464,8 @@ def _forward(model, latent, timestep, text_embeds, remat, lora, lora_cfg):
     rope = model.rope(grid, x.device)
     per_block = lora_mod.factors_by_block(lora or {}, len(model.blocks))
     for blk, factors in zip(model.blocks, per_block):
-        fn = _block_fn(blk, text, temb6, rope, factors, lora_cfg)
+        def fn(x, blk=blk, factors=factors):
+            return blk(x, text, temb6, rope, factors, lora_cfg)
         x = checkpoint(fn, x, use_reentrant=False) \
             if remat and torch.is_grad_enabled() else fn(x)
 
@@ -384,3 +477,81 @@ def _forward(model, latent, timestep, text_embeds, remat, lora, lora_cfg):
     x = x.reshape(b, *grid, pt, ph, pw, cfg.out_channels)
     x = x.permute(0, 7, 1, 4, 2, 5, 3, 6)              # B,C,gt,pt,gh,ph,gw,pw
     return x.reshape(b, cfg.out_channels, t, hh, ww)
+
+
+# --------------------------------------------------------------------------- #
+# tensor parallelism                                                          #
+# --------------------------------------------------------------------------- #
+# Megatron's layout (`vist3a_tpu/nn/wan_dit.py::param_shardings`): q/k/v and
+# ffn.fc1 keep the rows of this rank's heads / hidden units (their biases
+# and the qk-norm scales with them), o and ffn.fc2 the input columns
+_COLUMN_SITES = ("q", "k", "v", "fc1")
+_ROW_SITES = ("o", "fc2")
+
+
+def _tp_dim(name: str) -> int | None:
+    """The dim of parameter `name` (the DiT's names) that TP splits, or
+    None (replicated)."""
+    parts = name.split(".")
+    if parts[0] != "blocks" or len(parts) < 4:
+        return None
+    site, leaf = parts[-2], parts[-1]
+    if leaf in ("norm_q", "norm_k") or site in _COLUMN_SITES:
+        return 0
+    if site in _ROW_SITES and leaf == "weight":
+        return 1
+    return None
+
+
+def tp_slices(state: dict[str, torch.Tensor], size: int, rank: int
+              ) -> dict[str, torch.Tensor]:
+    """Full DiT weights (`named_parameters` names: a state dict, or
+    `convert.load_jax_dit_params`'s) → this rank's TP slices, views of
+    the given tensors; the other weights as given."""
+    return tp_slice_state(state, _tp_dim, size, rank)
+
+
+def _tp_factors(factors: dict, tp: TensorParallel | None) -> dict:
+    """A block's replicated LoRA factors ({site: {"a" (in, r), "b" (r,
+    out)}}) cut to this rank's slices of the merged delta: b's output
+    columns at a column-parallel site, a's input rows at a row-parallel
+    one.  The cut is differentiable, so each rank's factor gradient is the
+    part of its slices (summed over the model group by
+    `core/mesh.py::reduce_lora_grads`)."""
+    if tp is None:
+        return factors
+    out = {}
+    for site, f in factors.items():
+        leaf = site.rsplit(".", 1)[-1]
+        a, b = f["a"], f["b"]
+        if leaf in _COLUMN_SITES:
+            n = b.shape[1] // tp.size
+            b = b.narrow(1, tp.rank * n, n)
+        elif leaf in _ROW_SITES:
+            n = a.shape[0] // tp.size
+            a = a.narrow(0, tp.rank * n, n)
+        out[site] = {"a": a, "b": b}
+    return out
+
+
+def tensor_parallel(model: WanDiT, group) -> WanDiT:
+    """Cut `model`'s block weights, in place, to this rank's TP slices over
+    `group` (`tp_slices`): q/k/v/fc1 column-parallel, o/fc2 row-parallel,
+    the rest replicated.  Each block then runs H/model heads and
+    ffn_dim/model hidden units: the hand-written attention on this rank's
+    heads (the port's counterpart of `vist3a_tpu/kernels/partitioning.py`'s
+    shard_map over heads), one all-reduce after each row-parallel product,
+    its bias added after it, and the qk-norm's statistic summed over the
+    group.  A head count or MLP width the group's size does not divide
+    raises."""
+    tp = tensor_parallel_group(group)
+    cfg = model.cfg
+    if cfg.num_heads % tp.size or cfg.ffn_dim % tp.size:
+        raise ValueError(
+            f"{cfg.num_heads} heads / ffn_dim {cfg.ffn_dim} do not split "
+            f"over a model axis of {tp.size}")
+    cut_to_slices(model, _tp_dim, tp)
+    for blk in model.blocks:
+        blk.tp = blk.attn1.tp = blk.attn2.tp = tp
+    model.tp = tp
+    return model

@@ -377,12 +377,15 @@ def encode(model: WanVAEEncoder, video: torch.Tensor
 
 
 def sample_posterior(mu: torch.Tensor, logvar: torch.Tensor,
-                     generator: torch.Generator) -> torch.Tensor:
+                     generator: torch.Generator | None,
+                     eps: torch.Tensor | None = None) -> torch.Tensor:
     """`DiagonalGaussianDistribution.sample`: logvar clamped to [−30, 20],
-    mu + exp(logvar / 2)·ε with ε drawn from `generator` (on mu's device)."""
+    mu + exp(logvar / 2)·ε with ε drawn from `generator` (on mu's device)
+    unless given."""
     std = torch.exp(0.5 * torch.clamp(logvar, -30.0, 20.0))
-    eps = torch.randn(mu.shape, generator=generator, device=mu.device,
-                      dtype=mu.dtype)
+    if eps is None:
+        eps = torch.randn(mu.shape, generator=generator, device=mu.device,
+                          dtype=mu.dtype)
     return mu + std * eps
 
 

@@ -1,8 +1,9 @@
 """Stitching fine-tune: LoRA distillation of the stitched (chopped) AnySplat
 toward the frozen full AnySplat, its teacher.
 
-Port of `vist3a_tpu/train/stitching.py` for one device (the reference's
-`model_stitching_training.py:196-366`):
+Port of `vist3a_tpu/train/stitching.py` (the reference's
+`model_stitching_training.py:196-366`), on one device or data-parallel
+over a `core/mesh.py` mesh:
   * trainables: the LoRA factors of every Linear / square Conv2d of the
     student, the stitch conv, the DINOv2 cls and register tokens, and the
     bias of every LoRA site (bias="lora_only");
@@ -38,6 +39,7 @@ import torch
 from torch import nn
 from torch.func import functional_call
 
+from vist3a_tpu_torch.core import mesh as mesh_mod
 from vist3a_tpu_torch.core.partition import combine, partition
 from vist3a_tpu_torch.nn import encoder as encoder_mod
 from vist3a_tpu_torch.stitch import lora as lora_mod
@@ -179,30 +181,42 @@ def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
 def stitch_train_step(state: TrainState, teacher: encoder_mod.Encoder,
                       latent: torch.Tensor, images: torch.Tensor,
                       images_teacher01: torch.Tensor, scfg: StitchedConfig,
-                      train_cfg: StitchTrainConfig
+                      train_cfg: StitchTrainConfig, mesh=None
                       ) -> dict[str, torch.Tensor]:
     """One distillation step, in place on `state`; returns the metrics
-    (the 15 loss terms, the pre-clip `grad_norm`, the step's `lr`).
+    (the 15 loss terms, the pre-clip `grad_norm`, the step's `lr`).  With
+    a `core/mesh.py` mesh the step is data-parallel (DDP): the gradients
+    are averaged over the data group as one flat bucket before the global
+    norm and the clip, so both see the global gradient, as the JAX step's
+    do; the loss terms are averaged over it too, and the decoders'
+    confidence quantile is taken over the global batch (the JAX step's
+    batch), so N data ranks step as one rank over their concatenated
+    batch.
 
     latent:           (B, 16, T_vae, h, w) Wan latent of the clip.
     images:           (B, 3, S, H, W) in [−1, 1], the student's input.
     images_teacher01: (B, S, 3, H, W) in [0, 1], the teacher's."""
     lcfg = train_cfg.lora
-    with torch.no_grad():
-        teacher_out = encoder_mod.forward(teacher, images_teacher01,
-                                          scfg.encoder, remat=True)
-    # the frozen side is the teacher's tensors, derived as the JAX step does
-    _, frozen = split_params(teacher, None, scfg, lcfg)
-    params = trainable_list(state.trainable)
-    for p in params:
-        p.grad = None
-    total, losses = loss_fn(state.trainable, frozen, teacher_out, latent,
-                            images, scfg, lcfg)
-    total.backward()
+    # on a mesh the decoders' batch statistics are the global batch's, in
+    # the backward's recompute too
+    with mesh_mod.batch_statistics_over(mesh):
+        with torch.no_grad():
+            teacher_out = encoder_mod.forward(teacher, images_teacher01,
+                                              scfg.encoder, remat=True)
+        # the frozen side is the teacher's tensors, derived as the JAX step
+        # does
+        _, frozen = split_params(teacher, None, scfg, lcfg)
+        params = trainable_list(state.trainable)
+        for p in params:
+            p.grad = None
+        total, losses = loss_fn(state.trainable, frozen, teacher_out, latent,
+                                images, scfg, lcfg)
+        total.backward()
     unused = mask_structurally_unused(state.trainable)
     if unused:
         raise RuntimeError(f"trainables without a gradient: {unused[:8]}")
     grads = [p.grad for p in params]
+    mesh_mod.average_gradients(grads, mesh)
     gnorm = global_norm(grads)
     # optax clip_by_global_norm: g unchanged below the limit, else g/‖g‖·c
     if gnorm >= train_cfg.grad_clip:
@@ -213,8 +227,9 @@ def stitch_train_step(state: TrainState, teacher: encoder_mod.Encoder,
         group["lr"] = lr
     state.optimizer.step()
     state.step += 1
-    return {**{k: v.detach() for k, v in losses.items()},
-            "grad_norm": gnorm.detach(), "lr": torch.tensor(lr)}
+    losses = mesh_mod.mean_over_data(
+        {k: v.detach() for k, v in losses.items()}, mesh)
+    return {**losses, "grad_norm": gnorm.detach(), "lr": torch.tensor(lr)}
 
 
 def fold_seed(seed: int, *keys: int) -> int:

@@ -1,8 +1,8 @@
 """Reward-aligned VDM fine-tuning: LoRA on the Wan DiT, a flow-matching SFT
 loss plus a truncated-rollout reward rendered through the stitched decoder.
 
-Port of `vist3a_tpu/train/vdm.py` for one device (the reference's
-`train_vdm.py`):
+Port of `vist3a_tpu/train/vdm.py` (the reference's `train_vdm.py`), on one
+device or over a `core/mesh.py` mesh with the DiT placed by `place_dit`:
   * PEFT LoRA r8 α16 on q/k/v/o of attn1 and attn2 only (:370-388), the
     factors keyed `blocks.<i>.<site>` and merged per block inside the
     DiT's recompute (`nn/wan_dit.forward`);
@@ -32,6 +32,13 @@ feed both packages the same ones.  The SFT and reward losses are
 differentiated one after the other (their gradients add up to the JAX
 step's gradient of their sum), so the SFT branch's residuals are freed
 before the rollout runs.
+
+On a mesh the SFT draws (the posterior and flow noise, σ) are made for
+the global batch and sliced to this rank's rows; the rollout's draws are
+the same on every rank, as the JAX package replicates the rollout's
+inputs.  The LoRA factors live outside the DiT, so FSDP2 reduces none of
+their gradients: `core/mesh.py::reduce_lora_grads` does, before the
+global norm and the clip.
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from vist3a_tpu_torch.core import mesh as mesh_mod
 from vist3a_tpu_torch.diffusion import flow_match, unipc
 from vist3a_tpu_torch.nn import wan_dit, wan_vae
 from vist3a_tpu_torch.stitch import chopped_anysplat as ca
@@ -104,7 +112,12 @@ def init_train_state(generator: torch.Generator, dit: wan_dit.WanDiT,
                      cfg: VDMTrainConfig) -> VDMTrainState:
     """The LoRA factors of the DiT's sites (a drawn with `generator`, b
     zero), AdamW over them and their EMA shadow.  The DiT itself is frozen
-    and shared: nothing of it is copied."""
+    and shared: nothing of it is copied.  The factors take the sites' full
+    shapes: make the state before a tensor-parallel placement."""
+    if dit.tp is not None:
+        raise ValueError("init_train_state reads the sites' full shapes: "
+                         "make the state before placing the DiT "
+                         "tensor-parallel")
     lora = lora_mod.init_lora(dit, cfg.lora, generator)
     return VDMTrainState(0, lora, build_optimizer(lora, cfg),
                          ema_mod.init_ema(flat_lora(lora)))
@@ -239,7 +252,7 @@ def vdm_train_step(state: VDMTrainState, dit: wan_dit.WanDiT,
                    latent_shape=(1, 16, 4, 64, 64), render_size: int = 448,
                    pair_budget: int | None = None, reward_text=None,
                    draws: dict | None = None,
-                   return_images: bool = False) -> dict:
+                   return_images: bool = False, mesh=None) -> dict:
     """One VDM step, in place on `state`; returns the metrics (losses,
     the pre-clip `grad_norm`, `skipped`, the rollout's draws) and, with
     `return_images` on a reward step, "images": (the decoded frame (1, H,
@@ -251,7 +264,9 @@ def vdm_train_step(state: VDMTrainState, dit: wan_dit.WanDiT,
     from `train.reward.make_loss_fn` (None: SFT only); reward_text
     (pick_text, pe_text) per-prompt scorer features.  `draws` overrides
     the step's draws: num_steps, backprop_idx, guidance (`draw_step`'s
-    keys), posterior_eps, flow_eps, flow_sigma, latents0, perm, frame."""
+    keys), posterior_eps, flow_eps, flow_sigma, latents0, perm, frame.
+    `mesh`: the `core/mesh.py` mesh the batch and the DiT lie on (see the
+    module docstring)."""
     step = state.step
     device = video.device
     rl = cfg.enable_rl and reward_loss_fn is not None
@@ -270,14 +285,21 @@ def vdm_train_step(state: VDMTrainState, dit: wan_dit.WanDiT,
         mu, logvar = wan_vae.encode(vae_encoder, video.to(torch.bfloat16))
         mu, logvar = mu.float(), logvar.float()
         eps = d.get("posterior_eps")
-        if eps is None:
-            z0 = wan_vae.sample_posterior(mu, logvar, gens[_VAE])
-        else:
-            z0 = mu + torch.exp(0.5 * torch.clamp(logvar, -30.0, 20.0)) \
-                * eps.to(device)
-        z0 = wan_vae.normalize_latents(z0)
+        eps = mesh_mod.randn_rows(mu.shape, gens[_VAE], mesh, device=device,
+                                  dtype=mu.dtype) if eps is None \
+            else eps.to(device)
+        z0 = wan_vae.normalize_latents(
+            wan_vae.sample_posterior(mu, logvar, None, eps=eps))
+    # ε, then σ, from one generator, as `make_flow_batch` draws them
+    flow_eps, flow_sigma = d.get("flow_eps"), d.get("flow_sigma")
+    if flow_eps is None:
+        flow_eps = mesh_mod.randn_rows(z0.shape, gens[_FLOW], mesh,
+                                       device=device)
+    if flow_sigma is None:
+        flow_sigma = mesh_mod.rand_rows(z0.shape[:1], gens[_FLOW], mesh,
+                                        device=device)
     z_sigma, ts, target = flow_match.make_flow_batch(
-        z0, gens[_FLOW], eps=d.get("flow_eps"), sigma=d.get("flow_sigma"))
+        z0, eps=flow_eps, sigma=flow_sigma)
     pred = wan_dit.forward(dit, z_sigma.to(dt), ts, sft_text.to(dt),
                            remat=True, lora=state.lora,
                            lora_cfg=lcfg).float()
@@ -311,6 +333,8 @@ def vdm_train_step(state: VDMTrainState, dit: wan_dit.WanDiT,
 
     grads = [torch.zeros_like(p) if p.grad is None else p.grad
              for p in params]
+    mesh_mod.reduce_lora_grads(grads, mesh,
+                               tensor_parallel=dit.tp is not None)
     gnorm = global_norm(grads)
     finite = bool(torch.isfinite(gnorm))
     if finite:
@@ -327,9 +351,11 @@ def vdm_train_step(state: VDMTrainState, dit: wan_dit.WanDiT,
     ema_mod.update_ema(state.ema, flat_lora(state.lora), step,
                        ema_mod.EMAConfig(decay=cfg.ema_decay))
     state.step += 1
-    total = diffusion_loss.detach() + reward_loss.detach()
-    return {"diffusion_loss": diffusion_loss.detach(),
-            "reward_loss": reward_loss.detach(), "total_loss": total,
+    losses = mesh_mod.mean_over_data(
+        {"diffusion_loss": diffusion_loss.detach(),
+         "reward_loss": reward_loss.detach()}, mesh)
+    total = losses["diffusion_loss"] + losses["reward_loss"]
+    return {**losses, "total_loss": total,
             "grad_norm": gnorm.detach(), "skipped": not finite,
             "num_steps": d["num_steps"],
             "backprop_idx": [int(i) for i in d["backprop_idx"]],
