@@ -167,7 +167,7 @@ Phases, each of which passes or raises (any failure exits non-zero):
                stitched decoder with the point head (`drive_point_decode`:
                the head as written, one decode, the depth the points' z)
                and a narrow point-head decoder card vs host CPU.  Logs the
-               `Benchmarker`'s stage times and memory, ms per denoise step,
+               stages' spans, the memory, ms per denoise step,
                the host's peak resident set while the DiT loaded, the
                bytes and the launches (paths `cli14b` and `cli14b_point`).
   11. train — stitching distillation at full width, fp32 (TF32 off):
@@ -594,6 +594,11 @@ CLI_DISK_FACTOR = 1.2
 CLI14B_MODEL_ID = "Wan-AI/Wan2.1-T2V-14B-Diffusers"
 CLI14B_PROMPT = "a stone lighthouse on a cliff above the sea at dusk"
 CLI14B_SEED = 43
+# phase `cli14b`'s stages, each a span (`core/profiling.span`)
+CLI14B_STAGES = ("write.dit", "write.other", "load.stitched",
+                 "load.generator", "request", "viz.projections",
+                 "viz.trajectory", "viz.color_map", "viz.camera_poses",
+                 "viz.camera_poses_host", "viz.layout", "check.dit")
 # the request's UniPC steps, cut from the deployed 50 so that the whole
 # script stays near ~950 s: the phase logs the ms a step (824.8 at 50 steps
 # alone on an H100 at 700 W), and a 50-step request takes 50 × that plus
@@ -2447,6 +2452,20 @@ def write_clip_tokenizer(folder: Path, texts) -> int:
     return len(tokens)
 
 
+def stage_seconds(since_ns: int) -> dict:
+    """{name: [seconds, ...]} of the recorded spans (`core/profiling.span`)
+    of phase `cli14b`'s stages (CLI14B_STAGES) that started at or after
+    `since_ns` (Unix epoch), in the order they closed."""
+    from vist3a_tpu_torch.core.profiling import spans
+
+    out = {}
+    for sp in spans():
+        if sp.start_ns >= since_ns and sp.name in CLI14B_STAGES:
+            out.setdefault(sp.name, []).append(
+                (sp.end_ns - sp.start_ns) * 1e-9)
+    return out
+
+
 @contextlib.contextmanager
 def timed_calls(module, names: tuple, times: list, sync):
     """Wrap `module.<name>` for each name, appending (name, start, seconds)
@@ -2978,7 +2997,7 @@ def _image_ok(name: str, img, shape=None) -> None:
     check(float(img.max()) > float(img.min()), f"{name}: constant image")
 
 
-def render_validation(out, folder: Path, bench, *, device="cuda",
+def render_validation(out, folder: Path, *, device="cuda",
                       views: int = CLI14B_VIEWS, image: int = IMAGE,
                       trajectory: int = CLI14B_TRAJECTORY,
                       label: str = "") -> dict:
@@ -2992,11 +3011,13 @@ def render_validation(out, folder: Path, bench, *, device="cuda",
     with `hcat`, `vcat`, `add_label` and `add_border` and written as
     `folder/validation.png`.  Each image checked finite, of its shape and
     not constant; on the card the drawing and the colour map also against
-    the host CPU.  Stage times go to the `Benchmarker` `bench`."""
+    the host CPU.  Each stage is a span (`core/profiling.span`) named
+    `viz.*`."""
     import numpy as np
     import torch
 
     from vist3a_tpu_torch import viz
+    from vist3a_tpu_torch.core.profiling import span
     from vist3a_tpu_torch.eval.nvs import save_image
     from vist3a_tpu_torch.kernels import rasterizer as tr
     from vist3a_tpu_torch.nn.splat_decoder import render
@@ -3005,7 +3026,7 @@ def render_validation(out, folder: Path, bench, *, device="cuda",
     g = out.gaussians
     n_gauss = g.means.shape[1]
     res = {}
-    with bench.time("viz.projections"):
+    with span("viz.projections"):
         proj = viz.render_projections(g, views, extra_label=label,
                                       device=device)
     _image_ok("projections", proj)
@@ -3032,7 +3053,7 @@ def render_validation(out, folder: Path, bench, *, device="cuda",
     ex = out.extrinsic_c2w[0].float().cpu().numpy().astype(np.float64)
     kn = out.intrinsic_norm[0].float().cpu().numpy().astype(np.float64)
     t = np.linspace(0.0, 1.0, trajectory)
-    with bench.time("viz.trajectory"):
+    with span("viz.trajectory"):
         radius = np.asarray(CLI14B_WOBBLE * float(out.scene_scale))
         traj = viz.interpolate_extrinsics(ex[0], ex[-1], t) \
             @ viz.generate_wobble_transformation(radius, t)
@@ -3043,7 +3064,7 @@ def render_validation(out, folder: Path, bench, *, device="cuda",
                        device=device)
         frames = r.color[0].cpu().numpy()
     _image_ok("trajectory", frames, (trajectory, 3, image, image))
-    with bench.time("viz.color_map"):
+    with span("viz.color_map"):
         depth, alpha = r.depth[0], r.alpha[0]
         # the depth range of the covered pixels (`torch.quantile` takes at
         # most 2²⁴ values, so every k-th)
@@ -3073,13 +3094,13 @@ def render_validation(out, folder: Path, bench, *, device="cuda",
                         "intrinsics": traj_k[None, shown].astype(np.float64),
                         "near": np.full((1, len(shown)), near),
                         "far": np.full((1, len(shown)), far)}}
-    with bench.time("viz.camera_poses"):
+    with span("viz.camera_poses"):
         poses = viz.render_camera_poses(batch, views, device=device)
     _image_ok("camera poses", poses)
     check(poses.shape[:2] == (3, 3) and poses.shape[3] >= views,
           f"camera poses {poses.shape}")
     if torch.device(device).type == "cuda":
-        with bench.time("viz.camera_poses_host"):
+        with span("viz.camera_poses_host"):
             host = viz.render_camera_poses(batch, views, device="cpu")
         res["poses_card_vs_host"] = float(np.abs(poses - host).max())
         limit = CLI14B_DRAW_ROUNDINGS * views * 2.0 ** -24
@@ -3087,7 +3108,7 @@ def render_validation(out, folder: Path, bench, *, device="cuda",
               f"render_camera_poses: card and host CPU differ by "
               f"{res['poses_card_vs_host']} (limit {limit})")
 
-    with bench.time("viz.layout"):
+    with span("viz.layout"):
         rows = [viz.hcat(*proj[0]), viz.hcat(*poses),
                 viz.hcat(*(viz.vcat(viz.add_label(frames[i], f"view {i}"),
                                     colored[i]) for i in shown))]
@@ -3120,15 +3141,15 @@ def drive_cli14b(base: Path, tmp: Path, scfg, *, tokenize, device="cuda",
     request's output (`render_validation`, `viz_sizes` its sizes).  The
     stitched checkpoint is of `scfg`'s chop and conv; `flags` are added to
     the command line; with `dit_dir` the DiT's folder is written there and
-    linked as `wan_dit/`.  Returns the `Benchmarker`'s times and memory,
-    the bytes, the host's resident set while the generator loaded, the
-    seconds of the loader's calls and of the request's stages, the
-    launches of the request and the views, the run's summary, and what the
-    point-head decode needs (`args`, the head's values)."""
+    linked as `wan_dit/`.  Returns the seconds of its stages' spans
+    (`times`), the bytes, the host's resident set while the generator
+    loaded, the seconds of the loader's calls and of the request's stages,
+    the launches of the request and the views, the run's summary, and what
+    the point-head decode needs (`args`, the head's values)."""
     import torch
 
     from vist3a_tpu_torch.cli import arguments, inference_t23d, model_loading
-    from vist3a_tpu_torch.core.profiling import Benchmarker
+    from vist3a_tpu_torch.core.profiling import span
     from vist3a_tpu_torch.io import load_weights, manifests
     from vist3a_tpu_torch.io import weight_import as wi
     from vist3a_tpu_torch.nn import wan_dit
@@ -3137,19 +3158,19 @@ def drive_cli14b(base: Path, tmp: Path, scfg, *, tokenize, device="cuda",
     from vist3a_tpu_torch.stitch.conv_spec import conv_spec_to_string
 
     cuda = torch.device(device).type == "cuda"
-    bench = Benchmarker(device)
+    since = time.time_ns()
     root, out_dir = tmp / "weights", tmp / "results"
     root.mkdir(parents=True)
     model_id, prompt = CLI14B_MODEL_ID, CLI14B_PROMPT
     dit_cfg = wan_dit.config_from_model_id(model_id)
     written = {}
-    with bench.time("write.dit"):
+    with span("write.dit"):
         folder = root / "wan_dit" if dit_dir is None else dit_dir / "wan_dit"
         written["wan_dit"] = write_dit_by_parts(folder, dit_cfg, device,
                                                 dit_dtype)
         if dit_dir is not None:
             (root / "wan_dit").symlink_to(folder)
-    with bench.time("write.other"):
+    with span("write.other"):
         adapter, factors = peft_adapter(dit_cfg,
                                         torch.Generator().manual_seed(22),
                                         CLI_DIT_LORA_RANK)
@@ -3178,10 +3199,10 @@ def drive_cli14b(base: Path, tmp: Path, scfg, *, tokenize, device="cuda",
         torch.cuda.reset_peak_memory_stats()
     rss, calls = [], []
     sync = torch.cuda.synchronize if cuda else (lambda: None)
-    with bench.time("load.stitched"):
+    with span("load.stitched"):
         modules, loaded = model_loading.load_stitched_model(args,
                                                             device=device)
-    with bench.time("load.generator"), peak_rss(rss), \
+    with span("load.generator"), peak_rss(rss), \
             timed_calls(load_weights, ("load_sharded_safetensors",), calls,
                         sync), \
             timed_calls(manifests, ("validate_state_dict",), calls, sync), \
@@ -3198,7 +3219,7 @@ def drive_cli14b(base: Path, tmp: Path, scfg, *, tokenize, device="cuda",
           f"{modules['dit'].cfg}, want {dit_cfg}")
     log(f"cli14b: files written and loaded, seconds so far "
         + json.dumps({k: round(v[0], 1)
-                      for k, v in bench.execution_times.items()})
+                      for k, v in stage_seconds(since).items()})
         + f"; load_generator's calls (s) {json.dumps(load_calls)}")
     cfg = inference_t23d.request_config(args, dit_cfg, loaded,
                                         num_inference_steps=steps)
@@ -3206,23 +3227,23 @@ def drive_cli14b(base: Path, tmp: Path, scfg, *, tokenize, device="cuda",
         torch.cuda.reset_peak_memory_stats()
     store, stages = {}, []
     _reset_counts()
-    with bench.time("request"), captured(t23d, "text_to_3dgs", store), \
+    with span("request"), captured(t23d, "text_to_3dgs", store), \
             timed_calls(t23d, T23D_REQUEST_STAGES, stages, sync):
         results = inference_t23d.run(modules, tokenize, [prompt],
                                      str(out_dir), cfg, device=device)
     request_peak = torch.cuda.max_memory_allocated() if cuda else None
     stage_s = {name: s for name, _, s in stages}
     result = store["text_to_3dgs"][2]
-    log(f"cli14b: request {bench.execution_times['request'][0]:.1f} s, "
+    log(f"cli14b: request {stage_seconds(since)['request'][0]:.1f} s, "
         f"stages (s) {json.dumps({n: round(x, 2) for n, _, x in stages})}")
     folder = out_dir / prompt[:100].replace("/", "")
     check([p for p, _ in results] == [prompt], "cli14b: prompts run")
     check((folder / "prompt.txt").read_text() == prompt,
           f"cli14b: {folder}/prompt.txt")
-    views = render_validation(result.output, folder, bench, device=device,
+    views = render_validation(result.output, folder, device=device,
                               label="(14B)", **(viz_sizes or {}))
     launches = _vdm_counts()
-    with bench.time("check.dit"):
+    with span("check.dit"):
         dit_check = check_dit_by_parts(
             modules["dit"], factors, CLI_DIT_LORA_ALPHA / CLI_DIT_LORA_RANK,
             device, dit_dtype)
@@ -3230,7 +3251,7 @@ def drive_cli14b(base: Path, tmp: Path, scfg, *, tokenize, device="cuda",
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
-    return {"bench": bench, "bytes": written,
+    return {"times": stage_seconds(since), "bytes": written,
             "peak_bytes": {"load": load_peak, "request": request_peak},
             "host_rss_load_generator": rss[0],
             "launches": {k: launches[k] for k in
@@ -3516,19 +3537,16 @@ def phase_cli14b(base: str | None = None) -> dict:
             shutil.rmtree(base, ignore_errors=True)
         signal.signal(signal.SIGTERM, term)
         torch.cuda.empty_cache()
-    bench = res.pop("bench")
-    with tempfile.TemporaryDirectory() as d:
-        bench.dump(Path(d) / "times.json")
-        bench.dump_memory(Path(d) / "memory.json")
-        dumped = {k: json.loads((Path(d) / f"{k}.json").read_text())
-                  for k in ("times", "memory")}
-    res["times"] = dumped["times"]
+    memory = {f"cuda:{i}": {
+        "bytes_in_use": torch.cuda.memory_allocated(i),
+        "peak_bytes_in_use": torch.cuda.max_memory_allocated(i)}
+        for i in range(torch.cuda.device_count())}
     stages, steps = res["stages_s"], res["steps"]
     ms_step = 1e3 * stages["denoise"] / steps
     rest = res["times"]["request"][0] - stages["denoise"]
     res["ms_per_step"] = ms_step
-    log(f"cli14b: Benchmarker dump (s) {json.dumps(dumped['times'])}; "
-        f"dump_memory {json.dumps(dumped['memory'])}")
+    log(f"cli14b: stage spans (s) {json.dumps(res['times'])}; "
+        f"memory {json.dumps(memory)}")
     log(f"cli14b: VIST3A-14B, {n_dit} DiT parameters ({res['compared']['dit']}"
         f" tensors equal to what was written, {res['merged_sites']} PEFT "
         f"sites merged, off the float64 merge by at most "

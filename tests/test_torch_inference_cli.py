@@ -272,7 +272,7 @@ def test_cli14b_on_files_at_tiny_sizes(tiny_gate_off, tmp_path,
     assert views["trajectory"] == [6, 3, 32, 32]
     assert views["png_bytes"] > 0
     assert {"write.dit", "load.generator", "request", "viz.projections",
-            "viz.layout", "check.dit"} <= res["bench"].execution_times.keys()
+            "viz.layout", "check.dit"} <= res["times"].keys()
     point = chip_smoke.drive_point_decode(res["args"], res["point"],
                                           device="cpu", frames=5, image=56,
                                           latent_hw=8)

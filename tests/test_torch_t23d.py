@@ -20,7 +20,6 @@ Tolerances, with their reasons:
     pixel across it).
 """
 
-import contextlib
 import dataclasses
 import os
 import zlib
@@ -40,6 +39,7 @@ from vist3a_tpu.nn import wan_dit as jdit
 from vist3a_tpu.pipelines import t23d as jt
 from vist3a_tpu.stitch import chopped_anysplat as jca
 from vist3a_tpu_torch import convert
+from vist3a_tpu_torch.core import profiling as tprof
 from vist3a_tpu_torch.io import ply_export as tply
 from vist3a_tpu_torch.kernels import flash_attention as fa
 from vist3a_tpu_torch.nn import umt5 as tumt5
@@ -171,24 +171,38 @@ def test_decode_of_the_denoised_latent_matches_jax(runs):
 def test_text_to_3dgs_writes_what_the_user_gets(slices, runs, tmp_path,
                                               monkeypatch):
     """The port's whole request on the CPU: both mp4s and the PLY, each
-    stage of `pipelines/t23d.py` under its profiler range (which
-    `chip_smoke.py` reads), no kernel launch."""
+    stage of `pipelines/t23d.py` and `io/video_export.py` a span, in order,
+    a `unipc.step` span a step around its `dit.forward`, each span a
+    profiler range of its name (which `chip_smoke.py` and the benchmark's
+    breakdown read), no kernel launch."""
     _, modules, z = slices
     _, tcfg = _configs()
     ranges = []
+    record_function = tprof.record_function
 
-    @contextlib.contextmanager
     def record(name):
         ranges.append(name)
-        yield
+        return record_function(name)
 
-    monkeypatch.setattr(tt, "record_function", record)
+    monkeypatch.setattr(tprof, "record_function", record)
+    monkeypatch.setattr(tprof, "RECORDER", tprof.SpanRecorder())
     fa.reset_launch_counts()
     res = tt.text_to_3dgs(modules, tokenize, PROMPT, str(tmp_path / "scene"),
                           tcfg, latents0=torch.from_numpy(z), orbit_t=0,
                           device="cpu")
-    assert ranges == ["t23d.embed", "t23d.denoise", "decode.vae",
-                      "decode.resize", "decode.stitched", "export.ply"]
+    got = tprof.spans()
+    assert sorted(ranges) == sorted(s.name for s in got)
+    assert [n for n in ranges if n not in ("unipc.step", "dit.forward")
+            and not n.startswith("render.")] == [
+        "t23d.embed", "t23d.denoise", "decode.vae", "decode.resize",
+        "decode.stitched", "export.cameras", "export.render",
+        "export.frames_to_host", "export.colour_uint8", "export.turbo_uint8",
+        "export.mp4_write", "export.ply"]
+    steps = [s for s in got if s.name == "unipc.step"]
+    fwds = [s for s in got if s.name == "dit.forward"]
+    assert len(steps) == len(fwds) == tcfg.num_inference_steps
+    assert all(s.start_ns <= f.start_ns <= f.end_ns <= s.end_ns
+               for s, f in zip(steps, fwds))
     assert fa.launches_natural == 0
     torch.testing.assert_close(res.latents, runs[0]["latents"], rtol=0,
                                atol=0)

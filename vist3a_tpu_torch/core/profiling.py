@@ -1,13 +1,16 @@
-"""Timers, memory reports, traces and finite checks.
+"""Spans, traces and finite checks.
 
-Port of `vist3a_tpu/core/profiling.py` (AnySplat's `Benchmarker`,
-`src/misc/benchmarker.py:11-37`):
-
-  * `Benchmarker.time(tag)` — a wall-clock range that is also a
-    `torch.profiler` range named `tag`; on a CUDA device it closes with
-    `torch.cuda.synchronize()`, so it times the work, not its enqueue;
-  * `dump` / `summarize` — the ranges' times as JSON / their means;
-  * `dump_memory` — allocated and peak bytes of each CUDA device;
+  * `span(name)` — a `torch.profiler` range named `name` that also
+    appends one `Span` to the in-memory recorder: its name and its start
+    and end in Unix-epoch ns (`time.time_ns()`, the clock `torch.profiler`
+    reports its events on, so a span and the device operations of a trace
+    compare directly).  A span never synchronizes: on a CUDA device it
+    ends when the host leaves the block, which is when the device finished
+    only where the block waited for it (a copy to the host).  A span that
+    an exception leaves is recorded all the same;
+  * `spans()` — a snapshot of the recorder: the last `CAPACITY` spans to
+    close, in the order they closed (the oldest dropped first, counted in
+    `RECORDER.dropped`);
   * `trace_to(logdir)` — a `torch.profiler` trace of the block, written as
     a Chrome trace;
   * `assert_all_finite` — NaN / Inf in a (nested) dict of tensors, named;
@@ -17,57 +20,71 @@ Port of `vist3a_tpu/core/profiling.py` (AnySplat's `Benchmarker`,
 
 from __future__ import annotations
 
+import collections
 import contextlib
-import json
+import threading
 import time
-from collections import defaultdict
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
+CAPACITY = 65_536
 
-class Benchmarker:
-    """Named wall-clock ranges (`benchmarker.py:11-37`) and device memory;
-    ranges on a CUDA `device` end with a synchronize."""
 
-    def __init__(self, device: torch.device | str = "cuda"):
-        self.execution_times = defaultdict(list)
-        self.sync = torch.device(device).type == "cuda"
+class Span(NamedTuple):
+    name: str
+    start_ns: int             # Unix epoch
+    end_ns: int
 
-    @contextlib.contextmanager
-    def time(self, tag: str, num_calls: int = 1):
-        start = time.perf_counter()
-        try:
-            with record_function(tag):
-                yield
-                if self.sync:
-                    torch.cuda.synchronize()
-        finally:
-            elapsed = time.perf_counter() - start
-            for _ in range(num_calls):
-                self.execution_times[tag].append(elapsed / num_calls)
 
-    def dump(self, path) -> None:
-        path = Path(path)
-        path.parent.mkdir(exist_ok=True, parents=True)
-        path.write_text(json.dumps(dict(self.execution_times)))
+class SpanRecorder:
+    """The last `capacity` closed spans; the oldest is dropped first and
+    counted in `dropped`."""
 
-    def dump_memory(self, path) -> None:
-        """{"cuda:i": {"bytes_in_use", "peak_bytes_in_use"}} of every CUDA
-        device (the JAX package's keys) as JSON; {} without one."""
-        stats = {f"cuda:{i}": {
-            "bytes_in_use": torch.cuda.memory_allocated(i),
-            "peak_bytes_in_use": torch.cuda.max_memory_allocated(i)}
-            for i in range(torch.cuda.device_count())
-        } if torch.cuda.is_available() else {}
-        path = Path(path)
-        path.parent.mkdir(exist_ok=True, parents=True)
-        path.write_text(json.dumps(stats))
+    def __init__(self, capacity: int = CAPACITY):
+        self.records = collections.deque(maxlen=capacity)
+        self.dropped = 0
+        self._lock = threading.Lock()
 
-    def summarize(self) -> dict:
-        return {tag: sum(ts) / len(ts)
-                for tag, ts in self.execution_times.items()}
+    def add(self, span: Span) -> None:
+        with self._lock:
+            if len(self.records) == self.records.maxlen:
+                self.dropped += 1
+            self.records.append(span)
+
+    def snapshot(self) -> list[Span]:
+        with self._lock:
+            return list(self.records)
+
+
+RECORDER = SpanRecorder()
+
+
+class span:
+    """`with span("t23d.denoise"):` — a profiler range and a recorded
+    `Span` (see the module docstring)."""
+
+    __slots__ = ("name", "_range", "_start")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self._range = record_function(self.name)
+        self._range.__enter__()
+        self._start = time.time_ns()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        RECORDER.add(Span(self.name, self._start, time.time_ns()))
+        self._range.__exit__(exc_type, exc, tb)
+        return False
+
+
+def spans() -> list[Span]:
+    return RECORDER.snapshot()
 
 
 @contextlib.contextmanager

@@ -22,7 +22,9 @@ both JAX forms.  The training rollout's record-and-replay forms are
 `sample_scan_record` (the no-grad rollout, recording each step's model
 input and output) and `replay_affine` (the same affine chain over given
 model outputs, differentiable in them); both run the arithmetic of
-`sample_scan`, so the replay's value is the recorded rollout's.
+`sample_scan`, so the replay's value is the recorded rollout's.  Each step
+of `sample_scan` and `sample_scan_record` is a span `unipc.step`
+(`core/profiling.span`).
 """
 
 from __future__ import annotations
@@ -33,6 +35,8 @@ from typing import Callable, Sequence
 
 import numpy as np
 import torch
+
+from vist3a_tpu_torch.core.profiling import span
 
 
 def flow_sigmas(num_steps: int, shift: float = 3.0,
@@ -190,10 +194,11 @@ def sample_scan(model_fn: Callable, latents: torch.Tensor,
     x, last = latents, latents
     m1 = m2 = torch.zeros_like(latents)
     for i in range(cfg.num_steps):
-        per = {k: v[i] for k, v in coeffs.items()}
-        v = model_fn(x, per["timesteps"])
-        x_next, last, m_this = _step(per, v, x, last, m1, m2)
-        x, m1, m2 = x_next, m_this, m1
+        with span("unipc.step"):
+            per = {k: v[i] for k, v in coeffs.items()}
+            v = model_fn(x, per["timesteps"])
+            x_next, last, m_this = _step(per, v, x, last, m1, m2)
+            x, m1, m2 = x_next, m_this, m1
     return x
 
 
@@ -208,12 +213,13 @@ def sample_scan_record(model_fn: Callable, latents: torch.Tensor,
     m1 = m2 = torch.zeros_like(latents)
     xs, vs = [], []
     for i in range(cfg.num_steps):
-        per = {k: v[i] for k, v in coeffs.items()}
-        v = model_fn(x, per["timesteps"])
-        xs.append(x)
-        vs.append(v)
-        x_next, last, m_this = _step(per, v, x, last, m1, m2)
-        x, m1, m2 = x_next, m_this, m1
+        with span("unipc.step"):
+            per = {k: v[i] for k, v in coeffs.items()}
+            v = model_fn(x, per["timesteps"])
+            xs.append(x)
+            vs.append(v)
+            x_next, last, m_this = _step(per, v, x, last, m1, m2)
+            x, m1, m2 = x_next, m_this, m1
     return x, torch.stack(xs), torch.stack(vs)
 
 

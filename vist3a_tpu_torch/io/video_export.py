@@ -18,8 +18,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from vist3a_tpu_torch.core.profiling import span
 from vist3a_tpu_torch.io.turbo import turbo
 from vist3a_tpu_torch.nn.splat_decoder import render
 
@@ -104,23 +104,23 @@ def save_interpolated_video(extrinsics_c2w, intrinsics_norm, gaussians,
                             device: torch.device | str = "cuda"
                             ) -> OrbitVideo:
     """Interpolate the cameras, render the orbit on `device`, and write
-    gs.mp4 and depth.mp4 into `save_path`.  Each stage is a
-    `torch.profiler` range named `export.*`."""
-    with record_function("export.cameras"):
+    gs.mp4 and depth.mp4 into `save_path`.  Each stage is a span
+    (`core/profiling.span`) named `export.*`."""
+    with span("export.cameras"):
         ex, kk = interpolate_cameras(_host(extrinsics_c2w),
                                      _host(intrinsics_norm), t)
-    with record_function("export.render"), torch.inference_mode():
+    with span("export.render"), torch.inference_mode():
         out = render(gaussians, torch.from_numpy(ex), torch.from_numpy(kk),
                      image_shape, device=device)
-    with record_function("export.frames_to_host"):
+    with span("export.frames_to_host"):
         color = out.color[0].cpu().numpy()
         depth = out.depth[0].cpu().numpy()
-    with record_function("export.colour_uint8"):
+    with span("export.colour_uint8"):
         gs_frames = to_uint8_frames(color)
-    with record_function("export.turbo_uint8"):
+    with span("export.turbo_uint8"):
         depth_frames = to_uint8_frames(
             turbo_depth(depth, extrinsics_c2w.shape[1]))
-    with record_function("export.mp4_write"):
+    with span("export.mp4_write"):
         os.makedirs(save_path, exist_ok=True)
         gs_path = write_mp4(gs_frames, os.path.join(save_path, "gs.mp4"),
                             fps)

@@ -50,9 +50,9 @@ import math
 from typing import NamedTuple
 
 import torch
-from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
+from vist3a_tpu_torch.core.profiling import span
 from vist3a_tpu_torch.kernels import build
 
 SOURCE = "rasterize_fwd.cu"
@@ -653,14 +653,14 @@ def view_pairs(means, covars, harmonics, opacities, viewmat, K, width,
     SH of the degree that harmonics (G, 3, (deg+1)²) holds.  The opacity
     cull (op ≥ 1/255 on the valid-masked opacities) happens here."""
     ntx, nty = _cdiv(width, TILE), _cdiv(height, TILE)
-    with record_function("render.project_sh_table"):
+    with span("render.project_sh_table"):
         proj = project_gaussians(means, covars, viewmat, K, width, height)
         R, t = viewmat[:3, :3].float(), viewmat[:3, 3].float()
         campos = -(R * t[:, None]).sum(0)                   # −Rᵀ t
         sh_degree = math.isqrt(harmonics.shape[-1]) - 1
         colors = eval_sh(harmonics, means.float() - campos, sh_degree)
         table = attribute_table(proj, colors, opacities)
-    with record_function("render.pairs"):
+    with span("render.pairs"):
         pairs = build_pairs(proj, ntx, nty, pair_budget,
                             extra_valid=table[:, 5] >= ALPHA_MIN)
     return table, pairs
@@ -678,10 +678,10 @@ def _render_view(means, covars, harmonics, opacities, viewmat, K,
     differentiable through `Composite`."""
     table, pairs = view_pairs(means, covars, harmonics, opacities, viewmat,
                               K, width, height, budget)
-    with record_function("render.composite"):
+    with span("render.composite"):
         img = Composite.apply(table, pairs.gid, pairs.bounds,
                               _cdiv(width, TILE), width, height)
-    with record_function("render.background"):
+    with span("render.background"):
         return img[:3] + img[5] * bg[:, None, None], img[3], img[4]
 
 
@@ -696,7 +696,7 @@ def rasterize(means, covars, harmonics, opacities, viewmats, Ks,
     viewmats (V, 4, 4) world→camera, Ks (V, 3, 3) in pixels.  Returns
     (rgb (V, H, W, 3), depth (V, H, W), alpha (V, H, W)); rgb has the
     background composited through T_final and is not clamped.  The stages
-    of a view are `torch.profiler` ranges named `render.*`.
+    of a view are spans (`core/profiling.span`) named `render.*`.
 
     pair_budget: pairs kept per view (rounded up to a multiple of 128; the
     deepest are cut first); None takes `default_pair_budget`.

@@ -61,6 +61,7 @@ from vist3a_tpu_torch.core.mesh import (TensorParallel, copy_to_model,
                                         cut_to_slices, reduce_from_model,
                                         sum_over_model, tensor_parallel_group,
                                         tp_slice_state)
+from vist3a_tpu_torch.core.profiling import span
 from vist3a_tpu_torch.nn.layers import build_random, rms_norm
 from vist3a_tpu_torch.ops.attention import dot_product_attention
 from vist3a_tpu_torch.stitch import lora as lora_mod
@@ -401,9 +402,12 @@ class WanDiT(nn.Module):
                 text_embeds: torch.Tensor, remat: bool = False,
                 lora: dict | None = None, lora_cfg=None) -> torch.Tensor:
         """The DiT in the caller's grad mode; the module-level `forward`
-        is the entry (it picks the mode)."""
-        return _forward(self, latent, timestep, text_embeds, remat, lora,
-                        lora_cfg)
+        is the entry (it picks the mode).  A span `dit.forward`
+        (`core/profiling.span`), closed before the module's forward hooks
+        run."""
+        with span("dit.forward"):
+            return _forward(self, latent, timestep, text_embeds, remat, lora,
+                            lora_cfg)
 
 
 def init(cfg: WanDiTConfig, generator: torch.Generator,

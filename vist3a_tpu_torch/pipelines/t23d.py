@@ -17,9 +17,10 @@ stages of one request on one device:
      cameras;
   4. `export_artifacts`: the orbit video (`gs.mp4`, `depth.mp4`) and
      `gaussians.ply`.
-Each stage runs under `torch.profiler` ranges: `t23d.embed`, `t23d.denoise`,
-`decode.*` and `export.*`.  Tokenisation is a callable passed in, as in the
-JAX package: the HF tokenizer comes with the imported weights.
+Each stage runs under spans (`core/profiling.span`: a `torch.profiler`
+range and a recorded span): `t23d.embed`, `t23d.denoise`, `decode.*` and
+`export.*`.  Tokenisation is a callable passed in, as in the JAX package:
+the HF tokenizer comes with the imported weights.
 """
 
 from __future__ import annotations
@@ -31,8 +32,8 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
+from vist3a_tpu_torch.core.profiling import span
 from vist3a_tpu_torch.diffusion import unipc
 from vist3a_tpu_torch.io.ply_export import export_ply
 from vist3a_tpu_torch.io.video_export import save_interpolated_video
@@ -88,7 +89,7 @@ def embed_prompts(umt5: umt5_mod.UMT5Encoder, tokenize: Callable,
     `max_sequence_length`.  Returns the (cond, uncond) embeddings
     (1, L, d_model) on `device`, in UMT5's dtype: the orbit template around
     the prompt, and the negative prompt."""
-    with record_function("t23d.embed"):
+    with span("t23d.embed"):
         out = []
         for text in (ORBIT_PROMPT_TEMPLATE.format(prompt=prompt),
                      NEGATIVE_PROMPT):
@@ -107,7 +108,7 @@ def denoise(dit: wan_dit.WanDiT, cond: torch.Tensor, uncond: torch.Tensor,
     The DiT computes in its weights' dtype: the latents and the text are
     cast to it at the model boundary and the velocity back to fp32, so the
     sampler state stays fp32 (`unipc.sample_scan`)."""
-    with record_function("t23d.denoise"):
+    with span("t23d.denoise"):
         if latents0 is None:
             gen = torch.Generator(device=device).manual_seed(cfg.seed)
             latents0 = torch.randn(cfg.latent_shape, generator=gen,
@@ -146,16 +147,16 @@ def decode_and_reconstruct(vae: wan_vae.WanVAEDecoder,
     [−1, 1] (B, 3, T, 8h, 8w) fp32), computed on `device`.
 
     The VAE decodes in bf16; the stitched decoder takes the un-normalised
-    fp32 latent and the fp32 feed-forward image.  Each stage is a
-    `torch.profiler` range named `decode.*`."""
-    with record_function("decode.vae"):
+    fp32 latent and the fp32 feed-forward image.  Each stage is a span
+    named `decode.*`."""
+    with span("decode.vae"):
         latents = wan_vae.unnormalize_latents(
             latents_norm.to(device, torch.float32))
         video = wan_vae.decode(vae, latents.to(torch.bfloat16)).float()
-    with record_function("decode.resize"):
+    with span("decode.resize"):
         feedforward = resize_trilinear_half_pixel(
             video, (cfg.feedforward_size, cfg.feedforward_size))
-    with record_function("decode.stitched"):
+    with span("decode.stitched"):
         out = ca.forward_with_latent(stitched, latents, feedforward,
                                      cfg.stitched, device=device)
     return out, video
@@ -179,7 +180,7 @@ def export_artifacts(gaussians, extrinsic_c2w, intrinsic_norm,
     video = save_interpolated_video(
         extrinsic_c2w, intrinsic_norm, g, image_shape, save_path, t=orbit_t,
         device=device)
-    with record_function("export.ply"):
+    with span("export.ply"):
         ply_path = export_ply(
             g.means[0], g.scales[0], g.rotations[0], g.harmonics[0],
             g.opacities[0], os.path.join(save_path, "gaussians.ply"))
