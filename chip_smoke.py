@@ -21,7 +21,8 @@ Phases, each of which passes or raises (any failure exits non-zero):
                counterparts `csrc/flash_attention_fwd_f32_sm90.cu` and
                `csrc/flash_attention_bwd_f32_sm90.cu`,
                `csrc/rasterize_fwd.cu` and `csrc/rasterize_bwd.cu` (which
-               share `csrc/raster_common.cuh`) for
+               share `csrc/raster_common.cuh`) and the DiT's q/k prologue
+               `csrc/qk_prologue.cu` for
                sm_90a, one nvcc each, at once, and prints ptxas's
                registers / shared memory / spills and the wgmma kernels'
                dynamic shared memory a block.
@@ -58,7 +59,14 @@ Phases, each of which passes or raises (any failure exits non-zero):
                `GRAD_ATOL_STD` of its
                std plus `GRAD_RTOL` of itself, bit for bit repeatable;
                timed beside the plain version, SDPA's bf16 backward (a
-               yardstick) and the bound.
+               yardstick) and the bound.  Then the DiT's q/k prologue
+               kernel (`QK_CASES`: the fused QKV product at 14B and 1.3B
+               with RoPE, the cross-attention's q over 4,096 and k over
+               226 tokens without) against its plain version within
+               `QK_MAX_ULPS`, with the share of elements that differ at
+               all, timed beside the plain version and its bytes' bound;
+               and its launches over one 14B and one 1.3B DiT forward (3 a
+               block; none with grad enabled).
   4. raster  — one full-width scene: the Gaussians of one stitched-decoder
                request and its 13 context cameras interpolated to the
                133-view orbit.  Holds the composite kernel against its
@@ -433,6 +441,31 @@ BF16_BWD_CASES = (("bf16_vit_frame", (13, 1029, 16, 64)),
                   ("bf16_ragged_d48", (2, 333, 3, 48)))
 BF16_BWD_TIMED = ("bf16_vit_frame", "bf16_global_s13", "bf16_dit_sft",
                   "bf16_dit_reeval")
+# The Wan DiT's q/k prologue kernel (`csrc/qk_prologue.cu`) at the DiT's
+# shapes: (name, B, N, width d, heads, parts, RoPE) — the self-attention's
+# fused QKV product at 14B and 1.3B (q and k normed and rotated, v biased),
+# the cross-attention's q over the 4,096 latent tokens and k over the 226
+# text tokens (one part, no tables)
+QK_CASES = (("qk_self_14b", 2, 4096, 5120, 40, 3, True),
+            ("qk_self_1_3b", 2, 4096, 1536, 12, 3, True),
+            ("qk_cross_q_14b", 2, 4096, 5120, 40, 1, False),
+            ("qk_cross_k_14b", 2, 226, 5120, 40, 1, False),
+            ("qk_cross_q_1_3b", 2, 4096, 1536, 12, 1, False),
+            ("qk_cross_k_1_3b", 2, 226, 1536, 12, 1, False))
+QK_GRID = (4, 32, 32)         # the latent grid of 512², 13 frames
+# The kernel against its plain version on the same inputs, in bf16 ulps at
+# each element's magnitude (`qk_ulps`).  The bias add and RoPE are the same
+# arithmetic at the same rounding points; the RMS statistic differs in its
+# sum's order and rsqrt's last bits, ~1e-6 of itself, far below one bf16
+# step.  So a normed element lands one step off, or none, where its fp32
+# value lies near a rounding boundary: the normed parts before RoPE (the
+# kernel launched without tables) within QK_MAX_ULPS, the kernel's RoPE
+# equal bit for bit to `apply_rope` of those, a part with its bias only
+# bit-equal.  (After RoPE a one-step input difference is rotated and
+# rounded again: up to ~1.5 steps of the pair's norm, logged as
+# `rotated_ulps`.)
+QK_MAX_ULPS = 1.0
+QK_SOURCE = "vist3a_tpu_torch/csrc/qk_prologue.cu"
 RASTER_BWD_SOURCE = "vist3a_tpu_torch/csrc/rasterize_bwd.cu"
 # The composite backward against its plain version, both fp32, per pair
 # and column of the (P, 10) gradient rows: within RASTER_BWD_RTOL of the
@@ -723,12 +756,15 @@ def phase_device() -> str:
 def phase_build() -> None:
     from vist3a_tpu_torch.kernels import build
     from vist3a_tpu_torch.kernels import flash_attention as fa
+    from vist3a_tpu_torch.kernels import qk_prologue as qkp
     from vist3a_tpu_torch.kernels import rasterizer as tr
 
     sources = (fa.SOURCE, fa.BWD_SOURCE, fa.SM90_SOURCE, fa.SM90_BWD_SOURCE,
-               fa.F32_SOURCE, fa.F32_BWD_SOURCE, tr.SOURCE, tr.BWD_SOURCE)
+               fa.F32_SOURCE, fa.F32_BWD_SOURCE, tr.SOURCE, tr.BWD_SOURCE,
+               qkp.SOURCE)
     t0 = time.perf_counter()
     build.build_all(list(sources))
+    qkp._lib()
     fa._lib()
     fa._bwd_lib()
     fa._sm90_lib()
@@ -920,7 +956,179 @@ def phase_kernels() -> dict:
     for name, shape in BF16_BWD_CASES:
         timed[name] = check_bf16_bwd_case(fa, name, shape, gen,
                                           timed=name in BF16_BWD_TIMED)
+    # the DiT's q/k prologue, and its launches a 14B and a 1.3B forward
+    for case in QK_CASES:
+        timed[case[0]] = check_qk_case(case, gen, timed=True)
+    timed["qk_launches"] = check_qk_launches()
     return timed
+
+
+def qk_ulps(got, ref, roped: bool):
+    """|got − ref| in bf16 ulps at each element's magnitude: max(|got|,
+    |ref|), or after RoPE the norm of its (even, odd) pair, widened by 2⁻⁷
+    to cover the outputs' own rounding."""
+    import torch
+
+    g, r = got.float(), ref.float()
+    if roped:
+        pairs = r.reshape(*r.shape[:-1], -1, 2)
+        mag = pairs.square().sum(-1).sqrt().repeat_interleave(2, dim=-1) \
+            * (1 + 2 ** -7)
+    else:
+        mag = torch.maximum(g.abs(), r.abs())
+    _, exp = torch.frexp(mag.clamp_min(torch.finfo(torch.float32).tiny))
+    return (g - r).abs() / torch.ldexp(torch.ones_like(mag), exp - 8)
+
+
+def compare_qk_prologue(case: tuple, gen):
+    """One q/k prologue launch on inputs drawn from `gen`, held against
+    the plain version on the card → (result, passed, (inputs, the kernel's
+    outputs))."""
+    import torch
+
+    from vist3a_tpu_torch.kernels import qk_prologue as qkp
+    from vist3a_tpu_torch.nn import wan_dit
+
+    name, b, n, d, heads, parts, roped = case
+    bf16, dev = torch.bfloat16, torch.device("cuda")
+    x = torch.randn(b, n, parts * d, generator=gen, device=dev).to(bf16)
+    biases = tuple((0.1 * torch.randn(d, generator=gen, device=dev)).to(bf16)
+                   for _ in range(parts))
+    scales = tuple((1 + 0.1 * torch.randn(d, generator=gen, device=dev))
+                   .to(bf16) for _ in range(min(parts, 2)))
+    rope = None
+    if roped:
+        cfg = wan_dit.WanDiTConfig(dim=d, num_heads=heads)
+        grid = QK_GRID if n == 4096 else (1, 1, n)
+        rope = tuple(t.to(dev) for t in wan_dit.rope_tables(cfg, *grid))
+    args = (x, biases, scales, 1e-6, d // heads, rope)
+    before = qkp.launches
+    outs = qkp.qk_prologue(*args)
+    torch.cuda.synchronize()
+    launched = qkp.launches - before
+    refs = qkp.qk_prologue_ref(*args)
+    # the normed parts before RoPE: the kernel without tables
+    pre, pre_ref = (qkp.qk_prologue(*args[:5]), qkp.qk_prologue_ref(
+        *args[:5])) if roped else (outs, refs)
+    res = {"case": name, "shape": [b, n, d], "heads": heads, "parts": parts,
+           "rope": roped, "launches": launched, "max_ulps": [],
+           "differ_share": [], "rotated_ulps": [], "rope_exact": []}
+    passed = launched == 1
+    for i, (o, r) in enumerate(zip(outs, refs)):
+        passed = passed and o.shape == r.shape and o.is_contiguous()
+        res["differ_share"].append((o != r).float().mean().item())
+        if i >= len(scales):
+            passed = passed and res["differ_share"][-1] == 0.0
+            continue
+        res["max_ulps"].append(qk_ulps(pre[i], pre_ref[i], False).max()
+                               .item())
+        passed = passed and res["max_ulps"][-1] <= QK_MAX_ULPS
+        if roped:
+            res["rotated_ulps"].append(qk_ulps(o, r, True).max().item())
+            res["rope_exact"].append(bool(torch.equal(
+                o, wan_dit.apply_rope(pre[i], *rope))))
+            passed = passed and res["rope_exact"][-1]
+    return res, passed, (args, outs)
+
+
+def queued_events_ms(fn, iters: int) -> float:
+    """`cuda_events_ms` with the card held busy (`torch.cuda._sleep`) while
+    the host queues the launches, so that a call whose host side outlasts
+    its kernel (the q/k prologue's small shapes) is timed on the card."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)         # ~50 ms at the card's clocks
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def check_qk_case(case: tuple, gen, *, timed: bool) -> dict:
+    """`compare_qk_prologue`, then the kernel and the plain version timed
+    on the card (`queued_events_ms`) beside the bound: every byte read once
+    (the product, biases, scales, tables) and written once, at 3.35 TB/s;
+    `wrapper_ms` is the kernel's call timed as `cuda_events_ms` times the
+    other kernels, the host's side included where it is the longer."""
+    from vist3a_tpu_torch.kernels import qk_prologue as qkp
+
+    res, passed, (args, outs) = compare_qk_prologue(case, gen)
+    check(passed, f"q/k prologue disagrees with its plain version: {res}")
+    if timed:
+        x, biases, scales, _, _, rope = args
+        n_bytes = sum(t.numel() * t.element_size()
+                      for t in (x, *biases, *scales, *(rope or ()), *outs))
+        res.update(bytes=n_bytes,
+                   kernel_ms=queued_events_ms(
+                       lambda: qkp.qk_prologue(*args), iters=20),
+                   wrapper_ms=cuda_events_ms(
+                       lambda: qkp.qk_prologue(*args), iters=20),
+                   plain_ms=queued_events_ms(
+                       lambda: qkp.qk_prologue_ref(*args), iters=5),
+                   bound_ms=n_bytes / PEAK_BYTES * 1e3, bound_by="bytes")
+        res["share_of_bound"] = res["bound_ms"] / res["kernel_ms"]
+    log(f"kernels: {json.dumps(res)}")
+    return res
+
+
+def check_qk_launches() -> dict:
+    """The q/k prologue's launches over one DiT forward at 512², 13 frames
+    (4,096 latent and 226 text tokens, the CFG pair) of the 14B and of the
+    1.3B DiT, weights drawn on the card: 3 a block (self q/k/v, cross q,
+    cross k) in inference, none in the training entry with grad enabled
+    (`remat=True`, the plain version's torch ops).  The two forwards'
+    outputs differ where q and k do, by up to a bf16 step: the VDM rollout
+    takes its value from the first and its gradient through the second,
+    so their relative difference (max and norm) is logged.  The 14B
+    inference forward runs again under the profiler (`profile_call`): the
+    prologue's device time a forward, one CFG step, beside the glue's."""
+    import torch
+
+    from vist3a_tpu_torch.nn import wan_dit
+
+    res = {}
+    for name, cfg in (("14b", wan_dit.WAN_14B), ("1_3b", wan_dit.WAN_1_3B)):
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        dit = wan_dit.init(cfg, gen, "cuda", torch.bfloat16)
+        latent = torch.randn(2, 16, 4, 64, 64, generator=gen,
+                             device="cuda").to(torch.bfloat16)
+        text = torch.randn(2, 226, cfg.text_dim, generator=gen,
+                           device="cuda").to(torch.bfloat16)
+        ts = torch.tensor([999.0, 999.0], device="cuda")
+        _reset_counts()
+        out = wan_dit.forward(dit, latent, ts, text)
+        torch.cuda.synchronize()
+        inference = _vdm_counts()["qk_prologue"]
+        with torch.enable_grad():
+            ref = wan_dit.forward(dit, latent, ts, text, remat=True).detach()
+        torch.cuda.synchronize()
+        grad = _vdm_counts()["qk_prologue"] - inference
+        o, r = out.float(), ref.float()
+        res[name] = {"inference": inference, "grad": grad,
+                     "want": 3 * cfg.num_layers,
+                     "max_rel_vs_grad_path":
+                         ((o - r).abs().max() / r.abs().max()).item(),
+                     "norm_rel_vs_grad_path":
+                         ((o - r).norm() / r.norm()).item()}
+        check(bool(torch.isfinite(out).all()),
+              f"q/k prologue: the {name} DiT's output is not finite")
+        if name == "14b":
+            profile_call("qk_14b_forward",
+                         lambda: wan_dit.forward(dit, latent, ts, text))
+        del dit, out, ref, o, r
+        torch.cuda.empty_cache()
+    log(f"kernels: q/k prologue launches a DiT forward {json.dumps(res)}")
+    check(all(r["inference"] == r["want"] and r["grad"] == 0
+              for r in res.values()),
+          f"q/k prologue launches a forward {res}")
+    return res
 
 
 def check_strided(fa, d: int, gen) -> None:
@@ -1329,6 +1537,8 @@ def _kernel_group(name: str) -> str:
         return "rasterizer composite (this repo)"
     if "composite_bwd_kernel" in low:
         return "rasterizer composite backward (this repo)"
+    if "qk_prologue_kernel" in low:
+        return "q/k prologue (this repo)"
     if any(t in low for t in ("sort", "radix", "quantile", "topk")):
         return "sort / quantile"
     if "layer_norm" in low or "layernorm" in low:
@@ -2131,15 +2341,14 @@ def phase_denoise(model, vae, profile: bool) -> dict:
     device time)."""
     import torch
 
-    from vist3a_tpu_torch.kernels import flash_attention as fa
-    from vist3a_tpu_torch.kernels import rasterizer as tr
     from vist3a_tpu_torch.pipelines import t23d
 
     cfg = t23d.T23DConfig()
     modules = {**build_generator(cfg), "vae": vae, "stitched": model}
     tokenize = fake_tokenizer(cfg.umt5)
     want = {**LAUNCHES_PER_REQUEST, "composite": ORBIT_VIEWS,
-            "natural": cfg.dit.num_layers * cfg.num_inference_steps}
+            "natural": cfg.dit.num_layers * cfg.num_inference_steps,
+            "qk_prologue": 3 * cfg.dit.num_layers * cfg.num_inference_steps}
 
     def request(save_path):
         return t23d.text_to_3dgs(modules, tokenize, PROMPT, save_path, cfg,
@@ -2149,15 +2358,12 @@ def phase_denoise(model, vae, profile: bool) -> dict:
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        fa.reset_launch_counts()
-        tr.reset_launch_counts()
+        _reset_counts()
         t0 = time.perf_counter()
         res = request(os.path.join(tmp, "scene"))
         torch.cuda.synchronize()
         latency = (time.perf_counter() - t0) * 1e3
-        counts = {"unmasked": fa.launches_unmasked,
-                  "masked": fa.launches_masked, "composite": tr.launches,
-                  "natural": fa.launches_natural}
+        counts = {k: _vdm_counts()[k] for k in want}
         peak = torch.cuda.max_memory_allocated()
         check(counts == want, f"text_to_3dgs: launches {counts}, want {want}")
         lat = res.latents
@@ -2734,7 +2940,8 @@ def drive_cli(src: dict, scfg, lora_spec: str, tmp: Path, *, tokenize,
             "import_s": load_s - read_s, "main_s": main_s,
             "request_s": request_s, "peak_bytes": peak,
             "launches": {k: counts[k] for k in
-                         ("unmasked", "masked", "natural", "composite")},
+                         ("unmasked", "masked", "natural", "composite",
+                          "qk_prologue")},
             "bytes": written["bytes"],
             "compared": {"stitched": n_stitched, "dit": n_dit,
                          "umt5": n_umt5, "vae_decoder": n_vae},
@@ -2820,7 +3027,7 @@ def phase_cli(keep_scenes: bool = False, keep_weights: bool = False) -> dict:
               f"cli: {free} B free under {tmp}; the files need about "
               f"{need} B (×{CLI_DISK_FACTOR} asked)")
         per_request = {**LAUNCHES_PER_REQUEST, "composite": ORBIT_VIEWS,
-                       "natural": 30 * 50}
+                       "natural": 30 * 50, "qk_prologue": 3 * 30 * 50}
         res = drive_cli(src, ca.StitchedConfig(), CLI_LORA_SPEC, tmp,
                         tokenize=fake_tokenizer(umt5.UMT5_XXL),
                         want_launches={k: len(CLI_PROMPTS) * v
@@ -3243,6 +3450,12 @@ def drive_cli14b(base: Path, tmp: Path, scfg, *, tokenize, device="cuda",
     views = render_validation(result.output, folder, device=device,
                               label="(14B)", **(viz_sizes or {}))
     launches = _vdm_counts()
+    if cuda:
+        # one DiT forward a step (the CFG pair batched), 3 a block
+        want = {"natural": dit_cfg.num_layers * steps,
+                "qk_prologue": 3 * dit_cfg.num_layers * steps}
+        got = {k: launches[k] for k in want}
+        check(got == want, f"cli14b: request launches {got}, want {want}")
     with span("check.dit"):
         dit_check = check_dit_by_parts(
             modules["dit"], factors, CLI_DIT_LORA_ALPHA / CLI_DIT_LORA_RANK,
@@ -3255,7 +3468,8 @@ def drive_cli14b(base: Path, tmp: Path, scfg, *, tokenize, device="cuda",
             "peak_bytes": {"load": load_peak, "request": request_peak},
             "host_rss_load_generator": rss[0],
             "launches": {k: launches[k] for k in
-                         ("unmasked", "masked", "natural", "composite")},
+                         ("unmasked", "masked", "natural", "composite",
+                          "qk_prologue")},
             "compared": {"dit": dit_check["tensors"]},
             "merged_sites": len(factors),
             "dit_site_err_share": dit_check["site_err_share"],
@@ -3338,8 +3552,8 @@ def drive_point_decode(args, point: dict, *, device="cuda",
                "means_range": [float(out.gaussians.means.min()),
                                float(out.gaussians.means.max())],
                "live": int((out.gaussians.opacities > 0).sum())}
-    return {"launches": {k: launches[k] for k in ("unmasked", "masked",
-                                                  "natural", "composite")},
+    return {"launches": {k: launches[k] for k in (
+        "unmasked", "masked", "natural", "composite", "qk_prologue")},
             "summary": summary}
 
 
@@ -3829,15 +4043,17 @@ def vdm_launches(num_steps: int, n_layers: int = 30) -> dict:
     stitched decoder's 8 ViT blocks and 24 + 24 trunk attentions, forward
     and recompute (bf16 D = 64), and their backward (kernel 4b); the 13
     rendered views' composite, forward and per-view recompute, and its
-    backward (kernel 7)."""
+    backward (kernel 7); the q/k prologue, 3 a block, in the rollout's
+    steps alone (the forwards with grad run its plain version)."""
     return {"natural": n_layers * (num_steps + 4), "unmasked": 2 * 56,
             "masked": 0, "backward": 0, "backward_bf16": 56,
             "backward_natural": 2 * n_layers, "composite": 2 * 13,
-            "composite_backward": 13}
+            "composite_backward": 13, "qk_prologue": 3 * n_layers * num_steps}
 
 
 def _vdm_counts() -> dict:
     from vist3a_tpu_torch.kernels import flash_attention as fa
+    from vist3a_tpu_torch.kernels import qk_prologue as qkp
     from vist3a_tpu_torch.kernels import rasterizer as tr
 
     return {"natural": fa.launches_natural,
@@ -3846,15 +4062,18 @@ def _vdm_counts() -> dict:
             "backward_bf16": fa.launches_backward_bf16,
             "backward_natural": fa.launches_backward_natural,
             "composite": tr.launches,
-            "composite_backward": tr.launches_backward}
+            "composite_backward": tr.launches_backward,
+            "qk_prologue": qkp.launches}
 
 
 def _reset_counts() -> None:
     from vist3a_tpu_torch.kernels import flash_attention as fa
+    from vist3a_tpu_torch.kernels import qk_prologue as qkp
     from vist3a_tpu_torch.kernels import rasterizer as tr
 
     fa.reset_launch_counts()
     tr.reset_launch_counts()
+    qkp.reset_launch_counts()
 
 
 def build_vdm():
@@ -4594,10 +4813,13 @@ def dist_vdm(mesh) -> dict:
 
 def dist_denoise(mesh) -> dict:
     """A DIST_DENOISE_STEPS-step denoise (`t23d.denoise`, CFG batched) of
-    the 1.3B DiT in bf16, plain and placed tensor-parallel."""
+    the 1.3B DiT in bf16, plain and placed tensor-parallel.  Under TP the
+    q/k prologue runs as torch ops, so the plain step it is held against
+    runs the kernel's plain version (the same ops) in its place."""
     import torch
 
     from vist3a_tpu_torch.core import mesh as mesh_mod
+    from vist3a_tpu_torch.kernels import qk_prologue as qkp
     from vist3a_tpu_torch.nn import wan_dit
     from vist3a_tpu_torch.pipelines import t23d
 
@@ -4608,7 +4830,11 @@ def dist_denoise(mesh) -> dict:
     cond, uncond = (torch.randn((1, 226, cfg.dit.text_dim), generator=gen,
                                 device="cuda").to(torch.bfloat16)
                     for _ in range(2))
-    plain = t23d.denoise(dit, cond, uncond, cfg)
+    wan_dit.qk_prologue = qkp.qk_prologue_ref
+    try:
+        plain = t23d.denoise(dit, cond, uncond, cfg)
+    finally:
+        wan_dit.qk_prologue = qkp.qk_prologue
     mesh_mod.place_dit(dit, cfg.dit, mesh, "tp")
     _reset_counts()
     got = t23d.denoise(dit, cond, uncond, cfg)
@@ -5185,7 +5411,8 @@ def drive_workflows(src: dict, scfg, tmp: Path, *, tokenize,
                            k: 0 for k in ("masked", "natural", "backward",
                                           "backward_bf16",
                                           "backward_natural", "composite",
-                                          "composite_backward")}}
+                                          "composite_backward",
+                                          "qk_prologue")}}
         if want_launches else None)
     distill = drive_distillation(src, root, data, tmp / "search",
                                  tmp / "stitching", scfg, stitch_flags,
@@ -6452,7 +6679,10 @@ def _kernel_entries(timed: dict, raster: list | None,
     decode, the stitched-decoder slice and the VDM step that did; for the fp32 forward and the fp32 backward the two
     distillation steps of phase `train`; for the bf16 backward (kernels 4b
     and 5) and the composite backward (kernel 7) the VDM step of phase
-    `vdm`.  `launches_by_path` has each path's; phases `cli14b` (the 14B
+    `vdm`; for the q/k prologue (which replaces no TPU kernel) the CLI
+    requests of phase `cli`, else the request of phase `denoise`, else the
+    VDM step's rollout, and `launches_per_forward` phase `kernels`' 14B and
+    1.3B forwards.  `launches_by_path` has each path's; phases `cli14b` (the 14B
     request and its validation views as `cli14b`, the point-head decode as
     `cli14b_point`), `workflows`,
     `evaluation` (the NVS main and the post-optimisation: rows 1 bf16, 2,
@@ -6608,6 +6838,25 @@ def _kernel_entries(timed: dict, raster: list | None,
                                          "max_abs_err", "off_share",
                                          "share_of_bound")}
                       for x in rb]})
+    qk = [timed[c[0]] for c in QK_CASES if c[0] in timed]
+    if qk:
+        # the inference forwards of the DiT; with grad its plain version runs
+        main, by_path = count("qk_prologue", (
+            "cli", "denoise", "cli14b", "vdm", "workflows_bf16",
+            "distributed_denoise"))
+        entries.append({
+            "name": "qk_prologue", "route": "cuda", "source": QK_SOURCE,
+            "replaces": None,
+            "launches": main, "launches_by_path": by_path,
+            "launches_per_forward": timed.get("qk_launches"),
+            "max_ulps": max(u for x in qk for u in x["max_ulps"]),
+            "ms": qk[0]["kernel_ms"], "plain_ms": qk[0]["plain_ms"],
+            "bound_ms": qk[0]["bound_ms"], "bound_by": qk[0]["bound_by"],
+            "library_ms": None, "shape": qk[0]["shape"],
+            "shapes": [{k: x[k] for k in (
+                "case", "shape", "heads", "parts", "rope", "kernel_ms",
+                "plain_ms", "bound_ms", "share_of_bound", "max_ulps",
+                "differ_share")} for x in qk]})
     return entries
 
 

@@ -14,10 +14,11 @@ import pytest
 import raster_cases
 import torch
 
-from chip_smoke import (RASTER_ATOL, RASTER_BWD_MAX_OFF_SHARE,
+from chip_smoke import (QK_CASES, RASTER_ATOL, RASTER_BWD_MAX_OFF_SHARE,
                         RASTER_BWD_MAX_REL, RASTER_BWD_RTOL,
-                        RASTER_MAX_OFF_SHARE)
+                        RASTER_MAX_OFF_SHARE, compare_qk_prologue)
 from vist3a_tpu_torch.kernels import flash_attention as fa
+from vist3a_tpu_torch.kernels import qk_prologue as qkp
 from vist3a_tpu_torch.kernels import rasterizer as tr
 from vist3a_tpu_torch.nn import wan_dit
 from vist3a_tpu_torch.ops.attention import dot_product_attention
@@ -212,6 +213,53 @@ def test_dit_forward_launches_the_natural_kernel_once_per_layer(cuda):
     torch.cuda.synchronize()
     assert _counts() == (before[0], before[1], before[2] + cfg.num_layers)
     assert out.shape == latent.shape and bool(torch.isfinite(out).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [
+    *QK_CASES,
+    # odd shapes: a width of one warp's columns, rows no power of two
+    ("qk_narrow", 3, 77, 256, 2, 3, True),
+    ("qk_narrow_cross", 2, 45, 1024, 8, 1, False)])
+def test_qk_prologue_matches_plain_on_card(cuda, case):
+    """The q/k prologue kernel against its plain version on the same
+    inputs (`chip_smoke.compare_qk_prologue`): one launch, contiguous
+    outputs, each normed part within `QK_MAX_ULPS` before RoPE and rotated
+    bit for bit as `apply_rope` rotates it, each bias-only part bit-equal;
+    an fp32 call raises instead of launching."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    res, passed, (args, _) = compare_qk_prologue(case, gen)
+    assert passed, res
+    x, biases, scales, eps, head_dim, rope = args
+    with pytest.raises(TypeError, match="bf16"):
+        qkp.qk_prologue(x.float(), biases, scales, eps, head_dim, rope)
+
+
+@pytest.mark.gpu
+def test_dit_forward_launches_the_qk_prologue_three_times_per_layer(cuda):
+    """A narrow DiT at 4096 tokens: in inference each block launches the
+    q/k prologue three times (self q/k/v, cross q, cross k) and its output
+    matches the torch ops' (the training entry with grad enabled, which
+    launches none) within the DiT card tolerance of `reference_dit`."""
+    cfg = wan_dit.WanDiTConfig(dim=256, ffn_dim=512, num_layers=3,
+                               num_heads=2, text_dim=64, freq_dim=32)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    dit = wan_dit.init(cfg, gen, device=cuda, dtype=torch.bfloat16)
+    latent = torch.randn(2, 16, 4, 64, 64, generator=gen, device=cuda
+                         ).to(torch.bfloat16)
+    text = torch.randn(2, 226, 64, generator=gen, device=cuda
+                       ).to(torch.bfloat16)
+    ts = torch.tensor([999.0, 10.0], device=cuda)
+    before = qkp.launches
+    out = wan_dit.forward(dit, latent, ts, text)
+    torch.cuda.synchronize()
+    assert qkp.launches == before + 3 * cfg.num_layers
+    with torch.enable_grad():
+        ref = wan_dit.forward(dit, latent, ts, text, remat=True)
+    torch.cuda.synchronize()
+    assert qkp.launches == before + 3 * cfg.num_layers
+    diff = (out.float() - ref.float()).abs().max() / ref.float().abs().max()
+    assert diff.item() <= 2 ** -5
 
 
 def _splat_scene(g: int, w: int, h: int, device, seed: int):

@@ -266,7 +266,7 @@ def test_cli14b_on_files_at_tiny_sizes(tiny_gate_off, tmp_path,
     assert len(shards) == DIT["num_layers"] + 2          # and the index
     assert res["stages_s"].keys() == set(chip_smoke.T23D_REQUEST_STAGES)
     assert res["launches"] == {"unmasked": 0, "masked": 0, "natural": 0,
-                               "composite": 0}
+                               "composite": 0, "qk_prologue": 0}
     views = res["views"]
     assert views["projections"][:3] == [1, 3, 3]
     assert views["trajectory"] == [6, 3, 32, 32]

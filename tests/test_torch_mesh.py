@@ -128,6 +128,11 @@ def test_dit_tp_slices_follow_jax_param_shardings():
     there and follow their heads here)."""
     specs = jdit.param_shardings(jdit.WanDiTConfig(**W.DIT))["blocks"]
     dit = tdit.WanDiT(tdit.WanDiTConfig(**W.DIT))
+    # defined values: uninitialised memory may hold NaNs, never equal
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for t in dit.parameters():
+            t.normal_(generator=gen)
     state = dict(dit.named_parameters())
     sliced = tdit.tp_slices(state, 2, 1)
     for name, t in state.items():

@@ -20,7 +20,11 @@ attn1 and MLP residuals are gated in fp32 and rounded once; the attn2
 residual is added in the activation dtype.  Self-attention goes through the
 attention dispatch (the natural-layout flash kernel on the card: head_dim
 128, 4096 tokens at 512²); cross-attention over the 226 text tokens is
-plain math (`impl="plain"`), as the JAX package sends it to XLA.
+plain math (`impl="plain"`), as the JAX package sends it to XLA.  In
+inference without TP, the biases, the q/k RMSNorm and RoPE between the
+q/k/v products and the attention run in one kernel
+(`kernels/qk_prologue.py`), at the same rounding points; with grad they
+run as its plain version's torch ops.
 
 The RoPE tables are built on the host in float64, as in the JAX package,
 but once per (grid, device) and kept on the model: the denoise calls the
@@ -62,7 +66,9 @@ from vist3a_tpu_torch.core.mesh import (TensorParallel, copy_to_model,
                                         sum_over_model, tensor_parallel_group,
                                         tp_slice_state)
 from vist3a_tpu_torch.core.profiling import span
-from vist3a_tpu_torch.nn.layers import build_random, rms_norm
+from vist3a_tpu_torch.kernels.qk_prologue import (qk_prologue,
+                                                  qk_prologue_ref)
+from vist3a_tpu_torch.nn.layers import build_random
 from vist3a_tpu_torch.ops.attention import dot_product_attention
 from vist3a_tpu_torch.stitch import lora as lora_mod
 
@@ -225,13 +231,10 @@ def _row_linear(p: dict, name: str, x: torch.Tensor,
 
 
 def _rms_across_heads(scale: torch.Tensor, x: torch.Tensor, eps: float,
-                      d_full: int, tp: TensorParallel | None
-                      ) -> torch.Tensor:
-    """RMSNorm over the full inner dim; under TP each rank holds d/model of
+                      d_full: int, tp: TensorParallel) -> torch.Tensor:
+    """RMSNorm over the full inner dim under TP: each rank holds d/model of
     it, so the mean of squares is summed over the model group (each rank's
     mean weighted by its share) before the rsqrt."""
-    if tp is None:
-        return rms_norm(scale, x, eps)
     xf = x.float()
     ms = sum_over_model(
         xf.square().mean(-1, keepdim=True) * (x.shape[-1] / d_full),
@@ -245,13 +248,20 @@ def attention(p: dict, x: torch.Tensor, context: torch.Tensor | None,
     """Self-attention (context None: one fused QKV product, RoPE, the
     dispatch's kernel) or cross-attention (plain math), with the weights
     of `p` ({"q.weight", ..., "norm_q", "norm_k"}).  Under TP they are this
-    rank's slices: its heads, H/model of them."""
+    rank's slices: its heads, H/model of them.
+
+    Without TP the biases, the q/k RMSNorm and RoPE run in `_prologue`.
+    Under TP they run as the torch ops below, since the statistic is summed
+    over the model group between the square and the rsqrt."""
     b, n, _ = x.shape
+    if tp is None:
+        q, k, v, impl = _prologue(p, x, context, rope, cfg)
+        out = dot_product_attention(q, k, v, impl=impl)
+        return _linear(p, "o", out.reshape(b, n, -1))
     dh = cfg.head_dim
     d = p["q.weight"].shape[0]                # the local inner width
     h = d // dh
-    if tp is not None:
-        x = copy_to_model(x, tp.group)
+    x = copy_to_model(x, tp.group)
     if context is None:
         w = torch.cat([p["q.weight"], p["k.weight"], p["v.weight"]])
         bias = torch.cat([p["q.bias"], p["k.bias"], p["v.bias"]])
@@ -259,8 +269,7 @@ def attention(p: dict, x: torch.Tensor, context: torch.Tensor | None,
         q, k, v = qkv.split(d, dim=-1)
         context_len, impl = n, "auto"
     else:
-        if tp is not None:
-            context = copy_to_model(context, tp.group)
+        context = copy_to_model(context, tp.group)
         q, k, v = (_linear(p, "q", x), _linear(p, "k", context),
                    _linear(p, "v", context))
         context_len, impl = context.shape[1], "plain"
@@ -274,6 +283,29 @@ def attention(p: dict, x: torch.Tensor, context: torch.Tensor | None,
         k = apply_rope(k, *rope)
     out = dot_product_attention(q, k, v, impl=impl)
     return _row_linear(p, "o", out.reshape(b, n, d), tp)
+
+
+def _prologue(p: dict, x: torch.Tensor, context: torch.Tensor | None,
+              rope: tuple | None, cfg: WanDiTConfig) -> tuple:
+    """(q, k, v, the dispatch's impl) through the q/k prologue, one call
+    for the self-attention's fused QKV product, one each for the
+    cross-attention's q and k (its v only adds a bias).  In inference
+    that is the kernel (`qk_prologue`); with grad enabled its plain
+    version, the same torch ops, as the kernel has no backward."""
+    prologue = qk_prologue_ref if torch.is_grad_enabled() else qk_prologue
+    dh, eps = cfg.head_dim, cfg.eps
+    if context is None:
+        w = torch.cat([p["q.weight"], p["k.weight"], p["v.weight"]])
+        qkv = F.linear(x, w.to(x.dtype))
+        q, k, v = prologue(qkv, (p["q.bias"], p["k.bias"], p["v.bias"]),
+                           (p["norm_q"], p["norm_k"]), eps, dh, rope)
+        return q, k, v, "auto"
+    (q,) = prologue(F.linear(x, p["q.weight"].to(x.dtype)),
+                    (p["q.bias"],), (p["norm_q"],), eps, dh)
+    (k,) = prologue(F.linear(context, p["k.weight"].to(context.dtype)),
+                    (p["k.bias"],), (p["norm_k"],), eps, dh)
+    v = _linear(p, "v", context).reshape(k.shape)
+    return q, k, v, "plain"
 
 
 class AffineNorm(nn.Module):
