@@ -66,7 +66,10 @@ Phases, each of which passes or raises (any failure exits non-zero):
                `QK_MAX_ULPS`, with the share of elements that differ at
                all, timed beside the plain version and its bytes' bound;
                and its launches over one 14B and one 1.3B DiT forward (3 a
-               block; none with grad enabled).
+               block; none with grad enabled).  Row 1 also at CogVideoX-5B's
+               joint attention (2, 17776, 48, 64), and a 2-step CogVideoX
+               denoise at 480×720, 49 frames: 42 `launches_unmasked` a
+               forward, no other flash entry.
   4. raster  — one full-width scene: the Gaussians of one stitched-decoder
                request and its 13 context cameras interpolated to the
                133-view orbit.  Holds the composite kernel against its
@@ -923,6 +926,10 @@ def phase_kernels() -> dict:
         "global_unmasked": check_case(
             fa, Case("global_unmasked", 1, 13377, 16, 64, 0), gen,
             timed=True),
+        # CogVideoX-5B's joint attention: 226 text + 17,550 video tokens,
+        # the CFG pair, 48 heads of 64 (42 launches a DiT forward)
+        "cogvideox": check_case(fa, Case("cogvideox", 2, 17776, 48, 64, 0),
+                                gen, timed=True),
         # Wan DiT self-attention at 512² (4096 tokens), the CFG pair
         "dit_1_3b": check_case(fa, Case("dit_1_3b", 2, 4096, 12, 128, 0), gen,
                                timed=True),
@@ -960,6 +967,7 @@ def phase_kernels() -> dict:
     for case in QK_CASES:
         timed[case[0]] = check_qk_case(case, gen, timed=True)
     timed["qk_launches"] = check_qk_launches()
+    timed["cogvideox_launches"] = check_cogvideox_launches()
     return timed
 
 
@@ -1128,6 +1136,46 @@ def check_qk_launches() -> dict:
     check(all(r["inference"] == r["want"] and r["grad"] == 0
               for r in res.values()),
           f"q/k prologue launches a forward {res}")
+    return res
+
+
+def check_cogvideox_launches(steps: int = 2) -> dict:
+    """A short CogVideoX-5B denoise at the published 480×720, 49 frames
+    (`pipelines/t23d.py::denoise` with a `T2VConfig` of `steps` DDIM
+    steps, the CFG pair; DiT weights drawn on the card, random text
+    embeddings): its joint attention is one head_dim-64 flash launch a
+    block, 42 a forward, counted in `launches_unmasked`, and no other
+    flash entry runs."""
+    import dataclasses
+
+    import torch
+
+    from vist3a_tpu_torch.kernels import flash_attention as fa
+    from vist3a_tpu_torch.nn import cogvideox_dit
+    from vist3a_tpu_torch.pipelines import t23d
+
+    cfg = dataclasses.replace(t23d.T2VConfig(), num_inference_steps=steps)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    dit = cogvideox_dit.init(cfg.dit, gen, "cuda", torch.bfloat16)
+    cond, uncond = (torch.randn(1, cfg.t5.max_sequence_length,
+                                cfg.dit.text_embed_dim, generator=gen,
+                                device="cuda").to(torch.bfloat16)
+                    for _ in range(2))
+    _reset_counts()
+    t0 = time.perf_counter()
+    lat = t23d.denoise(dit, cond, uncond, cfg, device="cuda")
+    torch.cuda.synchronize()
+    res = {"steps": steps, "seconds": time.perf_counter() - t0,
+           "unmasked": fa.launches_unmasked, "natural": fa.launches_natural,
+           "masked": fa.launches_masked,
+           "want_a_forward": cfg.dit.num_layers,
+           "finite": bool(torch.isfinite(lat).all())}
+    del dit
+    torch.cuda.empty_cache()
+    log(f"kernels: CogVideoX denoise launches {json.dumps(res)}")
+    check(res["finite"] and res["unmasked"] == steps * cfg.dit.num_layers
+          and res["natural"] == res["masked"] == 0,
+          f"CogVideoX launches {res}")
     return res
 
 
@@ -6720,7 +6768,7 @@ def _kernel_entries(timed: dict, raster: list | None,
     entries = []
     for kname, counter, line, source, cases in (
             ("flash_attention_fwd", "unmasked", 187, SM90_SOURCE,
-             ("vit", "global_unmasked")),
+             ("vit", "global_unmasked", "cogvideox")),
             ("flash_attention_fwd_masked", "masked", 756, SM90_SOURCE,
              ("global", "frame")),
             ("flash_attention_fwd_natural", "natural", 78, SM90_SOURCE,

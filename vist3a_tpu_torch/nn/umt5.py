@@ -9,6 +9,12 @@ UMT5 keeps apart from T5, and the port with it:
   * pre-norm RMSNorm (scale only), gated GELU (tanh) MLP, a final RMSNorm;
   * padded keys get an additive −1e9 on the fp32 logits.
 
+`T5Config` is T5 v1.1 (google/t5-v1_1-xxl, CogVideoX's text encoder): the
+same layer at the same widths, a vocabulary of 32,128, and one
+relative-attention-bias table, layer 0's, that every layer adds.  CogVideoX
+encodes its 226 tokens without a mask (`encode(..., attention_mask=None)`):
+the pads are attended and their embeddings kept.
+
 The attention is plain math, as in the JAX package: 226 tokens are too few
 for the flash kernel.  Dense weights are `Linear` modules holding (out, in)
 weights, the transpose of the JAX package's bare (in, out) arrays
@@ -42,9 +48,24 @@ class UMT5Config:
     relative_attention_max_distance: int = 128
     layer_norm_eps: float = 1e-6
     max_sequence_length: int = 226      # Wan's padding length
+    # every layer owns its relative-attention-bias table (a class
+    # attribute, not a field: the configuration files list the fields)
+    shared_relative_bias = False
 
 
 UMT5_XXL = UMT5Config()
+
+
+@dataclasses.dataclass(frozen=True)
+class T5Config(UMT5Config):
+    """T5 v1.1 (HF `T5EncoderModel`): UMT5's layer, one bias table in
+    layer 0 shared by every layer."""
+    vocab_size: int = 32128
+    shared_relative_bias = True
+
+
+# google/t5-v1_1-xxl, as CogVideoX's `text_encoder/config.json` gives it
+T5_V1_1_XXL = T5Config()
 
 
 def relative_position_bucket(relative_position: np.ndarray,
@@ -89,7 +110,10 @@ class _Dense(nn.Module):
 
 
 class UMT5Layer(nn.Module):
-    def __init__(self, cfg: UMT5Config):
+    """One encoder layer; without `has_bias` it owns no bias table and is
+    handed the shared one's (T5)."""
+
+    def __init__(self, cfg: UMT5Config, has_bias: bool = True):
         super().__init__()
         self.cfg = cfg
         inner = cfg.num_heads * cfg.d_kv
@@ -98,8 +122,9 @@ class UMT5Layer(nn.Module):
         self.k = _Dense(cfg.d_model, inner)
         self.v = _Dense(cfg.d_model, inner)
         self.o = _Dense(inner, cfg.d_model)
-        self.rel_bias = nn.Parameter(torch.empty(
-            cfg.relative_attention_num_buckets, cfg.num_heads))
+        if has_bias:
+            self.rel_bias = nn.Parameter(torch.empty(
+                cfg.relative_attention_num_buckets, cfg.num_heads))
         self.ln2 = nn.Parameter(torch.empty(cfg.d_model))
         self.wi_0 = _Dense(cfg.d_model, cfg.d_ff)
         self.wi_1 = _Dense(cfg.d_model, cfg.d_ff)
@@ -108,11 +133,19 @@ class UMT5Layer(nn.Module):
     def init_params(self, generator: torch.Generator) -> None:
         nn.init.ones_(self.ln1)
         nn.init.ones_(self.ln2)
-        nn.init.normal_(self.rel_bias, std=0.1, generator=generator)
+        if hasattr(self, "rel_bias"):
+            nn.init.normal_(self.rel_bias, std=0.1, generator=generator)
 
-    def forward(self, x: torch.Tensor, bias_mask: torch.Tensor,
-                buckets: torch.Tensor) -> torch.Tensor:
-        """x (B, N, D); bias_mask (B, 1, 1, N) additive fp32; buckets (N, N)."""
+    def position_bias(self, buckets: torch.Tensor) -> torch.Tensor:
+        """This layer's table at `buckets` (N, N) → (H, N, N) fp32."""
+        return self.rel_bias.float()[buckets].permute(2, 0, 1)
+
+    def forward(self, x: torch.Tensor, bias_mask: torch.Tensor | None,
+                buckets: torch.Tensor,
+                pos_bias: torch.Tensor | None = None) -> torch.Tensor:
+        """x (B, N, D); bias_mask (B, 1, 1, N) additive fp32, or None (no
+        key masked); buckets (N, N); pos_bias (H, N, N) the shared table's,
+        or None (this layer's own)."""
         cfg = self.cfg
         b, n, _ = x.shape
         h, dk = cfg.num_heads, cfg.d_kv
@@ -121,10 +154,13 @@ class UMT5Layer(nn.Module):
         q = self.q(y).reshape(b, n, h, dk)
         k = self.k(y).reshape(b, n, h, dk)
         v = self.v(y).reshape(b, n, h, dk)
-        pos_bias = self.rel_bias.float()[buckets].permute(2, 0, 1)  # (H, N, N)
+        if pos_bias is None:
+            pos_bias = self.position_bias(buckets)
         # fp32 logits, no 1/√d scale
         logits = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float())
-        logits = logits + pos_bias[None] + bias_mask
+        logits = logits + pos_bias[None]
+        if bias_mask is not None:
+            logits = logits + bias_mask
         probs = torch.softmax(logits, dim=-1).to(y.dtype)
         attn = torch.einsum("bhnm,bmhd->bnhd", probs.float(), v.float()
                             ).to(y.dtype)
@@ -139,8 +175,9 @@ class UMT5Encoder(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.embed = nn.Parameter(torch.empty(cfg.vocab_size, cfg.d_model))
-        self.layers = nn.ModuleList([UMT5Layer(cfg)
-                                     for _ in range(cfg.num_layers)])
+        self.layers = nn.ModuleList([
+            UMT5Layer(cfg, has_bias=i == 0 or not cfg.shared_relative_bias)
+            for i in range(cfg.num_layers)])
         self.final_ln = nn.Parameter(torch.empty(cfg.d_model))
         self._buckets: dict = {}
 
@@ -169,18 +206,21 @@ def init(cfg: UMT5Config, generator: torch.Generator,
 
 @torch.inference_mode()
 def encode(model: UMT5Encoder, input_ids: torch.Tensor,
-           attention_mask: torch.Tensor) -> torch.Tensor:
+           attention_mask: torch.Tensor | None) -> torch.Tensor:
     """input_ids, attention_mask (B, N) ints → last hidden state (B, N, D)
-    in the weights' dtype, zero past each sequence's length."""
+    in the weights' dtype, zero past each sequence's length.  Without a
+    mask every position is attended and kept (T5 in CogVideoX)."""
     cfg = model.cfg
     dev = model.embed.device
     input_ids = input_ids.to(dev)
-    live = attention_mask.to(dev) > 0
+    live = None if attention_mask is None else attention_mask.to(dev) > 0
     x = model.embed[input_ids]
-    bias_mask = torch.where(live[:, None, None, :], 0.0,
-                            -1e9).to(torch.float32)
+    bias_mask = None if live is None else torch.where(
+        live[:, None, None, :], 0.0, -1e9).to(torch.float32)
     buckets = model.buckets(input_ids.shape[1], dev)
+    shared = model.layers[0].position_bias(buckets) \
+        if cfg.shared_relative_bias else None
     for layer in model.layers:
-        x = layer(x, bias_mask, buckets)
+        x = layer(x, bias_mask, buckets, shared)
     x = rms_norm(model.final_ln, x, cfg.layer_norm_eps)
-    return x * live[..., None].to(x.dtype)
+    return x if live is None else x * live[..., None].to(x.dtype)

@@ -17,6 +17,12 @@ stages of one request on one device:
      cameras;
   4. `export_artifacts`: the orbit video (`gs.mp4`, `depth.mp4`) and
      `gaussians.ply`.
+`T2VConfig` serves CogVideoX-5B's text→latent through the same
+`embed_prompts` and `denoise`: T5 v1.1 encodes the orbit template around
+the prompt and the negative prompt "" (CogVideoX's pipeline default), each
+without a mask, and `diffusion/ddim.py`'s v-prediction DDIM runs over the
+CogVideoX DiT (`nn/cogvideox_dit.py`) with CFG, the pair batched to B = 2,
+the DiT in its weights' dtype and the sampler state in fp32.
 Each stage runs under spans (`core/profiling.span`: a `torch.profiler`
 range and a recorded span): `t23d.embed`, `t23d.denoise`, `decode.*` and
 `export.*`.  Tokenisation is a callable passed in, as in the JAX package:
@@ -34,9 +40,10 @@ import torch
 import torch.nn.functional as F
 
 from vist3a_tpu_torch.core.profiling import span
-from vist3a_tpu_torch.diffusion import unipc
+from vist3a_tpu_torch.diffusion import ddim, unipc
 from vist3a_tpu_torch.io.ply_export import export_ply
 from vist3a_tpu_torch.io.video_export import save_interpolated_video
+from vist3a_tpu_torch.nn import cogvideox_dit
 from vist3a_tpu_torch.nn import umt5 as umt5_mod
 from vist3a_tpu_torch.nn import wan_dit, wan_vae
 from vist3a_tpu_torch.nn.encoder import EncoderConfig
@@ -57,6 +64,8 @@ NEGATIVE_PROMPT = (
     "extra hands, mangled fingers, missing lips, ugly face, distorted legs, "
     "fused fingers, too many fingers, long neck"
 )
+# CogVideoXPipeline's default negative prompt
+T2V_NEGATIVE_PROMPT = ""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,37 +91,66 @@ class T23DConfig:
         return (1, 16, t_lat, self.height // 8, self.width // 8)
 
 
+@dataclasses.dataclass(frozen=True)
+class T2VConfig:
+    """CogVideoX-5B text→latent at its published 480×720, 49 frames (a
+    (1, 16, 13, 60, 90) latent), 50 DDIM steps, CFG 6."""
+    width: int = 720
+    height: int = 480
+    num_frames: int = 49
+    num_inference_steps: int = 50
+    guidance_scale: float = 6.0
+    seed: int = 12413
+    dit: cogvideox_dit.CogVideoXConfig = cogvideox_dit.COGVIDEOX_5B
+    t5: umt5_mod.T5Config = umt5_mod.T5_V1_1_XXL
+
+    @property
+    def latent_shape(self) -> tuple:
+        t_lat = (self.num_frames - 1) // 4 + 1
+        return (1, 16, t_lat, self.height // 8, self.width // 8)
+
+
 def embed_prompts(umt5: umt5_mod.UMT5Encoder, tokenize: Callable,
-                  prompt: str, *, device: torch.device | str = "cuda"
+                  prompt: str, *, device: torch.device | str = "cuda",
+                  cfg: T23DConfig | T2VConfig | None = None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """tokenize(text) → (ids (1, L), mask (1, L)), padded to the model's
     `max_sequence_length`.  Returns the (cond, uncond) embeddings
-    (1, L, d_model) on `device`, in UMT5's dtype: the orbit template around
-    the prompt, and the negative prompt."""
+    (1, L, d_model) on `device`, in the encoder's dtype: the orbit template
+    around the prompt, and the negative prompt.  With a `T2VConfig` the
+    negative prompt is CogVideoX's, "", and the mask is not used."""
+    t2v = isinstance(cfg, T2VConfig)
     with span("t23d.embed"):
         out = []
         for text in (ORBIT_PROMPT_TEMPLATE.format(prompt=prompt),
-                     NEGATIVE_PROMPT):
+                     T2V_NEGATIVE_PROMPT if t2v else NEGATIVE_PROMPT):
             ids, mask = (torch.as_tensor(np.asarray(a), device=device)
                          for a in tokenize(text))
-            out.append(umt5_mod.encode(umt5, ids, mask))
+            out.append(umt5_mod.encode(umt5, ids, None if t2v else mask))
     return out[0], out[1]
 
 
 @torch.inference_mode()
-def denoise(dit: wan_dit.WanDiT, cond: torch.Tensor, uncond: torch.Tensor,
-            cfg: T23DConfig, *, latents0: torch.Tensor | None = None,
+def denoise(dit: wan_dit.WanDiT | cogvideox_dit.CogVideoXDiT,
+            cond: torch.Tensor, uncond: torch.Tensor,
+            cfg: T23DConfig | T2VConfig, *,
+            latents0: torch.Tensor | None = None,
             device: torch.device | str = "cuda") -> torch.Tensor:
-    """UniPC denoise with CFG → normalised latents (1, 16, T', h, w) fp32.
+    """UniPC (Wan, `T23DConfig`) or v-prediction DDIM (CogVideoX,
+    `T2VConfig`) with CFG → latents (1, 16, T', h, w) fp32, normalised for
+    Wan.
 
     The DiT computes in its weights' dtype: the latents and the text are
-    cast to it at the model boundary and the velocity back to fp32, so the
-    sampler state stays fp32 (`unipc.sample_scan`)."""
+    cast to it at the model boundary (CogVideoX: inside its forward) and
+    its output back to fp32, so the sampler state stays fp32
+    (`unipc.sample_scan`, `ddim.sample_scan`)."""
     with span("t23d.denoise"):
         if latents0 is None:
             gen = torch.Generator(device=device).manual_seed(cfg.seed)
             latents0 = torch.randn(cfg.latent_shape, generator=gen,
                                    device=device)
+        if isinstance(cfg, T2VConfig):
+            return _denoise_ddim(dit, cond, uncond, cfg, latents0, device)
         dt = dit.patch_embedding.weight.dtype
 
         def dit_apply(x, ts, text):
@@ -124,6 +162,18 @@ def denoise(dit: wan_dit.WanDiT, cond: torch.Tensor, uncond: torch.Tensor,
                                  shift=cfg.flow_shift)
         return unipc.sample_scan(model_fn,
                                  latents0.to(device, torch.float32), ucfg)
+
+
+def _denoise_ddim(dit: cogvideox_dit.CogVideoXDiT, cond: torch.Tensor,
+                  uncond: torch.Tensor, cfg: T2VConfig,
+                  latents0: torch.Tensor, device) -> torch.Tensor:
+    def dit_apply(x, ts, text):
+        return cogvideox_dit.forward(dit, x, ts, text).float()
+
+    model_fn = unipc.cfg_model(dit_apply, cond.to(device), uncond.to(device),
+                               cfg.guidance_scale)
+    return ddim.sample_scan(model_fn, latents0.to(device, torch.float32),
+                            ddim.DDIMConfig(num_steps=cfg.num_inference_steps))
 
 
 def resize_trilinear_half_pixel(video: torch.Tensor,
