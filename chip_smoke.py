@@ -114,8 +114,11 @@ Phases, each of which passes or raises (any failure exits non-zero):
                `decode_and_reconstruct` (video (1, 3, 13, 512, 512),
                feed-forward (1, 3, 13, 448, 448), 2,609,152 Gaussians) and
                `export_artifacts` (133 orbit views at 448², one composite
-               launch each, gs.mp4 and depth.mp4 written, the PLY read
-               back).  Two requests.
+               launch each, gs.mp4 and depth.mp4 written from uint8 frames
+               made on the card, the PLY read back).  Two requests; each
+               checks the frames handed to the two mp4 writers byte for
+               byte against the numpy path on the host copies, and that
+               the card converted 266 frames (`frames_on_card`).
   9. denoise — the whole of text→3DGS at full width through `text_to_3dgs`:
                UMT5-XXL and the Wan 2.1 1.3B DiT in bf16 (random weights
                drawn on the card from a seed), a seeded fake tokenizer (226
@@ -2282,9 +2285,35 @@ def _check_summary(summary: dict, n_gauss: int) -> str:
             f"depth.mp4 {mp4_bytes} B")
 
 
+def _check_frames_on_card(arts, written: dict, frames_on_card: int) -> dict:
+    """The uint8 frames the export made on the card and handed to the two
+    mp4 writers (`written`, by file name) against the numpy path
+    (`to_uint8_frames`, `turbo_depth`) run on the request's host copies of
+    the float frames, and the frames `orbit_uint8_frames` counted."""
+    import numpy as np
+
+    from vist3a_tpu_torch.io.video_export import to_uint8_frames, turbo_depth
+
+    t0 = time.perf_counter()
+    want = {"gs.mp4": to_uint8_frames(arts.color),
+            "depth.mp4": to_uint8_frames(turbo_depth(arts.depth, 13))}
+    numpy_s = time.perf_counter() - t0
+    bytes_off = {name: int(np.count_nonzero(written[name] != w))
+                 if written[name].shape == w.shape else -1
+                 for name, w in want.items()}
+    check(bytes_off == {"gs.mp4": 0, "depth.mp4": 0},
+          f"mp4 frames off the numpy path's: {bytes_off} bytes")
+    check(frames_on_card == 2 * ORBIT_VIEWS,
+          f"frames_on_card {frames_on_card}, want {2 * ORBIT_VIEWS}")
+    return {"bytes_equal": True, "bytes_off": bytes_off,
+            "frames_on_card": frames_on_card,
+            "numpy_path_s": round(numpy_s, 3)}
+
+
 def phase_decode(model, vae, profile: bool) -> dict:
     import torch
 
+    from vist3a_tpu_torch.io import video_export
     from vist3a_tpu_torch.kernels import flash_attention as fa
     from vist3a_tpu_torch.kernels import rasterizer as tr
     from vist3a_tpu_torch.pipelines import t23d
@@ -2300,15 +2329,26 @@ def phase_decode(model, vae, profile: bool) -> dict:
             (IMAGE, IMAGE), orbit_t=ORBIT_T)
         return out, video, arts
 
+    # the frames each mp4 writer is handed, for the check against the
+    # numpy path
+    written = {}
+    write_mp4 = video_export.write_mp4
+
+    def capture(video, path, fps=20):
+        written[os.path.basename(path)] = video
+        return write_mp4(video, path, fps)
+
     tmp = tempfile.mkdtemp(prefix="vist3a_decode_")
-    latencies, peaks = [], []
+    latencies, peaks, exports = [], [], []
     counts = {"unmasked": 0, "masked": 0, "composite": 0}
+    video_export.write_mp4 = capture
     try:
         for i in range(DECODE_REQUESTS):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             fa.reset_launch_counts()
             tr.reset_launch_counts()
+            video_export.reset_frame_counts()
             t0 = time.perf_counter()
             out, video, arts = request(os.path.join(tmp, f"scene{i}"))
             torch.cuda.synchronize()
@@ -2327,6 +2367,8 @@ def phase_decode(model, vae, profile: bool) -> dict:
                   and float(video.abs().max()) <= 1.0, "video not in [−1, 1]")
             _check_output(out, GAUSSIANS)
             summary = _check_artifacts(arts)
+            exports.append(_check_frames_on_card(
+                arts, written, video_export.frames_on_card))
             log(f"decode: request {i}: {latencies[-1]:.1f} ms, launches "
                 f"{grew}, video {tuple(video.shape)} in "
                 f"[{video.min().item():.4f}, {video.max().item():.4f}], "
@@ -2334,13 +2376,15 @@ def phase_decode(model, vae, profile: bool) -> dict:
             del out, video, arts
             shutil.rmtree(os.path.join(tmp, f"scene{i}"), ignore_errors=True)
         log(f"decode: latency ms {latencies}; peak memory allocated {peaks}; "
-            f"launches {counts}")
+            f"launches {counts}; export {json.dumps(exports)}")
         if profile:
             profile_call("decode", lambda: request(os.path.join(tmp, "prof")),
                          DECODE_STAGES, RENDER_STAGES)
     finally:
+        video_export.write_mp4 = write_mp4
         shutil.rmtree(tmp, ignore_errors=True)
-    return {"latency_ms": latencies, "peak_bytes": peaks, "launches": counts}
+    return {"latency_ms": latencies, "peak_bytes": peaks, "launches": counts,
+            "export": exports}
 
 
 def fake_tokenizer(cfg):

@@ -24,6 +24,7 @@ Tolerances, with their reasons:
 
 import os
 
+import export_cases
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -206,6 +207,24 @@ def test_turbo_depth_is_exact(rng):
         np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("num_views", [13, 1])
+@pytest.mark.parametrize("case", export_cases.CASES)
+def test_orbit_uint8_frames_equal_the_numpy_paths(case, num_views):
+    """The frames the export makes on the render's device, byte for byte
+    the numpy functions' (`tests/export_cases.py` says what each case
+    holds)."""
+    color, depth = export_cases.orbit(case, (27, 24, 32), seed=21)
+    tvid.reset_frame_counts()
+    gs, dep = tvid.orbit_uint8_frames(torch.from_numpy(color),
+                                      torch.from_numpy(depth), num_views)
+    assert gs.dtype == dep.dtype == np.uint8
+    assert gs.shape == dep.shape == (27, 24, 32, 3)
+    np.testing.assert_array_equal(gs, tvid.to_uint8_frames(color))
+    np.testing.assert_array_equal(
+        dep, tvid.to_uint8_frames(tvid.turbo_depth(depth, num_views)))
+    assert tvid.frames_on_card == 2 * 27
+
+
 def test_ply_bytes_equal_the_jax_packages(rng, tmp_path):
     """The JAX package's defaults, which the export uses: the DC band, no
     shift-and-scale."""
@@ -268,3 +287,32 @@ def test_export_artifacts_writes_what_the_user_gets(decoded, tmp_path):
     np.testing.assert_allclose(np.exp(ply["scale_0"]),
                                out.gaussians.scales[0, :, 0].numpy(),
                                rtol=1e-5, atol=1e-7)
+
+
+def test_save_interpolated_video_hands_the_writer_the_numpy_frames(
+        decoded, tmp_path, monkeypatch):
+    """Both mp4 writers get the arrays the numpy path makes from the
+    orbit's host copies, and `frames_on_card` counts both videos."""
+    (out, _), _, _ = decoded
+    written = {}
+
+    def capture(video, path, fps=20):
+        written[os.path.basename(path)] = video
+        return str(path)
+    monkeypatch.setattr(tvid, "write_mp4", capture)
+    tvid.reset_frame_counts()
+    video = tvid.save_interpolated_video(
+        out.extrinsic_c2w, out.intrinsic_norm, out.gaussians, (32, 32),
+        str(tmp_path), t=1, device="cpu")
+    n = 12 * 2 + 1
+    assert video.color.dtype == video.depth.dtype == np.float32
+    assert video.color.shape == (n, 3, 32, 32)
+    assert video.depth.shape == (n, 32, 32)
+    assert sorted(written) == ["depth.mp4", "gs.mp4"]
+    for name, want in (
+            ("gs.mp4", tvid.to_uint8_frames(video.color)),
+            ("depth.mp4", tvid.to_uint8_frames(
+                tvid.turbo_depth(video.depth, 13)))):
+        assert written[name].dtype == np.uint8
+        np.testing.assert_array_equal(written[name], want)
+    assert tvid.frames_on_card == 2 * n

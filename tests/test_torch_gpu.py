@@ -7,9 +7,12 @@ that has only PyTorch and the CUDA toolkit:
 
 (`--noconftest`: the suite's conftest imports JAX.)  Inputs are made on the
 card from a seeded generator, or with numpy from a seed by
-`tests/raster_cases.py` (torch and the port only).
+`tests/raster_cases.py` and `tests/export_cases.py` (torch and the port
+only).
 """
 
+import export_cases
+import numpy as np
 import pytest
 import raster_cases
 import torch
@@ -17,6 +20,7 @@ import torch
 from chip_smoke import (QK_CASES, RASTER_ATOL, RASTER_BWD_MAX_OFF_SHARE,
                         RASTER_BWD_MAX_REL, RASTER_BWD_RTOL,
                         RASTER_MAX_OFF_SHARE, compare_qk_prologue)
+from vist3a_tpu_torch.io import video_export
 from vist3a_tpu_torch.kernels import flash_attention as fa
 from vist3a_tpu_torch.kernels import qk_prologue as qkp
 from vist3a_tpu_torch.kernels import rasterizer as tr
@@ -302,6 +306,22 @@ def test_composite_kernel_matches_plain_on_card(cuda, g, w, h, budget):
     off = ((img - ref).abs() > 1e-5 + 1e-5 * ref.abs()).any(0)
     assert off.float().mean().item() <= 0.005
     assert float(img[4].max()) > 0.5          # the splats cover pixels
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", export_cases.CASES)
+def test_orbit_uint8_frames_on_card_equal_the_numpy_paths(cuda, case):
+    """The export's frames made on the card at the scene's orbit (133 views
+    at 448², every 13th a key frame), byte for byte the numpy functions':
+    CUDA divides by a host scalar as a multiply by its reciprocal, which
+    the bin_edges case shows."""
+    color, depth = export_cases.orbit(case, (133, 448, 448), seed=21)
+    gs, dep = video_export.orbit_uint8_frames(
+        torch.from_numpy(color).to(cuda), torch.from_numpy(depth).to(cuda),
+        13)
+    np.testing.assert_array_equal(gs, video_export.to_uint8_frames(color))
+    np.testing.assert_array_equal(dep, video_export.to_uint8_frames(
+        video_export.turbo_depth(depth, 13)))
 
 
 @pytest.mark.gpu
